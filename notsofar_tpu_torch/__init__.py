@@ -1,0 +1,21 @@
+"""notsofar_tpu_torch — the PyTorch/CUDA port of notsofar_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package ``notsofar_tpu`` is the reference: each module here keeps
+the file name and public names of its counterpart there, so every port
+file names the file it is held against. The port imports ``torch`` and
+never ``jax`` or ``notsofar_tpu``; modules it needs that have no framework
+code are copied, not imported.
+
+Ported so far (slice 1, ASR serving):
+    utils   — logging, wav reading, stage timing, device selection
+    asr     — mel frontend, tokenizer, greedy/beam decoding, word
+              timestamps, long-form transcription, asr_inference
+    models  — Whisper encoder/decoder (torch.nn)
+    ops     — the hand-written Hopper kernels (csrc/*.cu) behind their
+              wrappers, each with a plain PyTorch version
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

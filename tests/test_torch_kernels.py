@@ -1,0 +1,227 @@
+"""notsofar_tpu_torch.ops.kernels against the JAX package's Pallas kernels.
+
+On the CPU every wrapper takes its plain PyTorch version (the kernels are
+CUDA-only); these tests hold those plain versions to the Pallas kernels in
+interpret mode on the same numpy inputs. The `gpu`-marked tests hold each
+CUDA kernel to its plain version on the card and skip without one.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from notsofar_tpu.ops import pallas_kernels as pk
+from notsofar_tpu_torch.ops import kernels as tk
+from tests.test_torch_whisper import torch_threads  # noqa: F401
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """Round f32 numpy values to bf16 (the same values on both sides)."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("S,dk,seed", [(621, 64, 7), (512, 64, 8)])
+def test_encoder_mha_plain_matches_pallas(S, dk, seed):
+    """621 pads to 1024 inside the Pallas wrapper (masked key padding);
+    512 is block-aligned. bf16 inputs, bf16 output on both sides:
+    tolerance one bf16 ulp of the output scale (2**-8 relative)."""
+    rng = np.random.RandomState(seed)
+    BH = 4
+    scale = dk ** -0.25
+    q, k, v = (bf16_round(rng.randn(BH, S, dk).astype(np.float32) * 0.5)
+               for _ in range(3))
+    qs, ks = bf16_round(q * scale), bf16_round(k * scale)
+    want = np.asarray(pk.encoder_mha(
+        jnp.asarray(qs, jnp.bfloat16), jnp.asarray(ks, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), interpret=True)).astype(np.float32)
+    got = tk.encoder_mha(t(qs).bfloat16(), t(ks).bfloat16(),
+                         t(v).bfloat16())
+    assert got.dtype == torch.bfloat16 and got.shape == (BH, S, dk)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2 ** -8 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("dk,H,ctx,pos,pads", [
+    (64, 4, 64, 37, [0, 5, 12]),
+    (128, 2, 32, 10, [3, 0, 0]),
+])
+def test_attn_step_plain_matches_pallas(dk, H, ctx, pos, pads):
+    """f32 caches with per-row left pads; tolerance 1e-5 (f32 sums in
+    another order)."""
+    rng = np.random.RandomState(dk + pos)
+    B, D = len(pads), H * dk
+    pads = np.asarray(pads, np.int32)
+    q = rng.randn(B, 1, D).astype(np.float32) * 0.3 * dk ** -0.5
+    kc = rng.randn(B, ctx, D).astype(np.float32) * 0.3
+    vc = rng.randn(B, ctx, D).astype(np.float32) * 0.3
+    want = np.asarray(pk.attn_step(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(pos, jnp.int32), jnp.asarray(pads), dk, interpret=True))
+    got = tk.attn_step(t(q), t(kc), t(vc), pos, t(pads), dk)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_anc", [False, True])
+def test_attn_step_split_plain_matches_pallas(with_anc):
+    """Split prompt/generated cache with per-stream pads, with and without
+    the beam ancestry matrix; tolerance 1e-5 (f32)."""
+    rng = np.random.RandomState(11 + with_anc)
+    B, K, Pp, G, H, dk = 2, 3, 16, 32, 4, 64
+    D, BK, gslot = H * dk, B * K, 9
+    pads = np.asarray([0, 5], np.int32)
+    q = rng.randn(BK, 1, D).astype(np.float32) * 0.3 * dk ** -0.5
+    kp, vp = (rng.randn(B, Pp, D).astype(np.float32) * 0.3
+              for _ in range(2))
+    kg, vg = (rng.randn(BK, G, D).astype(np.float32) * 0.3
+              for _ in range(2))
+    anc = None
+    if with_anc:
+        anc = rng.randint(0, K, (B, K, G)).astype(np.int32)
+        anc[:, :, gslot] = np.arange(K)[None, :]
+    want = np.asarray(pk.attn_step_split(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(kg),
+        jnp.asarray(vg), jnp.asarray(gslot, jnp.int32), jnp.asarray(pads),
+        dk, K, anc=None if anc is None else jnp.asarray(anc),
+        interpret=True))
+    got = tk.attn_step_split(t(q), t(kp), t(vp), t(kg), t(vg), gslot,
+                             t(pads), dk, K,
+                             anc=None if anc is None else t(anc))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_attn_step_split_single_beam_matches_attn_step():
+    """K=1 split attention == attn_step over the concatenated cache, in the
+    port and in the JAX package."""
+    rng = np.random.RandomState(8)
+    B, Pp, G, H, dk = 2, 8, 16, 2, 64
+    D, gslot = H * dk, 4
+    q = rng.randn(B, 1, D).astype(np.float32) * 0.3
+    kp, vp = (rng.randn(B, Pp, D).astype(np.float32) * 0.3
+              for _ in range(2))
+    kg, vg = (rng.randn(B, G, D).astype(np.float32) * 0.3
+              for _ in range(2))
+    pads = np.asarray([0, 3], np.int32)
+    got = tk.attn_step_split(t(q), t(kp), t(vp), t(kg), t(vg), gslot,
+                             t(pads), dk, 1)
+    kc, vc = np.concatenate([kp, kg], 1), np.concatenate([vp, vg], 1)
+    # keys past the current slot carry weight exp(-1e30) = 0 either way
+    kc[:, Pp + gslot + 1:] = 0.0
+    vc[:, Pp + gslot + 1:] = 0.0
+    mine = tk.attn_step(t(q), t(kc), t(vc), Pp + gslot, t(pads), dk)
+    ref = np.asarray(pk.attn_step(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(Pp + gslot, jnp.int32), jnp.asarray(pads), dk,
+        interpret=True))
+    np.testing.assert_allclose(got.numpy(), mine.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_split_visibility_bias_matches_the_jax_wrapper():
+    """The plain version's bias is the JAX wrapper's (0 / -1e30)."""
+    B, K, Pp, G, gslot = 2, 3, 5, 6, 3
+    pads = np.asarray([1, 4], np.int32)
+    anc = np.random.RandomState(0).randint(0, K, (B, K, G)).astype(np.int32)
+    bias = tk.split_visibility_bias(B, K, Pp, G, gslot, t(pads), t(anc))
+    vis_p = np.arange(Pp)[None, None, :] >= pads[:, None, None]
+    eq = anc[:, :, None, :] == np.arange(K)[None, None, :, None]
+    vis_g = (eq & (np.arange(G) <= gslot)).reshape(B, K, K * G)
+    vis = np.concatenate([np.broadcast_to(vis_p, (B, K, Pp)), vis_g], -1)
+    np.testing.assert_array_equal(bias.numpy(),
+                                  np.where(vis, 0.0, -1e30).astype(np.float32))
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_nothing():
+    tk.reset_launches()
+    q = torch.randn(2, 512, 64).bfloat16()
+    out = tk.encoder_mha(q, q, q)
+    torch.testing.assert_close(out, tk.encoder_mha_plain(q, q, q))
+    assert all(n == 0 for n in tk.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are CUDA-only)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,dk,dtype,tol", [
+    (621, 64, torch.bfloat16, 1e-2),   # one bf16 ulp at |out| <= 2
+    (1500, 64, torch.bfloat16, 1e-2),
+    (1500, 128, torch.bfloat16, 1e-2),
+    (621, 64, torch.float32, 1e-5),    # f32 sums in another order
+    (1500, 128, torch.float32, 1e-5),
+])
+def test_gpu_encoder_mha_kernel(cuda, S, dk, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(6, S, dk, generator=g, device=cuda)
+               .mul(0.35).to(dtype) for _ in range(3))
+    before = tk.LAUNCHES["encoder_mha"]
+    out = tk.encoder_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["encoder_mha"] == before + 1
+    assert out.dtype == dtype
+    err = (out.float() - tk.encoder_mha_plain(q, k, v).float()).abs().max()
+    assert err.item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+def test_gpu_attn_step_kernel(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, ctx, D, dk, pos = 5, 96, 1280, 64, 70
+    q = torch.randn(B, 1, D, generator=g, device=cuda).mul(0.125).to(dtype)
+    kc, vc = (torch.randn(B, ctx, D, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    pads = torch.tensor([0, 3, 9, 40, 70], dtype=torch.int32, device=cuda)
+    out = tk.attn_step(q, kc, vc, pos, pads, dk)
+    ref = tk.attn_step_plain(q, kc, vc, pos, pads, dk)
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+def test_gpu_attn_step_split_kernel(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, K, Pp, G, D, dk, gslot = 3, 5, 32, 64, 1280, 64, 20
+    q = torch.randn(B * K, 1, D, generator=g, device=cuda).mul(0.125) \
+        .to(dtype)
+    kp, vp = (torch.randn(B, Pp, D, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    kg, vg = (torch.randn(B * K, G, D, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    pads = torch.tensor([0, 7, 31], dtype=torch.int32, device=cuda)
+    anc = torch.randint(0, K, (B, K, G), generator=g, device=cuda,
+                        dtype=torch.int32)
+    anc[:, :, gslot] = torch.arange(K, dtype=torch.int32, device=cuda)
+    for a in (None, anc):
+        out = tk.attn_step_split(q, kp, vp, kg, vg, gslot, pads, dk, K, a)
+        ref = tk.attn_step_split_plain(q, kp, vp, kg, vg, gslot, pads, dk,
+                                       K, a)
+        assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(2, 512, 64, device=cuda).half()   # no f16 kernel
+    with pytest.raises(ValueError):
+        tk.encoder_mha(q, q, q)
+    with pytest.raises(ValueError):                    # mixed dtypes
+        tk.encoder_mha(q.float(), q.float(), q.bfloat16())
+    kc = torch.randn(2, 16, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError):                    # pos outside cache
+        tk.attn_step(kc[:, :1], kc, kc, 16,
+                     torch.zeros(2, dtype=torch.int32, device=cuda), 64)
