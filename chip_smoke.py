@@ -3,20 +3,24 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 chip_smoke.py                  # about 200 s on one H100
+    python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 
 1. card      print nvidia-smi's name and power limit.
 2. kernels   build csrc/*.cu with nvcc (one process per source, all in
-             parallel); at the large-v3 shapes of the ASR path hold each
+             parallel); at the main path's shapes (large-v3 attention,
+             TitaNet-large depthwise convs at k = 7, 11, 15) hold each
              kernel against its plain PyTorch version, show that the
-             tolerance would catch a change of one key, and time kernel,
-             plain version and one PyTorch library call (CUDA events, L2
-             flushed before every call).
+             tolerance would catch a change of one key or tap, and time
+             kernel, plain version and one PyTorch library call (CUDA
+             events, L2 flushed before every call).
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
-             and beam-3 decode tokens (f32, TF32 off).
+             and beam-3 decode tokens (f32, TF32 off); a small TitaNet
+             likewise (embeddings in f32 and bf16); the device
+             clustering chain on a CUDA affinity against the float64
+             host path (p_hat, speaker count, partition).
 4. asr beam  a seeded synthetic session of 3 streams x 40 s through
              asr_inference with the shipped config: Whisper large-v3 at
              full width, bf16, beam 5, word timestamps,
@@ -26,13 +30,24 @@ Phases (any failure raises and exits non-zero):
 5. asr greedy the same session with beam_size=None (greedy + fallback
              ladder); counted the same way: encoder_mha and attn_step
              must be > 0.
+6. diarization the shipped word_nmesc config (6 scales, dedup,
+             TitaNet-large at full width in bf16, seeded random weights)
+             on the ASR dataframes of phases 4 and 5 as two sessions,
+             each with a seeded word track added (random-weight Whisper
+             emits almost no words; see add_word_track):
+             diarization_batch_prepass, each session read back from the
+             cache, then one serial diarization_inference of the beam-5
+             session, whose speaker count must equal the prepass's.
+             Each session needs >= 64 words (the device clustering
+             chain); depthwise_conv1d must launch 9 times per planned
+             TitaNet chunk.
 
 The line before the last is {"kernels": [...]}, with each kernel's
-launches summed over phases 4-5 and split by phase in
+launches summed over phases 4-6 and split by phase in
 "launches_by_path"; the last line is {"ok": true, "device": {...}}. The
 run writes under chiprun_out/: the kernels' ptxas report
-(kernel_build.log) and, while it runs, the session's wavs and ASR
-pickles (deleted at the end).
+(kernel_build.log) and, while it runs, the session's wavs, ASR and
+diarization pickles (deleted at the end).
 """
 import json
 import math
@@ -51,6 +66,7 @@ OUT = ROOT / "chiprun_out"
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12           # f32 FMA outside the tensor cores
 
 KERNEL_ITERS = 50                # timed calls per kernel in phase 2
 
@@ -116,35 +132,41 @@ def check_kernels(iters: int):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     def record(name, replaces, out, ref, tol, mutant, fn, plain, library,
-               nbytes, flops):
+               nbytes, flops, peak_flops=PEAK_BF16_FLOPS, label=None,
+               row=True):
         """Hold `out` to `ref` within `tol`, and `mutant` (the plain
-        version on inputs with one key changed) outside it, so the
-        tolerance is shown to catch a one-key error; then time."""
+        version on inputs with one key or tap changed) outside it, so the
+        tolerance is shown to catch a one-input error; then time. With
+        `row`, the result becomes the kernel's row of the {"kernels": ...}
+        line; without, it is only logged."""
+        label = label or name
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         moved = (out.float() - mutant.float()).abs().max().item()
         ms = time_cuda(fn, iters)
         plain_ms = time_cuda(plain, max(iters // 4, 3))
         lib_ms = time_cuda(library, iters) if library is not None else None
-        b, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-        log(f"kernel {name}: max_abs_err {err:.3e} (tolerance {tol:.3e}; "
-            f"max|ref| {ref.float().abs().max().item():.3e}, mean|ref| "
-            f"{ref.float().abs().mean().item():.3e}; one key changed moves "
-            f"it {moved:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-            f"bound {b:.4f} ms by {by} ({nbytes / 1e6:.3f} MB, "
+        b, by = bound_ms(nbytes, flops, peak_flops)
+        log(f"kernel {label}: max_abs_err {err:.3e} (tolerance "
+            f"{tol:.3e}; max|ref| {ref.float().abs().max().item():.3e}, "
+            f"mean|ref| {ref.float().abs().mean().item():.3e}; one input "
+            f"changed moves it {moved:.3e}) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
+            f"{b:.4f} ms by {by} ({nbytes / 1e6:.3f} MB, "
             f"{flops / 1e9:.4f} GFLOP)")
         if not (math.isfinite(err) and err <= tol):
-            raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+            raise AssertionError(f"{label}: max_abs_err {err} > {tol}")
         if not moved > tol:
-            raise AssertionError(f"{name}: a one-key change moves the output "
-                                 f"{moved}, within the tolerance {tol}")
-        rows.append(dict(name=name, route="cuda",
-                         source=f"notsofar_tpu_torch/csrc/{name}.cu",
-                         replaces=replaces, launches=None,
-                         launches_by_path=None, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                         library_ms=lib_ms))
+            raise AssertionError(f"{label}: a one-input change moves the "
+                                 f"output {moved}, within the tolerance {tol}")
+        if row:
+            rows.append(dict(name=name, route="cuda",
+                             source=f"notsofar_tpu_torch/csrc/{name}.cu",
+                             replaces=replaces, launches=None,
+                             launches_by_path=None, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b,
+                             bound_by=by, library_ms=lib_ms))
 
     # encoder_mha: 3 windows x 20 heads, S=1500, dk=64; q and k pre-scaled
     # by dk**-0.25 as the encoder does. Every key is visible.
@@ -234,6 +256,16 @@ def check_kernels(iters: int):
     # one that did, at a typical weight p ~ 1.3e-3, would move the output
     # by ~5e-6, so the tolerance admits about two such weights. A wrong
     # ancestry entry on one slot moves it by ~1e-2.
+    # library: one SDPA call over the keys pre-concatenated as
+    # [prompt | K generated segments] per stream, the K beams as query
+    # rows, with the boolean visibility mask of split_visibility_bias
+    cols = Pp + Kb * G
+    q_lib = qe2.view(Bs, Kb, H, dk).transpose(1, 2).contiguous()
+    k_lib, v_lib = (torch.cat([p_, g_.view(Bs, Kb * G, D)], 1)
+                    .view(Bs, cols, H, dk).transpose(1, 2).contiguous()
+                    for p_, g_ in ((kp, kg), (vp, vg)))
+    vis_lib = (K.split_visibility_bias(Bs, Kb, Pp, G, gslot, pads2, anc)
+               == 0)[:, None]                          # [Bs, 1, Kb, cols]
     record("attn_step_split", "notsofar_tpu/ops/pallas_kernels.py:334",
            K.attn_step_split(qe2, kp, vp, kg, vg, gslot, pads2, dk, Kb,
                              anc=anc),
@@ -245,10 +277,43 @@ def check_kernels(iters: int):
                                      Kb, anc=anc),
            lambda: K.attn_step_split_plain(qe2, kp, vp, kg, vg, gslot,
                                            pads2, dk, Kb, anc=anc),
-           None,
+           lambda: F.scaled_dot_product_attention(q_lib, k_lib, v_lib,
+                                                  attn_mask=vis_lib,
+                                                  scale=1.0),
            nbytes=(2 * n_rows * D + Bs * Kb * D) * 2 + Bs * 4
            + Bs * Kb * n_gen * 4 + Bs * Kb * D * 4,
            flops=4 * D * (Kb * n_prompt + Bs * Kb * n_gen))
+
+    # depthwise_conv1d at the TitaNet-large shapes of the diarization
+    # path: 256 windows of the largest bucket (3.072 s -> 320 frames),
+    # 1024 channels, bf16 activations, f32 taps, k = 7, 11, 15 (the three
+    # mega blocks). The row of the kernels line is k = 15; k = 7 and 11 are
+    # checked and timed on the lines before it.
+    Bd, Td, Cd = 256, 320, 1024
+    xd = randn(Bd, Td, Cd)
+    for k in (7, 11, 15):
+        w = randn(k, Cd, dtype=torch.float32) * k ** -0.5
+        w_mut = w.clone()
+        w_mut[0, 0] += 1.0                 # channel 0's tap 0 changed
+        # tolerance: the kernel sums with FMAs, the plain version with a
+        # rounded product and a rounded add, both in the order i=0..k-1
+        # from 0; each of the k steps rounds once or twice, so the two
+        # differ by at most 2k roundings of the running sum, each at most
+        # 2**-24 of sum_i |x w| (largest over the outputs)
+        mag = K.depthwise_conv1d_plain(xd.abs(), w.abs(), k).max().item()
+        tol = 2 * k * 2.0 ** -24 * mag
+        w_bct = w.t()[:, None, :].to(bf).contiguous()   # [C, 1, k]
+        x_bct = xd.transpose(1, 2).contiguous()          # [B, C, T]
+        record(
+            "depthwise_conv1d", "notsofar_tpu/ops/pallas_kernels.py:435",
+            K.depthwise_conv1d(xd, w, k), K.depthwise_conv1d_plain(xd, w, k),
+            tol, K.depthwise_conv1d_plain(xd, w_mut, k),
+            lambda: K.depthwise_conv1d(xd, w, k),
+            lambda: K.depthwise_conv1d_plain(xd, w, k),
+            lambda: F.conv1d(x_bct, w_bct, padding=(k - 1) // 2, groups=Cd),
+            nbytes=Bd * Td * Cd * 2 + k * Cd * 4 + Bd * Td * Cd * 4,
+            flops=2 * k * Bd * Td * Cd, peak_flops=PEAK_F32_FLOPS,
+            label=f"depthwise_conv1d k={k}", row=k == 15)
     return rows
 
 
@@ -313,6 +378,77 @@ def check_reference():
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def same_partition(a, b) -> bool:
+    """Two label arrays split the items the same way (up to label ids)."""
+    pairs = set(zip(np.asarray(a).tolist(), np.asarray(b).tolist()))
+    return len(pairs) == len(set(np.asarray(a).tolist())) \
+        == len(set(np.asarray(b).tolist()))
+
+
+def check_diarization_reference():
+    """A small TitaNet on the card (its mega-block depthwise convs through
+    the CUDA kernel) against the same weights on the CPU (plain version),
+    in f32 with TF32 off and in bf16; then the device clustering chain on
+    a CUDA affinity against the float64 host path."""
+    from notsofar_tpu_torch.diarization import clustering as C
+    from notsofar_tpu_torch.models.titanet import SpeakerEncoder, TitaNetConfig
+    from notsofar_tpu_torch.ops import kernels
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TitaNetConfig(filters=128, epilogue_filters=256, attention_dim=16,
+                        emb_dim=32, block_kernels=(7, 11), block_repeat=2)
+    rng = np.random.RandomState(6)
+    wavs = (rng.randn(8, 24000) * 0.1).astype(np.float32)
+    lengths = rng.randint(8000, 24001, size=8).astype(np.int32)
+    for i, n in enumerate(lengths):
+        wavs[i, n:] = 0.0
+    # tolerances: f32 — sums in another order on both sides (cuBLAS,
+    # cuDNN and the kernel's FMAs against CPU kernels), ~1e-6 relative
+    # expected, 1e-4 allowed (the JAX-parity tolerance); bf16 — the same
+    # sums rounded to bf16 at every conv and dense output, so a value
+    # moves by up to a bf16 ulp (2**-8) per rounding point, 3e-2 allowed
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        cpu = SpeakerEncoder(cfg, compute_dtype=dtype, device="cpu", seed=5)
+        gpu = SpeakerEncoder(cfg, cpu.module.state_dict(),
+                             compute_dtype=dtype, device="cuda")
+        before = kernels.LAUNCHES["depthwise_conv1d"]
+        a = gpu.embed(wavs, lengths)
+        launched = kernels.LAUNCHES["depthwise_conv1d"] - before
+        b = cpu.embed(wavs, lengths)
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        log(f"reference titanet ({dtype}): relative error {rel:.3e} "
+            f"(tolerance {tol:g}), depthwise_conv1d launches {launched}")
+        if not (math.isfinite(rel) and rel <= tol and launched == 4):
+            raise AssertionError(f"titanet reference ({dtype}): rel err "
+                                 f"{rel}, {launched} kernel launches")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # the seeded 4-speaker affinity of the JAX package's device-parity test
+    rng = np.random.RandomState(7)
+    spk = rng.randn(4, 64)
+    emb = spk[rng.randint(4, size=150)] + 0.4 * rng.randn(150, 64)
+    aff = C.cos_affinity_matrix(emb)
+    host = C.nmesc(aff)
+    host_labels = C.run_clustering(aff)
+    aff_dev = torch.tensor(aff, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    dev = C.nmesc(aff_dev)
+    dev_labels = C.run_clustering(aff_dev)
+    secs = time.perf_counter() - t0
+    log(f"reference clustering: host p_hat {host.p_hat} speakers "
+        f"{host.num_speakers} g_p {host.g_p:.6f}; cuda p_hat {dev.p_hat} "
+        f"speakers {dev.num_speakers} g_p {dev.g_p:.6f}; same partition "
+        f"{same_partition(host_labels, dev_labels)} ({secs:.2f} s on the "
+        "card for nmesc + run_clustering)")
+    if (dev.p_hat, dev.num_speakers) != (host.p_hat, host.num_speakers) \
+            or not same_partition(host_labels, dev_labels):
+        raise AssertionError("device clustering differs from the host path")
+
+
 # --------------------------------------------------------------------------
 # phases 4-5: the ASR serving path at full large-v3 width
 # --------------------------------------------------------------------------
@@ -351,7 +487,7 @@ def run_asr(session, work: Path, beam_size, label, needs):
     timestamps, the default max_new_tokens) and the given beam size.
     The launch counts are reset just before the call and read just
     after; every kernel in `needs` must have launched. Returns the
-    counts."""
+    counts and the segments dataframe."""
     import pandas as pd
     from notsofar_tpu_torch.asr.inference import WhisperAsrCfg, asr_inference
     from notsofar_tpu_torch.ops import kernels
@@ -395,7 +531,176 @@ def run_asr(session, work: Path, beam_size, label, needs):
         for w, ws, we in r.word_timing:
             if not (0 <= ws <= we <= 40.0 + 0.02):
                 raise AssertionError(f"bad word times {w!r} {ws} {we}")
+    return counts, df
+
+
+# --------------------------------------------------------------------------
+# phase 6: word-based diarization on the ASR output
+# --------------------------------------------------------------------------
+
+SHIPPED_SCALES = [3.0, 2.5, 2.0, 1.5, 1.0, 0.5]   # inference_v1.yaml
+
+
+def add_word_track(df, seconds: float, seed: int, per_segment: int = 8):
+    """The ASR dataframe plus a seeded track of words on every stream at
+    conversational density (0.15-0.9 s words, 0.05-0.5 s gaps: ~1.25
+    words/s per stream), as segments in the ASR frame's own format.
+
+    Random-weight Whisper leaves the ASR frames nearly wordless: its
+    near-uniform logits give the 1501 timestamp tokens more mass than any
+    text token, so the timestamp rule forces timestamps at almost every
+    step, and the byte-fallback tokenizer decodes ids >= 256 to nothing
+    (even with a full-size vocabulary and no hallucination rule, large-v3
+    gave 4 words per 30 s window on an H100). A meeting's transcript has
+    hundreds of words per stream; this track gives the diarization path
+    that load, on the session's own wavs."""
+    import pandas as pd
+    rng = np.random.RandomState(seed)
+    letters = "etaoinshrdlucmfwypvbgkjqxz"
+    rows = []
+    for wav in sorted(df.wav_file_name.unique()):
+        t, words = rng.uniform(0.0, 0.5), []
+        while True:
+            dur = rng.uniform(0.15, 0.9)
+            if t + dur > seconds:
+                break
+            text = " " + "".join(rng.choice(list(letters), rng.randint(2, 8)))
+            words.append([text, round(t, 2), round(t + dur, 2)])
+            t += dur + rng.uniform(0.05, 0.5)
+        for i in range(0, len(words), per_segment):
+            seg = words[i:i + per_segment]
+            rows.append(dict(start_time=seg[0][1], end_time=seg[-1][2],
+                             text="".join(w[0] for w in seg),
+                             word_timing=seg,
+                             meeting_id=df.meeting_id.iloc[0],
+                             session_id=df.session_id.iloc[0],
+                             wav_file_name=wav))
+    return pd.concat([df, pd.DataFrame(rows)], ignore_index=True)
+
+
+def planned_chunks(dfs, cfg, seconds: float, batch_size: int = 256) -> dict:
+    """Words, windows and TitaNet chunks that word_based_clustering_batch
+    plans for these sessions (one shared bucket plan); each chunk is one
+    TitaNet forward, 9 depthwise_conv1d launches at TitaNet-large."""
+    from notsofar_tpu_torch.diarization import word_based as wb
+    words_per, windows = [], []
+    for df in dfs:
+        d = df.copy()
+        d["wav_file_name"] = d["wav_file_name"].astype("category")
+        d["wav_file_name_ind"] = d["wav_file_name"].cat.codes
+        w, win = wb.collect_word_windows(d, seconds, cfg.min_embedding_windows,
+                                         cfg.max_allowed_word_duration)
+        words_per.append(len(w))
+        windows.extend((wds, ws) for wds, ws in zip(w, win))
+    tasks = wb.window_tasks([w for w, _ in windows],
+                             [ws for _, ws in windows], 16000,
+                             int(seconds * 16000))
+    buckets = wb.bucket_windows(tasks)
+    chunks = {b: wb.chunk_count(len(v), batch_size)
+              for b, v in sorted(buckets.items())}
+    return dict(words=words_per, windows=len(tasks),
+                windows_by_bucket={b: len(v) for b, v in
+                                   sorted(buckets.items())},
+                chunks_by_bucket=chunks, chunks=sum(chunks.values()))
+
+
+def run_diarization(work: Path, asr_dfs: dict, seconds: float = 40.0):
+    """The shipped word_nmesc config (6 scales, dedup, TitaNet-large at full
+    width in bf16, seeded random weights) on the ASR dataframes of
+    phases 4 and 5 as two sessions: diarization_batch_prepass, then each
+    session read back through diarization_inference(fetch_from_cache=
+    True), then one serial diarization_inference on the beam-5 session.
+    Launch counts are reset before the phase; depthwise_conv1d must
+    launch exactly 9 times per planned TitaNet chunk. Returns the
+    counts."""
+    import pandas as pd
+    from notsofar_tpu_torch.diarization.common import DiarizationCfg
+    from notsofar_tpu_torch.diarization.diarization import (
+        diarization_batch_prepass, diarization_inference)
+    from notsofar_tpu_torch.ops import kernels
+    from notsofar_tpu_torch.utils.profiling import StageTimer
+
+    cfg = DiarizationCfg(method="word_nmesc",
+                         min_embedding_windows=SHIPPED_SCALES,
+                         apply_deduplication=True)
+    dfs = {}
+    for seed, (label, df) in enumerate(asr_dfs.items()):
+        d = df.copy()
+        d["session_id"] = f"smoke_{label}"
+        n_asr = sum(len(wt) for wt in d.word_timing)
+        dfs[label] = add_word_track(d, seconds, seed)
+        log(f"diarization session smoke_{label}: {n_asr} ASR words + "
+            f"{sum(len(wt) for wt in dfs[label].word_timing) - n_asr} "
+            "track words")
+    plan = planned_chunks(list(dfs.values()), cfg, seconds)
+    serial_plan = planned_chunks([dfs["beam5"]], cfg, seconds)
+    log(f"diarization plan: words per session {plan['words']}, windows "
+        f"{plan['windows']} {plan['windows_by_bucket']}, chunks "
+        f"{plan['chunks']} {plan['chunks_by_bucket']}; serial beam5 "
+        f"chunks {serial_plan['chunks']}")
+    if min(plan["words"]) < 64:
+        raise AssertionError(f"sessions need >= 64 words for the device "
+                             f"clustering chain: {plan['words']}")
+
+    out_dir = work / "diar"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    prepass = StageTimer()
+    diarization_batch_prepass(str(out_dir), list(dfs.values()), cfg,
+                              fetch_from_cache=False, timer=prepass)
+    torch.cuda.synchronize()
+    t_prepass = time.perf_counter() - t0
+    speakers = {}
+    for label, df in dfs.items():
+        pkl = out_dir / "diarization" / f"smoke_{label}" / "word_nmesc" / \
+            "all_segments_df.pkl"
+        if not pkl.exists():
+            raise AssertionError(f"missing diarization pickle {pkl}")
+        out = diarization_inference(str(out_dir), df, cfg,
+                                    fetch_from_cache=True)
+        check_attributed(out, label, seconds)
+        speakers[label] = out.speaker_id.nunique()
+    t1 = time.perf_counter()
+    serial = StageTimer()
+    out = diarization_inference(str(work / "diar_serial"), dfs["beam5"], cfg,
+                                fetch_from_cache=False, timer=serial)
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t1
+    check_attributed(out, "beam5 serial", seconds)
+    counts = dict(kernels.LAUNCHES)
+    log(f"diarization: kernel launches {counts}")
+    log(f"diarization prepass: wall {t_prepass:.2f} s, stages "
+        f"{ {k: round(v, 3) for k, v in prepass.stage_seconds.items()} }; "
+        f"serial beam5: wall {t_serial:.2f} s, stages "
+        f"{ {k: round(v, 3) for k, v in serial.stage_seconds.items()} }; "
+        f"speakers {speakers}, serial beam5 {out.speaker_id.nunique()}; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    want = 9 * (plan["chunks"] + serial_plan["chunks"])
+    n = counts["depthwise_conv1d"]
+    if not (n > 0 and n % 9 == 0 and n == want):
+        raise AssertionError(f"depthwise_conv1d launched {n} times, "
+                             f"planned {want}")
+    if out.speaker_id.nunique() != speakers["beam5"]:
+        raise AssertionError("serial beam5 speaker count "
+                             f"{out.speaker_id.nunique()} != prepass "
+                             f"{speakers['beam5']}")
     return counts
+
+
+def check_attributed(df, label: str, seconds: float) -> None:
+    """Every word has a speaker and times inside the audio."""
+    if len(df) == 0 or df.speaker_id.isna().any():
+        raise AssertionError(f"diarization {label}: no segments or a "
+                             "segment without speaker")
+    for _, r in df.iterrows():
+        if not str(r.speaker_id).startswith("spk"):
+            raise AssertionError(f"diarization {label}: {r.speaker_id!r}")
+        for w in r.word_timing:                 # [text, start, end, ch]
+            if not (0 <= w[1] <= w[2] <= seconds + 0.02):
+                raise AssertionError(f"diarization {label}: bad word times "
+                                     f"{w!r}")
 
 
 def main() -> int:
@@ -426,17 +731,20 @@ def main() -> int:
 
     log("phase 3 reference")
     check_reference()
+    check_diarization_reference()
 
-    by_path = {}
+    by_path, asr_dfs = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=OUT) as tmp:
         work = Path(tmp)
         session = write_session(work)
         log("phase 4 asr, beam 5")
-        by_path["beam5"] = run_asr(session, work, 5, "beam5",
-                                   ("encoder_mha", "attn_step_split"))
+        by_path["beam5"], asr_dfs["beam5"] = run_asr(
+            session, work, 5, "beam5", ("encoder_mha", "attn_step_split"))
         log("phase 5 asr, greedy")
-        by_path["greedy"] = run_asr(session, work, None, "greedy",
-                                    ("encoder_mha", "attn_step"))
+        by_path["greedy"], asr_dfs["greedy"] = run_asr(
+            session, work, None, "greedy", ("encoder_mha", "attn_step"))
+        log("phase 6 diarization, word_nmesc")
+        by_path["diarization"] = run_diarization(work, asr_dfs)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -7,13 +7,16 @@ file names the file it is held against. The port imports ``torch`` and
 never ``jax`` or ``notsofar_tpu``; modules it needs that have no framework
 code are copied, not imported.
 
-Ported so far (slice 1, ASR serving):
-    utils   — logging, wav reading, stage timing, device selection
-    asr     — mel frontend, tokenizer, greedy/beam decoding, word
-              timestamps, long-form transcription, asr_inference
-    models  — Whisper encoder/decoder (torch.nn)
-    ops     — the hand-written Hopper kernels (csrc/*.cu) behind their
-              wrappers, each with a plain PyTorch version
+Ported so far (slice 1, ASR serving; slice 2, word-based diarization):
+    utils        — logging, wav I/O, stage timing, device selection
+    asr          — mel frontend, tokenizer, greedy/beam decoding, word
+                   timestamps, long-form transcription, asr_inference
+    diarization  — word windows, NMESC clustering (float64 host path and
+                   batched device path), diarization_inference
+    models       — Whisper encoder/decoder, TitaNet speaker encoder
+                   (torch.nn) and its NeMo checkpoint converter
+    ops          — the hand-written Hopper kernels (csrc/*.cu) behind
+                   their wrappers, each with a plain PyTorch version
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

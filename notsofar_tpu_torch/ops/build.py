@@ -20,7 +20,7 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("encoder_mha", "attn_step", "attn_step_split")
+KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +34,8 @@ _ARGTYPES = {
     "attn_step_split": ("attn_step_split", [_P, _P, _P, _P, _P, _P, _P, _P,
                                             _I, _I, _I, _I, _I, _I, _I, _I,
                                             _P]),
+    "depthwise_conv1d": ("depthwise_conv1d", [_P, _P, _P, _I, _I, _I, _I,
+                                              _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-"""The ASR path's attention kernels: CUDA wrappers, plain versions and
-launch counters.
+"""The port's kernels (the ASR path's attention kernels, the TitaNet
+depthwise conv): CUDA wrappers, plain versions and launch counters.
 
 Each function here has three parts:
 
@@ -10,9 +10,9 @@ Each function here has three parts:
   the launch failed, and adds one to ``LAUNCHES[name]``. There is no
   fallback from a CUDA tensor to the plain version.
 * ``<name>_plain``: the same function in plain PyTorch with the Pallas
-  kernel's rounding points (f32 logits and softmax, weights rounded to
-  the value dtype before the f32 p.v product). The CPU tests hold it to
-  the JAX package; the card holds the kernel to it.
+  kernel's rounding points (for attention: f32 logits and softmax,
+  weights rounded to the value dtype before the f32 p.v product). The CPU
+  tests hold it to the JAX package; the card holds the kernel to it.
 * the kernel source, which names the TPU kernel it replaces
   (notsofar_tpu/ops/pallas_kernels.py) and what bounds it on an H100.
 """
@@ -266,4 +266,55 @@ def attn_step_split(q_eff: torch.Tensor, k_prompt: torch.Tensor,
         B, K, Pp, G, D, dk, gslot, int(dt == torch.bfloat16), _stream())
     LAUNCHES["attn_step_split"] += 1
     _check_rc("attn_step_split", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# depthwise_conv1d (pallas_kernels.py:435)
+# ---------------------------------------------------------------------------
+
+def depthwise_conv1d_plain(x: torch.Tensor, w: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """x [B, T, C], w [k, C] -> [B, T, C] f32: the k shifted products of
+    x.float() and w[i], summed in f32 in the order i = 0..k-1, over x
+    zero-padded by (k-1)//2 rows before and k-1-(k-1)//2 after."""
+    B, T, C = x.shape
+    pad = (k - 1) // 2
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pad, k - 1 - pad))
+    wf = w.float()
+    acc = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        acc = acc + xp[:, i:i + T] * wf[i]
+    return acc
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, k: int
+                     ) -> torch.Tensor:
+    """'Same'-padded depthwise conv over time (TitaNet's channels-as-groups
+    conv).
+
+    x: [B, T, C] bf16 or f32 with C % 128 == 0; w: [k, C] f32 per-channel
+    taps, 2 <= k <= 16. Returns [B, T, C] f32."""
+    k = int(k)
+    if not _on_card("depthwise_conv1d", x, w):
+        return depthwise_conv1d_plain(x, w, k)
+    if x.dim() != 3:
+        raise ValueError("depthwise_conv1d: x must be [B, T, C]")
+    B, T, C = x.shape
+    if C % 128 or B == 0 or T == 0:
+        raise ValueError(f"depthwise_conv1d: C={C} must be a multiple of "
+                         "128 and B, T nonzero")
+    if not 2 <= k <= 16 or w.shape != (k, C):
+        raise ValueError(f"depthwise_conv1d: w must be [k, C] with "
+                         f"2 <= k <= 16, got {tuple(w.shape)} for k={k}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or \
+            w.dtype != torch.float32:
+        raise ValueError("depthwise_conv1d: x bf16 or f32, w f32")
+    out = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
+    lib = build.load("depthwise_conv1d")
+    rc = lib.depthwise_conv1d(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              B, T, C, k, int(x.dtype == torch.bfloat16),
+                              _stream())
+    LAUNCHES["depthwise_conv1d"] += 1
+    _check_rc("depthwise_conv1d", rc)
     return out

@@ -12,7 +12,18 @@ import torch
 
 from notsofar_tpu.ops import pallas_kernels as pk
 from notsofar_tpu_torch.ops import kernels as tk
-from tests.test_torch_whisper import torch_threads  # noqa: F401
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    """Two torch threads per module while it runs (several pytest workers
+    share the CPU), then the old setting back. Defined here rather than
+    imported from tests/, so that this file also runs where another
+    installed package is named `tests` (the card machine's gpu run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def t(x):
@@ -136,6 +147,73 @@ def test_split_visibility_bias_matches_the_jax_wrapper():
                                   np.where(vis, 0.0, -1e30).astype(np.float32))
 
 
+@pytest.mark.parametrize("C", [128, 256])
+@pytest.mark.parametrize("k", [3, 7, 11, 15])
+def test_depthwise_conv1d_plain_matches_pallas_and_grouped_conv(k, C):
+    """The plain version against the Pallas kernel (interpret mode) and
+    flax nn.Conv(feature_group_count=C), f32; T=40 is no multiple of the
+    CUDA kernel's 64-row tile. Tolerance 1e-5 relative (f32 sums in
+    another order)."""
+    import flax.linen as nn
+    rng = np.random.RandomState(k * C)
+    B, T = 3, 40
+    x = rng.randn(B, T, C).astype(np.float32)
+    w = rng.randn(k, C).astype(np.float32) * 0.2
+    got = tk.depthwise_conv1d(t(x), t(w), k)
+    assert got.dtype == torch.float32 and got.shape == (B, T, C)
+    got = got.numpy()
+    pallas = np.asarray(pk.depthwise_conv1d(jnp.asarray(x), jnp.asarray(w),
+                                            k, interpret=True))
+    conv = nn.Conv(C, kernel_size=(k,), padding=[((k - 1) // 2,) * 2],
+                   feature_group_count=C, use_bias=False)
+    flax_out = np.asarray(conv.apply({"params": {"kernel": w[:, None, :]}},
+                                     jnp.asarray(x)))
+    for want in (pallas, flax_out):
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+
+
+@pytest.mark.parametrize("C,k", [(128, 7), (80, 3), (128, 1)])
+def test_titanet_depthwise_module_matches_jax(C, k):
+    """The port's DepthwiseConv against the JAX module with the same taps,
+    f32: C=128, k=7 takes the kernel wrapper (its plain version here),
+    C=80 and k=1 the grouped conv, as in the JAX module. Tolerance 1e-5."""
+    from notsofar_tpu.models import titanet as jt
+    from notsofar_tpu_torch.models import titanet as tt
+    rng = np.random.RandomState(3 + C + k)
+    B, T = 2, 50
+    x = rng.randn(B, T, C).astype(np.float32)
+    w = rng.randn(k, 1, C).astype(np.float32) * 0.2
+    want = np.asarray(jt.DepthwiseConv(k).apply({"params": {"kernel": w}},
+                                                jnp.asarray(x)))
+    mod = tt.DepthwiseConv(C, k, torch.float32)
+    mod.load_state_dict({"weight": t(w[:, 0, :])})
+    tk.reset_launches()
+    got = mod(t(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert tk.LAUNCHES["depthwise_conv1d"] == 0
+
+
+def test_titanet_depthwise_module_bf16_rounds_like_the_pallas_branch():
+    """At bf16, C % 128 == 0: the port's DepthwiseConv equals the JAX
+    module's TPU branch — the Pallas kernel on x in bf16 with f32 taps,
+    its f32 output cast to bf16 — to one bf16 ulp (2**-8 relative: the
+    f32 sums differ in order only)."""
+    from notsofar_tpu_torch.models import titanet as tt
+    rng = np.random.RandomState(5)
+    B, T, C, k = 2, 37, 128, 11
+    x = bf16_round(rng.randn(B, T, C).astype(np.float32))
+    w = rng.randn(k, C).astype(np.float32) * 0.2
+    want = np.asarray(pk.depthwise_conv1d(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), k,
+        interpret=True).astype(jnp.bfloat16)).astype(np.float32)
+    mod = tt.DepthwiseConv(C, k, torch.bfloat16)
+    mod.load_state_dict({"weight": t(w)})
+    got = mod(t(x))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.detach().float().numpy(), want,
+                               rtol=2 ** -8, atol=1e-6)
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     tk.reset_launches()
     q = torch.randn(2, 512, 64).bfloat16()
@@ -215,6 +293,31 @@ def test_gpu_attn_step_split_kernel(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,C,k", [(40, 128, 3), (320, 1024, 15),
+                                   (97, 256, 7), (64, 128, 11),
+                                   (1, 128, 16), (200, 384, 2)])
+def test_gpu_depthwise_conv1d_kernel(cuda, T, C, k, dtype):
+    """The CUDA kernel against its plain version, ragged T included. The
+    kernel sums with FMAs, the plain version with a rounded product and a
+    rounded add, each in the order i = 0..k-1: they differ by at most
+    2k f32 roundings of the sum of |terms| (tolerance 2k * 2**-24 of
+    max sum |x w|)."""
+    g = torch.Generator(device=cuda).manual_seed(T + C + k)
+    B = 3
+    x = torch.randn(B, T, C, generator=g, device=cuda).to(dtype)
+    w = torch.randn(k, C, generator=g, device=cuda) * 0.3
+    before = tk.LAUNCHES["depthwise_conv1d"]
+    out = tk.depthwise_conv1d(x, w, k)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["depthwise_conv1d"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, T, C)
+    ref = tk.depthwise_conv1d_plain(x, w, k)
+    mag = tk.depthwise_conv1d_plain(x.abs(), w.abs(), k).max().item()
+    assert (out - ref).abs().max().item() <= 2 * k * 2.0 ** -24 * mag
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 512, 64, device=cuda).half()   # no f16 kernel
     with pytest.raises(ValueError):
@@ -225,3 +328,12 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                    # pos outside cache
         tk.attn_step(kc[:, :1], kc, kc, 16,
                      torch.zeros(2, dtype=torch.int32, device=cuda), 64)
+    x = torch.randn(2, 16, 80, device=cuda)
+    with pytest.raises(ValueError):                    # C % 128 != 0
+        tk.depthwise_conv1d(x, torch.randn(3, 80, device=cuda), 3)
+    x = torch.randn(2, 16, 128, device=cuda)
+    with pytest.raises(ValueError):                    # bf16 taps
+        tk.depthwise_conv1d(x, torch.randn(3, 128, device=cuda).bfloat16(),
+                            3)
+    with pytest.raises(ValueError):                    # k > 16
+        tk.depthwise_conv1d(x, torch.randn(17, 128, device=cuda), 17)
