@@ -10,9 +10,11 @@ Phases (any failure raises and exits non-zero):
 1. card      print nvidia-smi's name and power limit.
 2. kernels   build csrc/*.cu with nvcc (one process per source, all in
              parallel); at the main path's shapes (large-v3 attention,
-             TitaNet-large depthwise convs at k = 7, 11, 15) hold each
+             TitaNet-large depthwise convs at k = 7, 11, 15, MVDR's
+             masked covariance) hold each
              kernel against its plain PyTorch version, show that the
-             tolerance would catch a change of one key or tap, and time
+             tolerance would catch a change of one key, tap, mask or
+             STFT entry, and time
              kernel, plain version and one PyTorch library call (CUDA
              events, L2 flushed before every call).
 3. reference a small Whisper on the card against the same weights on the
@@ -41,13 +43,25 @@ Phases (any failure raises and exits non-zero):
              Each session needs >= 64 words (the device clustering
              chain); depthwise_conv1d must launch 9 times per planned
              TitaNet chunk.
+7. css       CSS separation (css_batch_prepass of two seeded 7-channel
+             360 s sessions in one pass, then one serial css_inference
+             of the first) with Conformer-large at full width, bf16,
+             seeded random weights, MVDR through the masked_scm kernel
+             (use_pallas_scm=True) and the shipped activity_th 0.3. Every
+             stream finite and on disk, the serial streams equal to the
+             prepass's, masked_scm launched once per planned chunk.
+
+Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
+186 frames, 4 masks, 7 mics), and phase 3 a small MC Conformer CSS on the
+card against the CPU (masks in f32 and bf16, one short engine pass with
+the kernel against the CPU's plain path).
 
 The line before the last is {"kernels": [...]}, with each kernel's
-launches summed over phases 4-6 and split by phase in
+launches summed over phases 4-7 and split by phase in
 "launches_by_path"; the last line is {"ok": true, "device": {...}}. The
 run writes under chiprun_out/: the kernels' ptxas report
-(kernel_build.log) and, while it runs, the session's wavs, ASR and
-diarization pickles (deleted at the end).
+(kernel_build.log) and, while it runs, the sessions' wavs, ASR and
+diarization pickles and separated streams (deleted at the end).
 """
 import json
 import math
@@ -109,6 +123,11 @@ def time_cuda(fn, iters: int) -> float:
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
+def as_real(x: torch.Tensor) -> torch.Tensor:
+    """f32 for real tensors; complex ones stay complex (abs is modulus)."""
+    return x if x.is_complex() else x.float()
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -141,15 +160,16 @@ def check_kernels(iters: int):
         line; without, it is only logged."""
         label = label or name
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        moved = (out.float() - mutant.float()).abs().max().item()
+        err = (as_real(out) - as_real(ref)).abs().max().item()
+        moved = (as_real(out) - as_real(mutant)).abs().max().item()
+        ref = as_real(ref)
         ms = time_cuda(fn, iters)
         plain_ms = time_cuda(plain, max(iters // 4, 3))
         lib_ms = time_cuda(library, iters) if library is not None else None
         b, by = bound_ms(nbytes, flops, peak_flops)
         log(f"kernel {label}: max_abs_err {err:.3e} (tolerance "
-            f"{tol:.3e}; max|ref| {ref.float().abs().max().item():.3e}, "
-            f"mean|ref| {ref.float().abs().mean().item():.3e}; one input "
+            f"{tol:.3e}; max|ref| {ref.abs().max().item():.3e}, "
+            f"mean|ref| {ref.abs().mean().item():.3e}; one input "
             f"changed moves it {moved:.3e}) kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
@@ -314,6 +334,47 @@ def check_kernels(iters: int):
             nbytes=Bd * Td * Cd * 2 + k * Cd * 4 + Bd * Td * Cd * 4,
             flops=2 * k * Bd * Td * Cd, peak_flops=PEAK_F32_FLOPS,
             label=f"depthwise_conv1d k={k}", row=k == 15)
+
+    # masked_scm at the MVDR shape of the CSS path: one chunk of 32
+    # windows x 257 bins x 186 frames, K = 3 speakers + noise, M = 7 mics;
+    # winner-take-all masks of seeded [0, 1) masks, as make_wta gives them
+    from notsofar_tpu_torch.ops.mvdr import make_wta
+    Bm, Fm, Tm, Mm = 32, 257, 186, 7
+    wta = make_wta(torch.rand(Bm, Fm, Tm, 3, generator=g, device="cuda"),
+                   torch.rand(Bm, Fm, Tm, 1, generator=g, device="cuda"))
+    xs = torch.complex(randn(Bm, Fm, Tm, Mm, dtype=torch.float32),
+                       randn(Bm, Fm, Tm, Mm, dtype=torch.float32))
+    Km = wta.shape[-1]
+    ref = K.masked_scm_plain(wta, xs)
+    # tolerance: both versions sum the Tm products of each entry in f32 in
+    # other orders (the kernel with FMAs, the plain version in a complex
+    # GEMM), so they differ by at most 2*Tm roundings of the entry's
+    # sum_t w |x_m| |x_n| (largest over the entries)
+    mag = K.masked_scm_plain(wta, xs.abs().to(torch.complex64)).real
+    tol = 2 * Tm * 2.0 ** -24 * mag.max().item()
+    wta_mut = wta.clone()
+    wta_mut[0, 0, 0, 0] += 1.0            # one frame's mask changed
+    xs_mut = xs.clone()
+    xs_mut[0, 0, 0, 0] += 1.0             # one STFT entry changed
+    moved = (K.masked_scm_plain(wta, xs_mut) - ref).abs().max().item()
+    log(f"kernel masked_scm: one STFT entry changed moves the plain "
+        f"version {moved:.3e} (tolerance {tol:.3e})")
+    if not moved > tol:
+        raise AssertionError("masked_scm: a one-entry STFT change stays "
+                             f"within the tolerance ({moved} <= {tol})")
+    wta_c = wta.to(torch.complex64)
+    ne = Mm * (Mm + 1) // 2               # unique entries of x x^H
+    record("masked_scm", "notsofar_tpu/ops/pallas_kernels.py:488",
+           K.masked_scm(wta, xs), ref, tol, K.masked_scm_plain(wta_mut, xs),
+           lambda: K.masked_scm(wta, xs),
+           lambda: K.masked_scm_plain(wta, xs),
+           lambda: torch.einsum("bftk,bftm,bftn->bkfmn", wta_c, xs,
+                                xs.conj()),
+           nbytes=Bm * Fm * Tm * (Km * 4 + Mm * 8) + Bm * Km * Fm * Mm * Mm * 8,
+           # per frame: each unique entry's product (6 FLOP), then K
+           # weighted complex adds (4 FLOP each)
+           flops=Bm * Fm * Tm * ne * (6 + 4 * Km),
+           peak_flops=PEAK_F32_FLOPS)
     return rows
 
 
@@ -447,6 +508,90 @@ def check_diarization_reference():
     if (dev.p_hat, dev.num_speakers) != (host.p_hat, host.num_speakers) \
             or not same_partition(host_labels, dev_labels):
         raise AssertionError("device clustering differs from the host path")
+
+
+SMALL_CSS = dict(attention_dim=32, attention_heads=4, linear_units=64,
+                 num_blocks=2, kernel_size=5, dropout_rate=0.0)
+
+
+def check_css_reference():
+    """A small MC Conformer CSS (2 blocks, d = 32, kernel 5) on the card
+    against the same weights on the CPU: masks from the same features in
+    f32 (TF32 off) and bf16; then one short MC engine pass (7.3 s, MVDR
+    with use_pallas_scm=True, so masked_scm runs on the card) against the
+    CPU's plain path. Activity gating must be equal; streams must match
+    where the CPU's f32 MVDR agrees with a float64 MVDR (the stability
+    classification of the JAX package's engine test)."""
+    from notsofar_tpu_torch.css import engine as E
+    from notsofar_tpu_torch.models.conformer import ConformerConfig
+    from notsofar_tpu_torch.models.css_wrapper import (ConformerCssConfig,
+                                                       CssModel, NnetConfig)
+    from notsofar_tpu_torch.ops import kernels
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = ConformerCssConfig(nnet_conf=NnetConfig(
+        conformer_conf=ConformerConfig(**SMALL_CSS)))
+    cpu = CssModel(small, device="cpu", seed=3)
+    sd = cpu.module.state_dict()
+    rng = np.random.RandomState(8)
+    st = (rng.randn(4, 257, 186, 7) + 1j * rng.randn(4, 257, 186, 7)) \
+        .astype(np.complex64)
+    feat = cpu.features(torch.from_numpy(st))
+    # tolerances (masks in [0, 1], absolute): f32 — sums in another order,
+    # ~1e-6 expected; bf16 — bf16 roundings at the same points with
+    # products summed in another order (4e-3 against the JAX package on
+    # the CPU)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        c = CssModel(small, dtype=dtype, state_dict=sd, device="cpu")
+        gm = CssModel(small, dtype=dtype, state_dict=sd, device="cuda")
+        a = gm.masks_from_feature(feat.cuda())["spk_masks"].cpu()
+        b = c.masks_from_feature(feat)["spk_masks"]
+        err = (a - b).abs().max().item()
+        log(f"reference css masks ({dtype}): max abs error {err:.3e} "
+            f"(tolerance {tol:g})")
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"css masks ({dtype}): {err} > {tol}")
+
+    mix = (rng.randn(1, int(7.3 * 16000), 7) * 0.1).astype(np.float32)
+    cfg = E.CssCfg(seg_bucket_multiple=4, seg_chunk=2, use_pallas_scm=True)
+    gpu = CssModel(small, state_dict=sd, device="cuda")
+    before = kernels.LAUNCHES["masked_scm"]
+    gw, gs = E.CssEngine(gpu, cfg).separate_and_stitch(mix, 16000)
+    launched = kernels.LAUNCHES["masked_scm"] - before
+    cw, cs = E.CssEngine(cpu, cfg).separate_and_stitch(mix, 16000)
+    mvdr32 = E.mvdr_beamform
+    E.mvdr_beamform = lambda s, n, x, use_pallas=False: mvdr32(
+        s.double(), n.double(), x.to(torch.complex128)).to(torch.complex64)
+    try:
+        dw, _ = E.CssEngine(cpu, cfg).separate_and_stitch(mix, 16000)
+    finally:
+        E.mvdr_beamform = mvdr32
+    act_equal = np.array_equal(gs["activity_final"], cs["activity_final"])
+    mask_err = np.abs(gs["mask_stitched"] - cs["mask_stitched"]).max()
+    gaps = []
+    for s in range(3):
+        scale = max(np.abs(dw[s]).max(), 1e-6)
+        stable = np.abs(cw[s] - dw[s]).max() / scale < 1e-3
+        gaps.append((bool(stable),
+                     float(np.abs(gw[s] - cw[s]).max() / scale)))
+    log(f"reference css engine: masked_scm launches {launched}, activity "
+        f"equal {act_equal}, stitched mask max abs diff {mask_err:.3e}, "
+        f"streams (stable in f32, rel diff card vs cpu) {gaps} "
+        "(tolerances: activity equal, masks 5e-3 rel + 5e-4, stable "
+        "streams 2e-2)")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    if launched != 2 or not act_equal:
+        raise AssertionError("css engine on the card: launches or activity")
+    if not np.allclose(gs["mask_stitched"], cs["mask_stitched"],
+                       rtol=5e-3, atol=5e-4):
+        raise AssertionError(f"css engine stitched masks differ {mask_err}")
+    for stable, d in gaps:
+        if stable and not d < 2e-2:
+            raise AssertionError(f"css engine stable stream differs {d}")
 
 
 # --------------------------------------------------------------------------
@@ -703,6 +848,174 @@ def check_attributed(df, label: str, seconds: float) -> None:
                                      f"{w!r}")
 
 
+# --------------------------------------------------------------------------
+# phase 7: CSS separation at full Conformer-large width
+# --------------------------------------------------------------------------
+
+def write_css_sessions(work: Path, n_sessions: int = 2,
+                       seconds: float = 360.0, seed: int = 10):
+    """Seeded 7-channel sessions of `seconds`: three sources of harmonic
+    bursts (90-250 Hz f0, 5 harmonics, 1-4 s bursts, 0.5-5 s pauses), each
+    at its own azimuth and reaching every mic with the plane-wave delay of
+    the 7-mic circular array (utils/mic_array.py), plus noise; written as
+    one int16 wav per mic, as load_session_audio reads them. Returns the
+    sessions' rows."""
+    import pandas as pd
+    import scipy.io.wavfile as wf
+    from notsofar_tpu_torch.utils.mic_array import multichannel_mic_pos_xyz_cm
+    sr = 16000
+    n = int(seconds * sr)
+    pos = multichannel_mic_pos_xyz_cm()[:, :2] / 100.0     # metres
+    freqs = torch.fft.rfftfreq(n, 1.0 / sr, device="cuda",
+                               dtype=torch.float64)
+    rows = []
+    for si in range(n_sessions):
+        rng = np.random.RandomState(seed + si)
+        mics = torch.from_numpy(0.003 * rng.randn(7, n)).cuda()
+        for _ in range(3):
+            x = np.zeros(n)
+            pos_s = rng.uniform(0.0, 3.0)
+            while pos_s < seconds:
+                dur = rng.uniform(1.0, 4.0)
+                a, b = int(pos_s * sr), min(int((pos_s + dur) * sr), n)
+                tt = np.arange(b - a) / sr
+                f0 = rng.uniform(90, 250)
+                x[a:b] = 0.1 * np.hanning(b - a) * sum(
+                    np.sin(2 * np.pi * f0 * h * tt + rng.uniform(0, 6.3)) / h
+                    for h in range(1, 6))
+                pos_s += dur + rng.uniform(0.5, 5.0)
+            az = rng.uniform(0.0, 2 * np.pi)
+            delay = -(pos @ np.array([np.cos(az), np.sin(az)])) / 343.0
+            X = torch.fft.rfft(torch.from_numpy(x).cuda())
+            shift = torch.exp(-2j * np.pi * freqs[None, :]
+                              * torch.from_numpy(delay).cuda()[:, None])
+            mics += torch.fft.irfft(X[None, :] * shift, n)
+        audio = mics.clamp(-1, 1).mul(32767).round().short().cpu().numpy()
+        names = []
+        for m in range(7):
+            name = work / f"css_s{si}" / f"mic{m}.wav"
+            name.parent.mkdir(parents=True, exist_ok=True)
+            wf.write(name, sr, audio[m])
+            names.append(str(name))
+        rows.append(dict(session_id=f"css_smoke{si}", meeting_id="MTG_SMOKE",
+                         is_mc=True, wav_file_names=names))
+    return pd.DataFrame(rows), seconds
+
+
+def planned_scm_launches(engine, seconds: float, sessions: int) -> int:
+    """masked_scm launches of one pass over `sessions` equal sessions:
+    one per chunk of windows (the engine's chunk rule)."""
+    from notsofar_tpu_torch.ops.stft import num_frames
+    geo = engine.seg_geometry(16000)
+    T, hop = geo["seg_frames"], geo["hop_frames"]
+    frames = num_frames(int(seconds * 16000))
+    bucket = engine.cfg.seg_bucket_multiple
+    num_seg = math.ceil(math.ceil((frames - (T - hop)) / hop) / bucket) \
+        * bucket
+    total = sessions * num_seg
+    chunk = min(engine.cfg.seg_chunk, total)
+    while total % chunk:
+        chunk -= 1
+    return total // chunk
+
+
+def run_css(work: Path):
+    """css_batch_prepass of both sessions in one pass, then one serial
+    css_inference (fetch_from_cache=False) of the first, with the shipped
+    CSS settings (inference_v1.yaml: MVDR, mask floor 0 dB, activity_th
+    0.3), Conformer-large at full width in bf16 with seeded random
+    weights, and use_pallas_scm=True. Launch counts are reset before the
+    prepass and read after the serial call; masked_scm must launch once
+    per planned chunk in each. Returns the counts."""
+    import scipy.io.wavfile as wf
+    from notsofar_tpu_torch.css.engine import CssCfg, CssEngine
+    from notsofar_tpu_torch.css.inference import (css_batch_prepass,
+                                                  css_inference)
+    from notsofar_tpu_torch.models.css_wrapper import (
+        ConformerCssConfig, CssModel, NnetConfig, large_conformer_config)
+    from notsofar_tpu_torch.ops import kernels
+    from notsofar_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.perf_counter()
+    sessions, seconds = write_css_sessions(work)
+    cfg = CssCfg(mc_mvdr=True, mc_mask_floor_db=0.0, activity_th=0.3,
+                 use_pallas_scm=True, batch_sessions=2)
+    model = CssModel(ConformerCssConfig(nnet_conf=NnetConfig(
+        conformer_conf=large_conformer_config())), dtype=torch.bfloat16,
+        device="cuda", seed=11)
+    engine = CssEngine(model, cfg)
+    plan_pre = planned_scm_launches(engine, seconds, len(sessions))
+    plan_ser = planned_scm_launches(engine, seconds, 1)
+    log(f"css set-up: {len(sessions)} sessions x 7 mics x {seconds:.0f} s "
+        f"written and Conformer-large ({sum(p.numel() for p in model.module.parameters()) / 1e6:.1f} M "
+        f"parameters) built in {time.perf_counter() - t0:.1f} s; planned "
+        f"masked_scm launches: prepass {plan_pre}, serial {plan_ser}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    pre = StageTimer()
+    t0 = time.perf_counter()
+    css_batch_prepass(str(work / "css"), "", sessions, cfg,
+                      fetch_from_cache=False, timer=pre, engine=engine)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    n_pre = kernels.LAUNCHES["masked_scm"]
+    ser = StageTimer()
+    t0 = time.perf_counter()
+    row = css_inference(str(work / "css_serial"), "", sessions.iloc[0], cfg,
+                        fetch_from_cache=False, timer=ser, engine=engine)
+    torch.cuda.synchronize()
+    t_ser = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    n_ser = counts["masked_scm"] - n_pre
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def stages(timer):
+        st = timer.stage_seconds
+        return {"stft+features": round(st.get("stft", 0.0)
+                                       + st.get("features", 0.0), 3),
+                **{k: round(st.get(k, 0.0), 3)
+                   for k in ("conformer", "mvdr", "stitch", "istft")}}
+
+    log(f"css: kernel launches {counts}")
+    log(f"css prepass ({len(sessions)} sessions): wall {t_pre:.2f} s "
+        f"({t_pre / len(sessions):.2f} s per session), stages "
+        f"{stages(pre)}; serial: wall {t_ser:.2f} s, stages {stages(ser)};"
+        f" max_memory_allocated {peak:.2f} GiB")
+    if (n_pre, n_ser) != (plan_pre, plan_ser):
+        raise AssertionError(f"masked_scm launched {n_pre} + {n_ser} times, "
+                             f"planned {plan_pre} + {plan_ser}")
+
+    names = ["input_mixture.wav"] + [f"sep_stream{k}.wav" for k in range(3)]
+    for sid in sessions.session_id:
+        d = work / "css" / "css_inference" / sid
+        if sorted(p.name for p in d.iterdir()) != names:
+            raise AssertionError(f"css {sid}: files {sorted(d.iterdir())}")
+        for nm in names:
+            sr, w = wf.read(d / nm)
+            if sr != 16000 or len(w) < seconds * 16000 - 512 or \
+                    not np.isfinite(w).all():
+                raise AssertionError(f"css {sid}/{nm}: {sr} Hz, {len(w)} "
+                                     "samples or non-finite values")
+    # the serial call against the prepass, on the written (peak-0.99)
+    # streams: tolerance one bf16 ulp (2**-8) of the peak — the two runs
+    # batch the session's STFT with a different row count, and an f32
+    # difference there can move a bf16 rounding of the Conformer
+    diffs = []
+    for k in range(3):
+        a = wf.read(work / "css" / "css_inference" / sessions.session_id[0]
+                    / f"sep_stream{k}.wav")[1]
+        b = wf.read(row.sep_wav_file_names[k])[1]
+        diffs.append(float(np.abs(a - b).max()))
+    log(f"css serial vs prepass: max abs diff per stream {diffs} "
+        f"(tolerance {2.0 ** -8:.3e})")
+    if not max(diffs) <= 2.0 ** -8:
+        raise AssertionError(f"serial streams differ from the prepass's "
+                             f"{diffs}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -732,6 +1045,7 @@ def main() -> int:
     log("phase 3 reference")
     check_reference()
     check_diarization_reference()
+    check_css_reference()
 
     by_path, asr_dfs = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=OUT) as tmp:
@@ -745,6 +1059,8 @@ def main() -> int:
             session, work, None, "greedy", ("encoder_mha", "attn_step"))
         log("phase 6 diarization, word_nmesc")
         by_path["diarization"] = run_diarization(work, asr_dfs)
+        log("phase 7 css, Conformer-large + MVDR")
+        by_path["css"] = run_css(work)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -7,16 +7,23 @@ file names the file it is held against. The port imports ``torch`` and
 never ``jax`` or ``notsofar_tpu``; modules it needs that have no framework
 code are copied, not imported.
 
-Ported so far (slice 1, ASR serving; slice 2, word-based diarization):
-    utils        — logging, wav I/O, stage timing, device selection
+Ported so far (slice 1, ASR serving; slice 2, word-based diarization;
+slice 3, CSS separation):
+    utils        — logging, wav I/O and session/scp readers, stage timing,
+                   device selection, YAML configs, morphology, mic array
     asr          — mel frontend, tokenizer, greedy/beam decoding, word
                    timestamps, long-form transcription, asr_inference
     diarization  — word windows, NMESC clustering (float64 host path and
                    batched device path), diarization_inference
-    models       — Whisper encoder/decoder, TitaNet speaker encoder
-                   (torch.nn) and its NeMo checkpoint converter
-    ops          — the hand-written Hopper kernels (csrc/*.cu) behind
-                   their wrappers, each with a plain PyTorch version
+    css          — the separation engine (STFT, Conformer masks, MVDR,
+                   PIT stitching, OLA, gating, iSTFT), css_inference,
+                   css_batch_prepass, the standalone separate_cli
+    models       — Whisper encoder/decoder, TitaNet speaker encoder,
+                   Conformer CSS (torch.nn) and their checkpoint bridges
+    ops          — STFT, features, MVDR, PIT, and the hand-written Hopper
+                   kernels (csrc/*.cu) behind their wrappers, each with a
+                   plain PyTorch version
+    training     — the config dataclasses that loading a CSS model needs
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

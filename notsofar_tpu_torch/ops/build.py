@@ -20,7 +20,8 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d")
+KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d",
+           "masked_scm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,6 +37,7 @@ _ARGTYPES = {
                                             _P]),
     "depthwise_conv1d": ("depthwise_conv1d", [_P, _P, _P, _I, _I, _I, _I,
                                               _I, _P]),
+    "masked_scm": ("masked_scm", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

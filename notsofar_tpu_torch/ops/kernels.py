@@ -1,5 +1,6 @@
 """The port's kernels (the ASR path's attention kernels, the TitaNet
-depthwise conv): CUDA wrappers, plain versions and launch counters.
+depthwise conv, MVDR's masked covariance): CUDA wrappers, plain versions
+and launch counters.
 
 Each function here has three parts:
 
@@ -317,4 +318,46 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, k: int
                               _stream())
     LAUNCHES["depthwise_conv1d"] += 1
     _check_rc("depthwise_conv1d", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# masked_scm (pallas_kernels.py:488)
+# ---------------------------------------------------------------------------
+
+def masked_scm_plain(wta: torch.Tensor, stft_c: torch.Tensor) -> torch.Tensor:
+    """wta [B, F, T, K] f32, stft_c [B, F, T, M] complex64 -> [B, K, F, M,
+    M] complex64: the einsum of the JAX package's masked_scm plus
+    1e-15 * I."""
+    scm = torch.einsum("bftk,bftm,bftn->bkfmn", wta.to(stft_c.dtype), stft_c,
+                       stft_c.conj())
+    eye = torch.eye(stft_c.shape[-1], dtype=scm.dtype, device=scm.device)
+    return scm + 1e-15 * eye
+
+
+def masked_scm(wta: torch.Tensor, stft_c: torch.Tensor) -> torch.Tensor:
+    """Masked spatial covariance matrices for MVDR.
+
+    wta: [B, F, T, K] f32 per-source masks (K <= 8); stft_c: [B, F, T, M]
+    complex64 mixture STFT (M <= 8 mics). Returns [B, K, F, M, M]
+    complex64: sum_t wta * x x^H, plus 1e-15 on the real diagonal."""
+    if not _on_card("masked_scm", wta, stft_c):
+        return masked_scm_plain(wta, stft_c)
+    if wta.dim() != 4 or stft_c.dim() != 4 or \
+            wta.shape[:3] != stft_c.shape[:3]:
+        raise ValueError("masked_scm: wta [B, F, T, K], stft [B, F, T, M]")
+    B, F, T, K = wta.shape
+    M = stft_c.shape[-1]
+    if wta.dtype != torch.float32 or stft_c.dtype != torch.complex64:
+        raise ValueError("masked_scm: wta f32, stft complex64")
+    if not (1 <= K <= 8 and 1 <= M <= 8) or min(B, F, T) == 0 or B > 65535:
+        raise ValueError(f"masked_scm: K={K}, M={M} must be in [1, 8], "
+                         f"B={B} in [1, 65535], F={F} and T={T} nonzero")
+    out = torch.empty((B, K, F, M, M), dtype=torch.complex64,
+                      device=wta.device)
+    lib = build.load("masked_scm")
+    rc = lib.masked_scm(wta.data_ptr(), stft_c.data_ptr(), out.data_ptr(),
+                        B, F, T, K, M, _stream())
+    LAUNCHES["masked_scm"] += 1
+    _check_rc("masked_scm", rc)
     return out

@@ -214,11 +214,55 @@ def test_titanet_depthwise_module_bf16_rounds_like_the_pallas_branch():
                                rtol=2 ** -8, atol=1e-6)
 
 
+@pytest.mark.parametrize("B,F,T,M,S,f_block", [(2, 257, 186, 7, 3, 32),
+                                               (1, 9, 40, 7, 3, 8),
+                                               (2, 5, 33, 4, 2, 8)])
+def test_masked_scm_plain_matches_pallas_and_einsum(B, F, T, M, S, f_block):
+    """The plain version against masked_scm_pallas in interpret mode and
+    the JAX package's einsum masked_scm on the same winner-take-all masks
+    and STFT; 257 is no multiple of the Pallas block (F padding). f32
+    sums over T in another order: tolerance 1e-5 of the largest entry."""
+    from notsofar_tpu.ops.mvdr import make_wta, masked_scm
+    rng = np.random.RandomState(B * F + T)
+    spk = rng.rand(B, F, T, S).astype(np.float32)
+    noi = rng.rand(B, F, T, 1).astype(np.float32)
+    x = (rng.randn(B, F, T, M) + 1j * rng.randn(B, F, T, M)) \
+        .astype(np.complex64)
+    wta = np.asarray(make_wta(jnp.asarray(spk), jnp.asarray(noi)))
+    got = tk.masked_scm(t(wta), t(x))
+    assert got.dtype == torch.complex64 and got.shape == (B, S + 1, F, M, M)
+    got = got.numpy()
+    scale = np.abs(got).max()
+    for want in (np.asarray(pk.masked_scm_pallas(
+            jnp.asarray(wta), jnp.asarray(x), f_block=f_block,
+            interpret=True)),
+            np.asarray(masked_scm(jnp.asarray(wta), jnp.asarray(x)))):
+        assert np.abs(got - want).max() <= 1e-5 * scale
+    np.testing.assert_allclose(got, got.conj().swapaxes(-1, -2),
+                               rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_masked_scm_of_an_all_zero_window_is_the_regularizer():
+    """A padding window (all-zero STFT) gives exactly 1e-15 * I, which
+    MVDR's trace normalisation then divides by."""
+    wta = torch.rand(2, 6, 10, 4)
+    x = torch.zeros(2, 6, 10, 7, dtype=torch.complex64)
+    x[0] = torch.randn(6, 10, 7, dtype=torch.complex64)
+    got = tk.masked_scm(wta, x)
+    eye = torch.eye(7, dtype=torch.complex64) * 1e-15
+    assert torch.equal(got[1], eye.expand(4, 6, 7, 7))
+    assert not torch.equal(got[0], eye.expand(4, 6, 7, 7))
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     tk.reset_launches()
     q = torch.randn(2, 512, 64).bfloat16()
     out = tk.encoder_mha(q, q, q)
     torch.testing.assert_close(out, tk.encoder_mha_plain(q, q, q))
+    wta, x = torch.rand(1, 3, 8, 4), torch.randn(1, 3, 8, 7,
+                                                 dtype=torch.complex64)
+    torch.testing.assert_close(tk.masked_scm(wta, x),
+                               tk.masked_scm_plain(wta, x))
     assert all(n == 0 for n in tk.LAUNCHES.values())
 
 
@@ -318,6 +362,35 @@ def test_gpu_depthwise_conv1d_kernel(cuda, T, C, k, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,F,T,K,M", [(32, 257, 186, 4, 7), (3, 9, 40, 4, 7),
+                                       (2, 5, 33, 3, 4), (1, 7, 1, 1, 1),
+                                       (2, 6, 70, 8, 8)])
+def test_gpu_masked_scm_kernel(cuda, B, F, T, K, M):
+    """The CUDA kernel against its plain version (complex einsum), ragged
+    frame tiles, odd F and the M = 8 second lane entry included. Both sum
+    T products in f32 in other orders: within 2T f32 roundings of
+    sum_t w |x_m| |x_n| (largest entry). Hermitian with a real diagonal;
+    an all-zero window gives exactly 1e-15 * I."""
+    g = torch.Generator(device=cuda).manual_seed(B + F + T + K + M)
+    wta = torch.rand(B, F, T, K, generator=g, device=cuda)
+    x = torch.complex(torch.randn(B, F, T, M, generator=g, device=cuda),
+                      torch.randn(B, F, T, M, generator=g, device=cuda))
+    x[0, 0] = 0
+    before = tk.LAUNCHES["masked_scm"]
+    out = tk.masked_scm(wta, x)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["masked_scm"] == before + 1
+    assert out.dtype == torch.complex64 and out.shape == (B, K, F, M, M)
+    ref = tk.masked_scm_plain(wta, x)
+    mag = tk.masked_scm_plain(wta, x.abs().to(torch.complex64)).real
+    assert (out - ref).abs().max().item() <= 2 * T * 2.0 ** -24 * \
+        mag.max().item()
+    assert torch.equal(out, out.conj().transpose(-1, -2).resolve_conj())
+    eye = torch.eye(M, dtype=torch.complex64, device=cuda) * 1e-15
+    assert torch.equal(out[0, :, 0], eye.expand(K, M, M))
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 512, 64, device=cuda).half()   # no f16 kernel
     with pytest.raises(ValueError):
@@ -337,3 +410,11 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             3)
     with pytest.raises(ValueError):                    # k > 16
         tk.depthwise_conv1d(x, torch.randn(17, 128, device=cuda), 17)
+    wta = torch.rand(1, 3, 8, 9, device=cuda)            # K > 8
+    with pytest.raises(ValueError):
+        tk.masked_scm(wta, torch.randn(1, 3, 8, 7, dtype=torch.complex64,
+                                       device=cuda))
+    with pytest.raises(ValueError):                    # complex128 stft
+        tk.masked_scm(wta[..., :4], torch.randn(1, 3, 8, 7,
+                                                dtype=torch.complex128,
+                                                device=cuda))
