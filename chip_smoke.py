@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
 1. card      print nvidia-smi's name and power limit.
 2. kernels   build csrc/*.cu with nvcc (one process per source, all in
              parallel); at the main path's shapes (large-v3 attention,
-             TitaNet-large depthwise convs at k = 7, 11, 15, MVDR's
-             masked covariance) hold each
+             the int8 decoder's cross-attention at its beam-5 and greedy
+             serving shapes, TitaNet-large depthwise convs at k = 7, 11,
+             15, MVDR's masked covariance) hold each
              kernel against its plain PyTorch version, show that the
              tolerance would catch a change of one key, tap, mask or
              STFT entry, and time
@@ -19,7 +20,9 @@ Phases (any failure raises and exits non-zero):
              events, L2 flushed before every call).
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
-             and beam-3 decode tokens (f32, TF32 off); a small TitaNet
+             and beam-3 decode tokens (f32, TF32 off), and the same for
+             its int8 decoder with int8 cross-attention K/V (xattn_int8
+             launched once per layer per counted decoder call); a small TitaNet
              likewise (embeddings in f32 and bf16); the device
              clustering chain on a CUDA affinity against the float64
              host path (p_hat, speaker count, partition).
@@ -50,6 +53,22 @@ Phases (any failure raises and exits non-zero):
              (use_pallas_scm=True) and the shipped activity_th 0.3. Every
              stream finite and on disk, the serial streams equal to the
              prepass's, masked_scm launched once per planned chunk.
+8. pipeline  what run_inference_gpu.py runs: a seeded synthetic 7-channel
+             NOTSOFAR meeting (devices.json, gt_transcription.json,
+             metadata, wavs) through inference_pipeline with the shipped
+             configs/inference/inference_v1.yaml except asr.compute_dtype
+             'int8': Conformer-large + MVDR, Whisper large-v3 int8 at beam
+             5 with int8 cross-attention K/V at 48 rows per dispatch,
+             TitaNet-large word_nmesc; CSS and Whisper weights seeded and
+             saved under a models dir. The ASR frame reaches diarization
+             with phase 6's seeded word track added. Every contract file
+             must exist and the meeting gets a WER row; xattn_int8
+             launches = 32 x the decoder calls that reach it, as the
+             decoders count them; encoder_mha and attn_step_split launch;
+             depthwise_conv1d launches 9 times per planned TitaNet chunk.
+             A seeded hypothesis is then scored against the
+             meeting's GT through calc_wer with known answers (the GT
+             itself: 0; one word dropped: 1/N), naming the scorer core.
 
 Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 186 frames, 4 masks, 7 mics), and phase 3 a small MC Conformer CSS on the
@@ -57,7 +76,7 @@ card against the CPU (masks in f32 and bf16, one short engine pass with
 the kernel against the CPU's plain path).
 
 The line before the last is {"kernels": [...]}, with each kernel's
-launches summed over phases 4-7 and split by phase in
+launches summed over phases 4-8 and split by phase in
 "launches_by_path"; the last line is {"ok": true, "device": {...}}. The
 run writes under chiprun_out/: the kernels' ptxas report
 (kernel_build.log) and, while it runs, the sessions' wavs, ASR and
@@ -128,6 +147,77 @@ def as_real(x: torch.Tensor) -> torch.Tensor:
     return x if x.is_complex() else x.float()
 
 
+def xattn_tolerance(q_eff, k8, vs, dk: int, s_valid: int) -> float:
+    """Each xattn_int8 output is vs * sum_s p_s v_s with |v_s| <= 127 and
+    sum p = 1. Summed in other f32 orders, two versions differ (a) by at
+    most s_valid f32 roundings of that sum and (b), where a logit's
+    summation order sends its weight to the other bf16 neighbour, by one
+    bf16 ulp (<= 2**-7 p) of that weight times 127; (b) is allowed once,
+    at the largest weight (tests/test_torch_kernels.py's tolerance)."""
+    B, T, D = q_eff.shape
+    H = D // dk
+    lg = torch.einsum("bthd,bshd->bhts",
+                      q_eff.double().reshape(B, T, H, dk),
+                      k8[:, :s_valid].double().reshape(B, s_valid, H, dk))
+    p_max = torch.softmax(lg, dim=-1).max().item()
+    return 127 * vs.max().item() * (2.0 ** -7 * p_max
+                                    + s_valid * 2.0 ** -24)
+
+
+XATTN_FLIP_SHARE = 5e-3
+
+
+def xattn_rms_tolerance(q_eff, k8, v8, vs, dk: int, s_valid: int) -> float:
+    """The RMS error over all outputs that two correct versions may show:
+    bf16 roundings of the weights sent to the other neighbour at a share
+    XATTN_FLIP_SHARE of all weights, each moving an output by ulp(p) v vs
+    (a weight flips with odds of about its relative change over 2**-8, so
+    the share stands for relative changes of p near 2e-5, far above what
+    the f32 summation orders give); plus sqrt(s_valid) f32 roundings of
+    the weighted value sum. Moving the rounding point of p changes every
+    weight by a fraction of an ulp, like flips at a share of 1/12 or more,
+    so it lands 2-4x above this (xattn_rounding_mutant; the same
+    tolerance as tests/test_torch_kernels.py's)."""
+    B, T, D = q_eff.shape
+    H = D // dk
+    lg = torch.einsum("bthd,bshd->bhts",
+                      q_eff.double().reshape(B, T, H, dk),
+                      k8[:, :s_valid].double().reshape(B, s_valid, H, dk))
+    p = torch.softmax(lg, dim=-1)
+    ulp = torch.ldexp(torch.ones_like(p), torch.frexp(p)[1] - 8)
+    v = v8[:, :s_valid].double().reshape(B, s_valid, H, dk)
+    w = vs.double().reshape(B, 1, H, dk)
+    flips = torch.einsum("bhts,bshd->bthd", ulp ** 2, v ** 2) * w ** 2
+    mag = torch.einsum("bhts,bshd->bthd", p, v.abs()) * w.abs()
+    return (math.sqrt(XATTN_FLIP_SHARE * flips.mean().item())
+            + math.sqrt(s_valid) * 2.0 ** -24
+            * mag.pow(2).mean().sqrt().item())
+
+
+def xattn_rounding_mutant(q_eff, k8, v8, vs, dk: int, s_valid: int,
+                          mode: str):
+    """The plain xattn_int8 with the bf16 rounding of p moved:
+    'unnormalized' rounds exp(l - max) before dividing by the sum (an
+    online softmax's rounding point), 'none' never rounds."""
+    B, T, D = q_eff.shape
+    S = k8.shape[1]
+    H = D // dk
+    lg = torch.einsum("bthd,bshd->bhts", q_eff.float().reshape(B, T, H, dk),
+                      k8.float().reshape(B, S, H, dk))
+    lg = lg.masked_fill(torch.arange(S, device=q_eff.device) >= s_valid,
+                        -1e30)
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    if mode == "unnormalized":
+        e = e.to(torch.bfloat16).float()
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhts,bshd->bthd", p, v8.float().reshape(B, S, H, dk))
+    return out.reshape(B, T, D) * vs[:, None, :]
+
+
+def rms(x: torch.Tensor) -> float:
+    return x.double().pow(2).mean().sqrt().item()
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -152,16 +242,31 @@ def check_kernels(iters: int):
 
     def record(name, replaces, out, ref, tol, mutant, fn, plain, library,
                nbytes, flops, peak_flops=PEAK_BF16_FLOPS, label=None,
-               row=True):
+               row=True, rms_tol=None, rms_mutants=None):
         """Hold `out` to `ref` within `tol`, and `mutant` (the plain
         version on inputs with one key or tap changed) outside it, so the
-        tolerance is shown to catch a one-input error; then time. With
-        `row`, the result becomes the kernel's row of the {"kernels": ...}
-        line; without, it is only logged."""
+        tolerance is shown to catch a one-input error; with `rms_tol`,
+        hold the RMS of out - ref within it and each of `rms_mutants`
+        (name -> plain version with a rounding point moved) outside it;
+        then time. With `row`, the result becomes the kernel's row of the
+        {"kernels": ...} line; without, it is only logged."""
         label = label or name
         torch.cuda.synchronize()
         err = (as_real(out) - as_real(ref)).abs().max().item()
         moved = (as_real(out) - as_real(mutant)).abs().max().item()
+        if rms_tol is not None:
+            err_rms = rms(out - ref)
+            moved_rms = {k: rms(out - m) for k, m in rms_mutants.items()}
+            log(f"kernel {label}: RMS error {err_rms:.3e} (tolerance "
+                f"{rms_tol:.3e}); p rounded elsewhere moves it "
+                + ", ".join(f"{k} {v:.3e}" for k, v in moved_rms.items()))
+            if not (math.isfinite(err_rms) and err_rms <= rms_tol):
+                raise AssertionError(f"{label}: RMS error {err_rms} > "
+                                     f"{rms_tol}")
+            for k, v in moved_rms.items():
+                if not v > rms_tol:
+                    raise AssertionError(f"{label}: p rounded {k} moves the "
+                                         f"RMS {v}, within {rms_tol}")
         ref = as_real(ref)
         ms = time_cuda(fn, iters)
         plain_ms = time_cuda(plain, max(iters // 4, 3))
@@ -304,6 +409,68 @@ def check_kernels(iters: int):
            + Bs * Kb * n_gen * 4 + Bs * Kb * D * 4,
            flops=4 * D * (Kb * n_prompt + Bs * Kb * n_gen))
 
+    # xattn_int8 at the int8 decoder's serving shapes: the large-v3 cross-
+    # attention memory (D 1280, 20 heads of 64, 1500 frames padded to
+    # 1504) quantized by quantize_cross_kv from seeded float K/V; beam 5
+    # folds its 5 beams into the query axis of 9 streams (48 rows per
+    # dispatch), greedy reads 48 rows with one query each. q_eff is made
+    # as the model makes it: the k-scales and both dk**-0.25 folded, bf16.
+    # The row of the kernels line is the beam-5 shape.
+    from notsofar_tpu_torch.models.whisper import WhisperModel
+    Sx = 1500
+    for label, Bx, Tx in (("xattn_int8", 9, 5), ("xattn_int8 greedy", 48, 1)):
+        k8, k_s, v8, v_s, s_valid = WhisperModel.quantize_cross_kv(
+            [(randn(Bx, Sx, D, dtype=torch.float32),
+              randn(Bx, Sx, D, dtype=torch.float32))])[0]
+        qx = randn(Bx, Tx, D, dtype=torch.float32)
+        q_eff = ((qx * dk ** -0.25) * (k_s * dk ** -0.25)).to(bf)
+        vsx = v_s[:, 0].contiguous()
+        tol = xattn_tolerance(q_eff, k8, vsx, dk, s_valid)
+        rms_tol = xattn_rms_tolerance(q_eff, k8, v8, vsx, dk, s_valid)
+        # the key of the largest logit of row 0, query 0, head 0 negated
+        top = int((k8[0, :s_valid, :dk].float() @ q_eff[0, 0, :dk].float())
+                  .argmax())
+        k_mut = k8.clone()
+        k_mut[0, top] = -k8[0, top]
+        S_pad = k8.shape[1]
+        q_lib = q_eff.view(Bx, Tx, H, dk).transpose(1, 2)
+        valid = (torch.arange(S_pad, device="cuda") < s_valid)[None, None,
+                                                                None]
+
+        def deq_sdpa():
+            kb, vb = (x.to(bf).view(Bx, S_pad, H, dk).transpose(1, 2)
+                      for x in (k8, v8))
+            o = F.scaled_dot_product_attention(q_lib, kb, vb,
+                                               attn_mask=valid, scale=1.0)
+            return o.transpose(1, 2).reshape(Bx, Tx, D).float() * vsx[:, None]
+
+        record("xattn_int8", "notsofar_tpu/ops/pallas_kernels.py:108",
+               K.xattn_int8(q_eff, k8, v8, vsx, dk, s_valid),
+               K.xattn_int8_plain(q_eff, k8, v8, vsx, dk, s_valid), tol,
+               K.xattn_int8_plain(q_eff, k_mut, v8, vsx, dk, s_valid),
+               lambda: K.xattn_int8(q_eff, k8, v8, vsx, dk, s_valid),
+               lambda: K.xattn_int8_plain(q_eff, k8, v8, vsx, dk, s_valid),
+               None,
+               # q, the s_valid int8 keys and values, v-scales, f32 output
+               nbytes=Bx * Tx * D * 2 + 2 * Bx * s_valid * D + Bx * D * 4
+               + Bx * Tx * D * 4,
+               flops=4 * Bx * Tx * s_valid * D, peak_flops=PEAK_F32_FLOPS,
+               label=label, row=Tx == 5, rms_tol=rms_tol,
+               rms_mutants={m: xattn_rounding_mutant(q_eff, k8, v8, vsx, dk,
+                                                     s_valid, m)
+                            for m in ("unnormalized", "none")})
+        # no PyTorch call reads int8 K/V; for reference, two calls on the
+        # bf16 memory: dequantize, then SDPA (and the v-scale multiply)
+        ref_err = (deq_sdpa() - K.xattn_int8_plain(q_eff, k8, v8, vsx, dk,
+                                                   s_valid)).abs().max()
+        ref_ms = time_cuda(deq_sdpa, iters)
+        log(f"kernel {label}: dequantize + SDPA (two calls, bf16 memory) "
+            f"{ref_ms:.4f} ms, max abs diff from the plain version "
+            f"{ref_err.item():.3e}")
+        if Tx == 5:
+            rows[-1]["dequant_sdpa_ms"] = ref_ms
+        del k8, v8, k_mut
+
     # depthwise_conv1d at the TitaNet-large shapes of the diarization
     # path: 256 windows of the largest bucket (3.072 s -> 320 frames),
     # 1024 channels, bf16 activations, f32 taps, k = 7, 11, 15 (the three
@@ -435,6 +602,41 @@ def check_reference():
             "(tolerance 1e-3)")
         if rc["tokens"] != rg["tokens"] or not dl <= 1e-3:
             raise AssertionError(f"{name} decode differs from the CPU")
+
+    # the int8 decoder: decoder matrices and embedding quantized from the
+    # same float weights (f32 compute), int8 cross-attention K/V read by
+    # xattn_int8 on the card; every decoder call the decoders count as
+    # reaching the kernel launches it once per layer
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.models.whisper import quantize_whisper_decoder
+    from notsofar_tpu_torch.ops import kernels
+    qsd = quantize_whisper_decoder(sd)
+    cpu8 = WhisperModel(dims, device="cpu", quant_decoder=True)
+    cpu8.load_state_dict(qsd)
+    gpu8 = WhisperModel(dims, device="cuda", quant_decoder=True)
+    gpu8.load_state_dict(qsd)
+    opts8 = DecodeOptions(max_new_tokens=12, cross_kv_quant=True)
+    for name, mk in (
+            ("greedy", lambda m: GreedyDecoder(m, tok, opts8)),
+            ("beam3", lambda m: BeamDecoder(m, tok, opts8, beam_size=3,
+                                            cache_dtype=torch.float32))):
+        rc = mk(cpu8).decode_prompted(xa, prompts)
+        dec.reset_decoder_calls()
+        before = kernels.LAUNCHES["xattn_int8"]
+        rg = mk(gpu8).decode_prompted(xa.cuda(), prompts)
+        launched = kernels.LAUNCHES["xattn_int8"] - before
+        calls = dec.DECODER_CALLS["xattn_int8"]
+        dl = float(np.abs(rc["avg_logprob"] - rg["avg_logprob"]).max())
+        log(f"reference int8 {name} decode (f32, int8 cross-KV): tokens "
+            f"equal {rc['tokens'] == rg['tokens']}, avg_logprob diff "
+            f"{dl:.2e} (tolerance 1e-3), xattn_int8 launches {launched} "
+            f"for {calls} counted decoder calls x {dims.n_text_layer} "
+            "layers")
+        if rc["tokens"] != rg["tokens"] or not dl <= 1e-3:
+            raise AssertionError(f"int8 {name} decode differs from the CPU")
+        if not launched == calls * dims.n_text_layer > 0:
+            raise AssertionError(f"int8 {name}: {launched} xattn_int8 "
+                                 f"launches for {calls} decoder calls")
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -852,45 +1054,54 @@ def check_attributed(df, label: str, seconds: float) -> None:
 # phase 7: CSS separation at full Conformer-large width
 # --------------------------------------------------------------------------
 
-def write_css_sessions(work: Path, n_sessions: int = 2,
-                       seconds: float = 360.0, seed: int = 10):
-    """Seeded 7-channel sessions of `seconds`: three sources of harmonic
+def mc_mixture(seconds: float, rng: np.random.RandomState):
+    """Seeded 7-channel audio of `seconds`: three sources of harmonic
     bursts (90-250 Hz f0, 5 harmonics, 1-4 s bursts, 0.5-5 s pauses), each
     at its own azimuth and reaching every mic with the plane-wave delay of
-    the 7-mic circular array (utils/mic_array.py), plus noise; written as
-    one int16 wav per mic, as load_session_audio reads them. Returns the
-    sessions' rows."""
-    import pandas as pd
-    import scipy.io.wavfile as wf
+    the 7-mic circular array (utils/mic_array.py), plus noise. Returns
+    (int16 audio [7, n], bursts [(source, start s, end s)])."""
     from notsofar_tpu_torch.utils.mic_array import multichannel_mic_pos_xyz_cm
     sr = 16000
     n = int(seconds * sr)
     pos = multichannel_mic_pos_xyz_cm()[:, :2] / 100.0     # metres
     freqs = torch.fft.rfftfreq(n, 1.0 / sr, device="cuda",
                                dtype=torch.float64)
+    mics = torch.from_numpy(0.003 * rng.randn(7, n)).cuda()
+    bursts = []
+    for src in range(3):
+        x = np.zeros(n)
+        pos_s = rng.uniform(0.0, 3.0)
+        while pos_s < seconds:
+            dur = rng.uniform(1.0, 4.0)
+            a, b = int(pos_s * sr), min(int((pos_s + dur) * sr), n)
+            tt = np.arange(b - a) / sr
+            f0 = rng.uniform(90, 250)
+            x[a:b] = 0.1 * np.hanning(b - a) * sum(
+                np.sin(2 * np.pi * f0 * h * tt + rng.uniform(0, 6.3)) / h
+                for h in range(1, 6))
+            bursts.append((src, a / sr, b / sr))
+            pos_s += dur + rng.uniform(0.5, 5.0)
+        az = rng.uniform(0.0, 2 * np.pi)
+        delay = -(pos @ np.array([np.cos(az), np.sin(az)])) / 343.0
+        X = torch.fft.rfft(torch.from_numpy(x).cuda())
+        shift = torch.exp(-2j * np.pi * freqs[None, :]
+                          * torch.from_numpy(delay).cuda()[:, None])
+        mics += torch.fft.irfft(X[None, :] * shift, n)
+    audio = mics.clamp(-1, 1).mul(32767).round().short().cpu().numpy()
+    return audio, bursts
+
+
+def write_css_sessions(work: Path, n_sessions: int = 2,
+                       seconds: float = 360.0, seed: int = 10):
+    """Seeded 7-channel sessions of `seconds` (mc_mixture), written as one
+    int16 wav per mic, as load_session_audio reads them. Returns the
+    sessions' rows."""
+    import pandas as pd
+    import scipy.io.wavfile as wf
+    sr = 16000
     rows = []
     for si in range(n_sessions):
-        rng = np.random.RandomState(seed + si)
-        mics = torch.from_numpy(0.003 * rng.randn(7, n)).cuda()
-        for _ in range(3):
-            x = np.zeros(n)
-            pos_s = rng.uniform(0.0, 3.0)
-            while pos_s < seconds:
-                dur = rng.uniform(1.0, 4.0)
-                a, b = int(pos_s * sr), min(int((pos_s + dur) * sr), n)
-                tt = np.arange(b - a) / sr
-                f0 = rng.uniform(90, 250)
-                x[a:b] = 0.1 * np.hanning(b - a) * sum(
-                    np.sin(2 * np.pi * f0 * h * tt + rng.uniform(0, 6.3)) / h
-                    for h in range(1, 6))
-                pos_s += dur + rng.uniform(0.5, 5.0)
-            az = rng.uniform(0.0, 2 * np.pi)
-            delay = -(pos @ np.array([np.cos(az), np.sin(az)])) / 343.0
-            X = torch.fft.rfft(torch.from_numpy(x).cuda())
-            shift = torch.exp(-2j * np.pi * freqs[None, :]
-                              * torch.from_numpy(delay).cuda()[:, None])
-            mics += torch.fft.irfft(X[None, :] * shift, n)
-        audio = mics.clamp(-1, 1).mul(32767).round().short().cpu().numpy()
+        audio, _ = mc_mixture(seconds, np.random.RandomState(seed + si))
         names = []
         for m in range(7):
             name = work / f"css_s{si}" / f"mic{m}.wav"
@@ -1016,6 +1227,269 @@ def run_css(work: Path):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 8: the whole pipeline, as run_inference_gpu.py runs it
+# --------------------------------------------------------------------------
+
+PIPELINE_SECONDS = 40.0
+PIPELINE_WHISPER = "large-v3"
+PIPELINE_WORDS = ("alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
+                  "golf", "hotel", "india", "juliet", "kilo", "lima")
+
+
+def write_meeting(meetings_dir: Path, seconds: float, seed: int = 20,
+                  meeting_id: str = "MTG_90008"):
+    """A seeded synthetic meeting in the NOTSOFAR layout (the writer of
+    tests/test_pipeline_e2e.py::make_meeting, copied here since nothing
+    run on the card may import tests): one 7-channel device plaza_0
+    (mc_mixture: three speakers at their own azimuths), devices.json,
+    gt_transcription.json (one utterance per burst, a seeded word per
+    0.4 s of it, speaker spk<source>) and gt_meeting_metadata.json.
+    Returns the GT utterances."""
+    import scipy.io.wavfile as wf
+    rng = np.random.RandomState(seed)
+    mdir = meetings_dir / meeting_id
+    (mdir / "plaza_0").mkdir(parents=True)
+    audio, bursts = mc_mixture(seconds, rng)
+    names = []
+    for m in range(7):
+        names.append(f"plaza_0/ch{m}.wav")
+        wf.write(mdir / names[-1], 16000, audio[m])
+    devices = [dict(device_name="plaza_0", is_close_talk=False, is_mc=True,
+                    wav_file_names=",".join(names))]
+    (mdir / "devices.json").write_text(json.dumps(devices))
+    gt = []
+    for src, a, b in sorted(bursts, key=lambda x: x[1]):
+        starts = np.arange(a, b - 0.35, 0.4)
+        words = [[str(rng.choice(PIPELINE_WORDS)), round(float(t), 2),
+                  round(float(t) + 0.35, 2)] for t in starts]
+        if words:
+            gt.append(dict(start_time=round(a, 2), end_time=round(b, 2),
+                           text=" ".join(w[0] for w in words),
+                           speaker_id=f"spk{src}", word_timing=words,
+                           ct_wav_file_name=f"ct_spk{src}.wav"))
+    (mdir / "gt_transcription.json").write_text(json.dumps(gt))
+    (mdir / "gt_meeting_metadata.json").write_text(json.dumps(dict(
+        meeting_id=meeting_id, MtgType="natural", hashtags="#Smoke")))
+    return gt
+
+
+def save_reference_css_checkpoint(model_dir: Path, model, train_cfg):
+    """A CssModel saved as the NOTSOFAR baseline's checkpoint: config.yaml
+    and model.pt (the reference ConformerCssWrapper state dict with the DDP
+    'module.' prefix), the inverse of models/convert.py's mapping."""
+    import yaml
+    from notsofar_tpu_torch.utils.conf import dataclass_to_dict
+    sd = {k: v.detach().float().cpu() for k, v in
+          model.module.state_dict().items()}
+    P = "executor.nnet."
+    ref = {P + "input_bias": sd["input_bias"],
+           P + "input_scale": sd["input_scale"],
+           P + "linear.weight": sd["mask_head.weight"],
+           P + "linear.bias": sd["mask_head.bias"],
+           P + "conformer.pos_emb.pe_k.weight": sd["encoder.pos_emb"]}
+    for i, name in ((0, "embed"), (1, "embed_ln")):
+        for w in ("weight", "bias"):
+            ref[f"{P}conformer.embed.{i}.{w}"] = sd[f"encoder.{name}.{w}"]
+    layer_names = {
+        "ffn_in.ln": "feed_forward_in.layer_norm",
+        "ffn_in.w1": "feed_forward_in.net.0",
+        "ffn_in.w2": "feed_forward_in.net.3",
+        "ffn_out.ln": "feed_forward_out.layer_norm",
+        "ffn_out.w1": "feed_forward_out.net.0",
+        "ffn_out.w2": "feed_forward_out.net.3",
+        "attn.ln": "self_attn.layer_norm", "attn.q": "self_attn.linear_q",
+        "attn.k": "self_attn.linear_k", "attn.v": "self_attn.linear_v",
+        "attn.out": "self_attn.linear_out", "conv.ln": "conv.layer_norm",
+        "conv.dw": "conv.dw_conv_1d", "conv.bn": "conv.BN",
+        "ln_out": "layer_norm"}
+    for i in range(train_cfg.conformer_css_cfg.nnet_conf.conformer_conf
+                   .num_blocks):
+        L, R = f"encoder.layer_{i}.", f"{P}conformer.encoders.{i}."
+        for ours, theirs in layer_names.items():
+            for w in ("weight", "bias", "running_mean", "running_var"):
+                if L + ours + "." + w in sd:
+                    ref[R + theirs + "." + w] = sd[L + ours + "." + w]
+        for k, shape in (("pw1_w", (2, 1, 1, 1)), ("pw1_b", (2,)),
+                         ("pw2_w", (1, 1, 1, 1)), ("pw2_b", (1,))):
+            conv = "conv.pw_conv_1." if k.startswith("pw1") else \
+                "conv.pw_conv_2."
+            ref[R + conv + ("weight" if k.endswith("w") else "bias")] = \
+                sd[L + "conv." + k].reshape(shape)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.yaml").write_text(
+        yaml.safe_dump(dataclass_to_dict(train_cfg)))
+    torch.save({f"module.{k}": v for k, v in ref.items()},
+               model_dir / "model.pt")
+
+
+def save_models(models_dir: Path):
+    """Seeded random weights under models_dir, where the pipeline looks for
+    them: the MC Conformer-large CSS model (notsofar/conformer1.0/mc) and
+    the openai-format Whisper checkpoint (whisper/<name>.pt, fp16). The
+    TitaNet-large speaker model takes its seeded random weights from
+    resolve_speaker_encoder (it reads NeMo checkpoints only)."""
+    import dataclasses
+    from notsofar_tpu_torch.asr.inference import RANDOM_WEIGHTS_SEED
+    from notsofar_tpu_torch.models.css_wrapper import CssModel
+    from notsofar_tpu_torch.models.whisper import WHISPER_DIMS
+    from notsofar_tpu_torch.models.whisper import WhisperModel
+    from notsofar_tpu_torch.training.config import (ConformerCfgM,
+                                                    ConformerCssCfgM,
+                                                    NnetCfgM, TrainCfg)
+    t0 = time.perf_counter()
+    train_cfg = TrainCfg(conformer_css_cfg=ConformerCssCfgM(
+        nnet_conf=NnetCfgM(conformer_conf=ConformerCfgM(
+            attention_dim=512, attention_heads=8, num_blocks=18,
+            dropout_rate=0.0))))
+    css = CssModel(train_cfg.conformer_css_cfg.freeze(), device="cuda",
+                   seed=12)
+    save_reference_css_checkpoint(
+        models_dir / "notsofar" / "conformer1.0" / "mc", css, train_cfg)
+    dims = WHISPER_DIMS[PIPELINE_WHISPER]
+    wm = WhisperModel(dims, dtype=torch.float16, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(RANDOM_WEIGHTS_SEED))
+    sd = {k: v.cpu() for k, v in wm.state_dict().items()
+          if k != "encoder.positional_embedding"}
+    (models_dir / "whisper").mkdir(parents=True)
+    torch.save(dict(dims=dataclasses.asdict(dims), model_state_dict=sd),
+               models_dir / "whisper" / f"{PIPELINE_WHISPER}.pt")
+    del css, wm, sd
+    log(f"pipeline models saved in {time.perf_counter() - t0:.1f} s")
+
+
+def run_pipeline(work: Path, seconds: float = PIPELINE_SECONDS):
+    """inference_pipeline on one seeded meeting with the config that
+    run_inference_gpu.py --config-name full_dev_set_mc loads
+    (inference_v1.yaml) and asr.compute_dtype = 'int8'. Random-weight
+    Whisper leaves the ASR frame wordless, so every ASR read in the
+    pipeline returns the frame plus phase 6's seeded word track (the same
+    on every read) and the diarization prepass embeds real load. The three
+    prepasses are timed (synchronized) on their way through. Launch and
+    decoder-call counts are reset just before the call and read just after
+    it. Returns the counts."""
+    import notsofar_tpu_torch.inference_pipeline.inference as pipe
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.ops import kernels
+    from run_inference_gpu import load_config
+
+    meetings, models, out = work / "meetings", work / "models", work / "out"
+    gt = write_meeting(meetings, seconds)
+    save_models(models)
+    cfg = load_config("full_dev_set_mc")
+    cfg.asr.compute_dtype = "int8"
+    log(f"pipeline: 1 meeting, 7 channels x {seconds:.0f} s, "
+        f"{sum(len(u['word_timing']) for u in gt)} GT words; asr "
+        f"{cfg.asr.model_name} {cfg.asr.compute_dtype} beam "
+        f"{cfg.asr.beam_size}, css mc_mvdr {cfg.css.mc_mvdr}, diarization "
+        f"{cfg.diarization.method}")
+
+    stage_s, tracked = {}, {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[name] = round(time.perf_counter() - t, 3)
+            return result
+        return run
+
+    def asr_with_track(*args, **kwargs):
+        df = saved["asr_inference"](*args, **kwargs)
+        if len(df) == 0:
+            raise AssertionError("pipeline: the ASR gave no segments")
+        tracked[df.session_id.iloc[0]] = df = add_word_track(df, seconds, 2)
+        return df
+
+    saved = {k: getattr(pipe, k) for k in (
+        "css_batch_prepass", "asr_batch_prepass", "diarization_batch_prepass",
+        "asr_inference")}
+    patches = {k: timed(k.split("_")[0], f) for k, f in saved.items()
+               if k.endswith("prepass")}
+    patches["asr_inference"] = asr_with_track
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    dec.reset_decoder_calls()
+    for k, f in patches.items():
+        setattr(pipe, k, f)
+    try:
+        t0 = time.perf_counter()
+        wer = pipe.inference_pipeline(str(meetings), str(models), str(out),
+                                      cfg, pipe.FetchFromCacheCfg())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, f in saved.items():
+            setattr(pipe, k, f)
+    counts = dict(kernels.LAUNCHES)
+    calls = dec.DECODER_CALLS["xattn_int8"]
+    plan = planned_chunks(list(tracked.values()), cfg.diarization, seconds)
+    log(f"pipeline: kernel launches {counts}; int8 decoder calls reaching "
+        f"xattn_int8 {calls}; wall {wall:.2f} s, prepasses {stage_s}; "
+        f"diarization words {plan['words']}, TitaNet chunks "
+        f"{plan['chunks']}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; WER "
+        + ("none (no words)" if wer is None else
+           str(wer[["tcp_wer", "tcorc_wer"]].to_dict("records"))))
+
+    sid = "multichannel/MTG_90008_plaza_0"
+    files = [f"css_inference/{sid}/sep_stream{k}.wav" for k in range(3)] + [
+        f"asr/{sid}/{cfg.asr.model_name}/all_segments_df.pkl",
+        f"diarization/{sid}/word_nmesc/all_segments_df.pkl",
+        f"wer/{sid}/tcp_wer_hyp.json", f"wer/{sid}/tc_orc_wer_hyp.json",
+        "wer/multichannel/tcp_wer_hyp.json",
+        "wer/multichannel/tc_orc_wer_hyp.json"]
+    missing = [f for f in files if not (out / f).exists()]
+    if missing:
+        raise AssertionError(f"pipeline: missing contract files {missing}")
+    if wer is None:
+        raise AssertionError("pipeline: no WER row for the meeting")
+    from notsofar_tpu_torch.models.whisper import WHISPER_DIMS
+    n_layers = WHISPER_DIMS[PIPELINE_WHISPER].n_text_layer
+    if not counts["xattn_int8"] == n_layers * calls > 0:
+        raise AssertionError(f"pipeline: xattn_int8 launched "
+                             f"{counts['xattn_int8']} times for {calls} "
+                             f"decoder calls x {n_layers} layers")
+    never = [k for k in ("encoder_mha", "attn_step_split") if counts[k] <= 0]
+    if never:
+        raise AssertionError(f"pipeline: never launched {never}")
+    if not counts["depthwise_conv1d"] == 9 * plan["chunks"] > 0:
+        raise AssertionError(f"pipeline: depthwise_conv1d launched "
+                             f"{counts['depthwise_conv1d']} times, planned "
+                             f"9 x {plan['chunks']} chunks")
+    check_scoring(out / "score_check", gt)
+    return counts
+
+
+def check_scoring(out_dir: Path, gt) -> None:
+    """The port's calc_wer on the meeting's GT with known answers: the GT
+    as the hypothesis scores 0, and with one word dropped 1/N (N the
+    normalized GT words), for tcpWER and tcORC-WER."""
+    import pandas as pd
+    from notsofar_tpu_torch.utils.scoring import calc_wer
+    from notsofar_tpu_torch.utils.scoring.levenshtein import core_name
+    gt_df = pd.DataFrame(gt).assign(meeting_id="MTG_90008")
+    hyp = [dict(session_id="multichannel/MTG_90008_plaza_0",
+                start_time=u["start_time"], end_time=u["end_time"],
+                words=u["text"], speaker=u["speaker_id"]) for u in gt]
+    n = sum(len(u["text"].split()) for u in gt)
+    dropped = [dict(h) for h in hyp]
+    dropped[0]["words"] = " ".join(dropped[0]["words"].split()[1:])
+    got = [calc_wer(out_dir / name, h, h, gt_df)
+           for name, h in (("same", hyp), ("dropped", dropped))]
+    rates = [(float(g.tcp_wer.iloc[0]), float(g.tcorc_wer.iloc[0]))
+             for g in got]
+    log(f"scoring ({core_name()} core): GT as hypothesis tcpWER/tcORC "
+        f"{rates[0]} (want 0, 0); one of {n} words dropped {rates[1]} "
+        f"(want {1 / n:.6f})")
+    if rates[0] != (0.0, 0.0) or not all(abs(r - 1 / n) < 1e-12
+                                         for r in rates[1]):
+        raise AssertionError(f"calc_wer on known answers: {rates}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1061,6 +1535,8 @@ def main() -> int:
         by_path["diarization"] = run_diarization(work, asr_dfs)
         log("phase 7 css, Conformer-large + MVDR")
         by_path["css"] = run_css(work)
+        log("phase 8 pipeline, inference_v1.yaml with int8 ASR")
+        by_path["pipeline"] = run_pipeline(work)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -71,7 +71,7 @@ class BeamDecoder(GreedyDecoder):
                      and d.n_text_state // d.n_text_head in (64, 128))
         max_new = min(self.opt.max_new_tokens, d.n_text_ctx - prompt_len)
         P = prompt_tokens.shape[1]
-        cross_kvs = model.precompute_cross_kv(xa)
+        cross_kvs = self._cross_kvs(xa)
         sot_pos = self._sot_pos(prompt_len)
         pad_k = pad_lens.repeat_interleave(K) if pad_lens is not None \
             else None
@@ -81,9 +81,8 @@ class BeamDecoder(GreedyDecoder):
             # batch B into the shared prompt segment
             G = -(-max_new // 64) * 64
             prompt_caches = self._zeros_caches(B, P)
-            logits, prompt_caches, _ = model.decoder(
-                prompt_tokens, xa, 0, prompt_caches, cross_kvs=cross_kvs,
-                pad_lens=pad_lens)
+            logits, prompt_caches, _ = self._decoder(
+                prompt_tokens, xa, 0, prompt_caches, cross_kvs, pad_lens)
             nsp = torch.softmax(logits[:, sot_pos], dim=-1)[:, tok.no_speech]
             cur_logits = logits[:, -1].repeat_interleave(K, dim=0)
             caches = self._zeros_caches(BK, G)
@@ -92,8 +91,8 @@ class BeamDecoder(GreedyDecoder):
             prompt_k = prompt_tokens.repeat_interleave(K, dim=0)
             caches = self._zeros_caches(
                 BK, min(-(-(max_new + prompt_len) // 64) * 64, d.n_text_ctx))
-            logits, caches, _ = model.decoder(
-                prompt_k, xa, 0, caches, cross_kvs=cross_kvs, pad_lens=pad_k)
+            logits, caches, _ = self._decoder(prompt_k, xa, 0, caches,
+                                              cross_kvs, pad_k)
             nsp = torch.softmax(logits[::K, sot_pos],
                                 dim=-1)[:, tok.no_speech]
             cur_logits = logits[:, -1]
@@ -144,13 +143,12 @@ class BeamDecoder(GreedyDecoder):
             if use_split:
                 split = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
                          in zip(prompt_caches, caches)]
-                new_logits, _, _ = model.decoder(
-                    next_tok[:, None], xa, P + step, split,
-                    cross_kvs=cross_kvs, pad_lens=pad_k)
+                new_logits, _, _ = self._decoder(
+                    next_tok[:, None], xa, P + step, split, cross_kvs, pad_k)
             else:
-                new_logits, caches, _ = model.decoder(
+                new_logits, caches, _ = self._decoder(
                     next_tok[:, None], xa, prompt_len + step, caches,
-                    cross_kvs=cross_kvs, pad_lens=pad_k)
+                    cross_kvs, pad_k)
             cur_logits = new_logits[:, 0]
             step += 1
         stats = torch.cat([sum_lp.reshape(B, K),

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
-from notsofar_tpu_torch.models.whisper import WhisperModel
+from notsofar_tpu_torch.models.whisper import WhisperModel, uses_xattn_int8
 
 NEG_INF = -1e30
 
@@ -88,6 +88,19 @@ class DecodeOptions:
     # rows per decode call (beam paths count batch*K): bounds the per-row
     # cross-attention K/V (~0.25 GB per row on large-v3 in bf16)
     max_rows_per_dispatch: int = 12
+    # int8 cross-attention K/V (WhisperModel.quantize_cross_kv), read by
+    # the xattn_int8 kernel at every decode step: a quarter of the f32
+    # bytes, half of bf16's, so a dispatch can hold more rows
+    cross_kv_quant: bool = False
+
+
+# decoder calls whose cross-attention reads int8 memory at a folded query
+# length the xattn_int8 kernel serves: each launches it once per layer
+DECODER_CALLS: Dict[str, int] = {"xattn_int8": 0}
+
+
+def reset_decoder_calls() -> None:
+    DECODER_CALLS["xattn_int8"] = 0
 
 
 def gumbel_noise(shape, generator: torch.Generator,
@@ -193,6 +206,22 @@ class GreedyDecoder:
             length=torch.zeros(rows, dtype=torch.long, device=dev),
             finished=torch.zeros(rows, dtype=torch.bool, device=dev))
 
+    def _cross_kvs(self, xa: torch.Tensor):
+        """The decode loop's cross-attention memory: projected once, and
+        quantized to int8 when the options ask for it."""
+        cross_kvs = self.model.precompute_cross_kv(xa)
+        if self.opt.cross_kv_quant:
+            cross_kvs = self.model.quantize_cross_kv(cross_kvs)
+        return cross_kvs
+
+    def _decoder(self, tokens, xa, pos_offset, caches, cross_kvs, pad_lens):
+        """model.decoder, counting the calls whose cross-attention reaches
+        xattn_int8 (the rule MHA dispatches by)."""
+        if uses_xattn_int8(tokens.shape[0], tokens.shape[1], cross_kvs[0]):
+            DECODER_CALLS["xattn_int8"] += 1
+        return self.model.decoder(tokens, xa, pos_offset, caches,
+                                  cross_kvs=cross_kvs, pad_lens=pad_lens)
+
     def _sot_pos(self, prompt_len: int) -> int:
         """Index of <|startoftranscript|> in a prompt that ends with the
         sot sequence (where whisper reads the no-speech probability)."""
@@ -226,10 +255,9 @@ class GreedyDecoder:
                      model.dims.n_text_ctx - prompt_len) + prompt_len
         cache_len = min(-(-budget // 64) * 64, model.dims.n_text_ctx)
         caches = model.empty_kv_caches(B, cache_len=cache_len)
-        cross_kvs = model.precompute_cross_kv(xa)
-        logits, caches, _ = model.decoder(prompt_tokens, xa, 0, caches,
-                                          cross_kvs=cross_kvs,
-                                          pad_lens=pad_lens)
+        cross_kvs = self._cross_kvs(xa)
+        logits, caches, _ = self._decoder(prompt_tokens, xa, 0, caches,
+                                          cross_kvs, pad_lens)
         no_speech_prob = torch.softmax(
             logits[:, self._sot_pos(prompt_len)], dim=-1)[:, tok.no_speech]
         cur_logits = logits[:, -1]
@@ -273,9 +301,9 @@ class GreedyDecoder:
             st["prev_was_ts"] = is_ts
             st["finished"] = new_finished
             tokens_buf[:, step] = next_tok
-            new_logits, caches, _ = model.decoder(
-                next_tok[:, None], xa, prompt_len + step, caches,
-                cross_kvs=cross_kvs, pad_lens=pad_lens)
+            new_logits, caches, _ = self._decoder(
+                next_tok[:, None], xa, prompt_len + step, caches, cross_kvs,
+                pad_lens)
             cur_logits = new_logits[:, 0]
             step += 1
         stats = torch.stack([sum_lp, st["length"].float(), no_speech_prob],

@@ -29,13 +29,14 @@ import torch
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer, load_tokenizer
 from notsofar_tpu_torch.asr.transcribe import (TranscribeOptions,
                                                WhisperTranscriber)
-from notsofar_tpu_torch.models.whisper import (INT8_SLICE_MSG, WHISPER_DIMS,
-                                               WhisperModel,
-                                               load_openai_whisper_checkpoint)
+from notsofar_tpu_torch.models.whisper import (WHISPER_DIMS, WhisperModel,
+                                               load_openai_whisper_checkpoint,
+                                               quantize_whisper_decoder)
 from notsofar_tpu_torch.utils.audio import read_wav_scaled
 from notsofar_tpu_torch.utils.device import resolve_device
 from notsofar_tpu_torch.utils.logging_def import get_logger
 from notsofar_tpu_torch.utils.profiling import StageTimer
+from notsofar_tpu_torch.utils.text_norm import get_txt_norm
 
 _LOG = get_logger("asr")
 
@@ -44,8 +45,7 @@ RANDOM_WEIGHTS_SEED = 0
 
 @dataclass
 class WhisperAsrCfg:
-    """Mirror of the JAX package's WhisperAsrCfg (same defaults). The text
-    normalizer (utils/text_norm) comes with the orchestration slice."""
+    """Mirror of the JAX package's WhisperAsrCfg (same defaults)."""
     model_name: str = "large-v2"
     language: Optional[str] = "en"
     word_level_time_stamps: bool = True
@@ -54,11 +54,15 @@ class WhisperAsrCfg:
     vocab_path: Optional[str] = None
     max_new_tokens: int = 224  # decode-step budget per 30 s window
     # matmul + weight dtype: 'bfloat16' (serving) or 'float32' (parity);
-    # 'int8' (weight-only int8 decoder) comes with a later slice
+    # 'int8' keeps bf16 compute with the weight-only int8 decoder and int8
+    # cross-attention K/V (the JAX package's serving configuration)
     compute_dtype: str = "bfloat16"
     # cross-session stream batching width for asr_batch_prepass (<=1
     # disables the prepass)
     batch_streams: int = 9
+
+    def text_normalizer(self):
+        return get_txt_norm("chime8")
 
     def assert_valid(self):
         if self.model_name not in WHISPER_DIMS:
@@ -99,11 +103,13 @@ def load_whisper_model(model_name: str, models_dir: Optional[str] = None,
 
     compute_dtype 'bfloat16' (default) stores every weight in bf16 and
     runs the matmuls in bf16, as the JAX package does; 'float32' is for
-    strict-parity runs."""
-    if compute_dtype == "int8":
-        raise NotImplementedError(INT8_SLICE_MSG)
-    dtype = {"float32": torch.float32,
-             "bfloat16": torch.bfloat16}[compute_dtype]
+    strict-parity runs; 'int8' casts the float weights to bf16 first, then
+    quantizes the decoder matrices and the embedding to int8
+    (quantize_whisper_decoder) on the device that holds them, and runs
+    the bf16 encoder with the weight-only int8 decoder."""
+    quant = compute_dtype == "int8"
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "int8": torch.bfloat16}[compute_dtype]
     dev = resolve_device(device)
     key = f"{models_dir}/{model_name}/{compute_dtype}/{dev}"
     if key in _MODEL_CACHE:
@@ -119,18 +125,24 @@ def load_whisper_model(model_name: str, models_dir: Optional[str] = None,
     if ckpt is not None:
         _LOG.info(f"Loading Whisper checkpoint: {ckpt}")
         sd, dims = load_openai_whisper_checkpoint(ckpt)
-        model = WhisperModel(dims, dtype=dtype, device=dev)
-        model.load_state_dict(sd)
         alignment_heads = _load_alignment_heads(ckpt, dims)
+        if quant:    # f32 tensors to bf16 first (the JAX package's cast)
+            sd = {k: v.to(dtype) if v.dtype == torch.float32 else v
+                  for k, v in sd.items()}
     else:
         dims = WHISPER_DIMS[model_name]
         _LOG.warning(
             f"No Whisper checkpoint found for '{model_name}' under "
             f"{models_dir} — using RANDOM weights (pipeline smoke mode; "
             "transcripts are meaningless)")
-        model = WhisperModel(dims, dtype=dtype, device=dev)
-        model.init(torch.Generator(device=dev).manual_seed(
-            RANDOM_WEIGHTS_SEED))
+        sd = WhisperModel(dims, dtype=dtype, device=dev).init(
+            torch.Generator(device=dev).manual_seed(RANDOM_WEIGHTS_SEED)
+        ).state_dict()
+    if quant:
+        sd = quantize_whisper_decoder(sd)
+    model = WhisperModel(dims, dtype=dtype, device=dev, quant_decoder=quant)
+    model.load_state_dict(sd)
+    del sd
     tokenizer = load_tokenizer(model_name, dims.n_vocab,
                                vocab_path=vocab_path, language=language)
     _MODEL_CACHE[key] = (model, tokenizer, alignment_heads)

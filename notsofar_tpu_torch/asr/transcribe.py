@@ -86,7 +86,8 @@ class TranscribeOptions:
     # per iteration via right-aligned prompt buckets. False = per-stream
     # serial decodes.
     batched_prompts: bool = True
-    # rows per decode call (None = DecodeOptions default 12)
+    # rows per decode call (None = DecodeOptions default 12, or 48 with
+    # int8 cross-attention K/V, which an int8 decoder always uses)
     max_rows_per_dispatch: Optional[int] = None
 
 
@@ -381,12 +382,20 @@ class WhisperTranscriber:
         self.model = model
         self.tok = tokenizer
         self.opt = options
+        # an int8 decoder reads int8 cross-attention K/V (the serving
+        # configuration); a float decoder reads float K/V
+        kv_q = model.quant_decoder
         extra = {}
         if options.max_rows_per_dispatch is not None:
             extra["max_rows_per_dispatch"] = options.max_rows_per_dispatch
+        elif kv_q:
+            # the int8 memory is half of bf16's per row: 48 rows per
+            # dispatch (beam 5: 9 streams x 5 beams), so each weight read
+            # serves 4x the rows of the default 12
+            extra["max_rows_per_dispatch"] = 48
         dec_opts = DecodeOptions(language=options.language,
                                  max_new_tokens=options.max_new_tokens,
-                                 **extra)
+                                 cross_kv_quant=kv_q, **extra)
         if options.beam_size and options.beam_size > 1:
             from notsofar_tpu_torch.asr.beam import BeamDecoder
             self.decoder = BeamDecoder(model, tokenizer, dec_opts,

@@ -1,6 +1,7 @@
 // Helpers shared by the decode-step attention kernels (attn_step.cu,
-// attn_step_split.cu): 16-byte vector loads of bf16 or f32 rows into f32
-// registers, and the rounding of softmax weights to the cache dtype.
+// attn_step_split.cu, xattn_int8.cu): 16-byte vector loads of bf16 or f32
+// rows into f32 registers, the rounding of softmax weights to the cache
+// dtype, and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>

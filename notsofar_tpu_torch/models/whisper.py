@@ -9,14 +9,20 @@ the parity tests give both packages identical weights.
 Numerics follow the JAX model: matmuls in the model dtype; attention
 logits, softmax and the decoder's output logits in f32, with attention
 weights rounded to the value dtype before the weights-times-values
-product. ``MHA`` keeps the reference's three kernel dispatch predicates
-exactly (split cache, T=1 cache step, encoder 512 <= T == S <= 2048), so
-the same calls reach the same kernels on both sides.
+product. ``MHA`` keeps the reference's four kernel dispatch predicates
+exactly (split cache, T=1 cache step, encoder 512 <= T == S <= 2048, int8
+cross-attention memory at a folded query length <= 8), so the same calls
+reach the same kernels on both sides.
 
-The int8 decoder (QuantDense, quantize_whisper_decoder, quantize_cross_kv
-and the xattn_int8 kernel) is a later slice of the port.
+The int8 decoder (``quant_decoder=True``, the JAX package's serving
+configuration) stores every decoder matrix weight-only int8 with f32
+per-output-channel scales (QuantDense) and the tied embedding int8 with a
+per-row scale; quantize_whisper_decoder makes those from float weights,
+quantize_cross_kv makes the int8 cross-attention memory that the
+xattn_int8 kernel reads.
 """
 import math
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -26,13 +32,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from notsofar_tpu_torch.ops.kernels import (attn_step, attn_step_split,
-                                            encoder_mha)
+                                            encoder_mha, xattn_int8)
 from notsofar_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-5
-INT8_SLICE_MSG = ("the int8 decoder (QuantDense, quantize_cross_kv and the "
-                  "xattn_int8 kernel) is ported in a later slice of "
-                  "notsofar_tpu_torch")
+XATTN_INT8_MAX_TQ = 8   # folded query lengths the int8 kernel serves
+
+
+def uses_xattn_int8(B: int, T: int, precomputed_kv) -> bool:
+    """Whether cross-attention of B x T queries against the memory
+    `precomputed_kv` goes through the xattn_int8 kernel: the memory is the
+    int8 5-tuple and the query length, with the beams of a window folded
+    into it (B // Bm of them), is at most XATTN_INT8_MAX_TQ."""
+    return len(precomputed_kv) == 5 and \
+        B // precomputed_kv[0].shape[0] * T <= XATTN_INT8_MAX_TQ
 
 
 @dataclass(frozen=True)
@@ -80,9 +93,72 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000
                           ).astype(np.float32)
 
 
-def _lin(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Dense in the layer's dtype (flax Dense(dtype) casts its input)."""
-    return layer(x.to(layer.weight.dtype))
+class QuantDense(nn.Module):
+    """Weight-only int8 Dense (JAX QuantDense): an int8 weight [out, in]
+    (the openai Linear layout) with an f32 per-output-channel scale,
+    widened to the compute dtype per call. Each step rounds to the compute
+    dtype as flax does: y = x @ w8, then y * s, then + b. The scale is
+    never folded into the weight and the bias never enters the product:
+    either would move a bf16 rounding point. ``dtype`` is the compute
+    dtype (WhisperModel sets it)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.dtype = torch.float32
+        self.register_buffer("weight", torch.zeros(
+            (out_features, in_features), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias \
+            else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = torch.matmul(x.to(dt), self.weight.to(dt).T) * self.scale.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+class QuantEmbedding(nn.Module):
+    """The int8 tied token embedding with an f32 per-row scale: rows for
+    the embedding lookup, the whole matrix for the output logits."""
+
+    def __init__(self, n_vocab: int, n_state: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros((n_vocab, n_state),
+                                                   dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(n_vocab))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm that promotes like flax's: an f32 input with bf16
+    parameters (the int8 decoder's f32 residual stream) is normalized in
+    f32 with the parameters' values, and stays f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt), self.eps)
+
+
+def _dense(quant: bool, n_in: int, n_out: int, bias: bool = True):
+    return QuantDense(n_in, n_out, bias) if quant else \
+        nn.Linear(n_in, n_out, bias=bias)
+
+
+def _dtype(layer: nn.Module) -> torch.dtype:
+    """A dense layer's compute dtype."""
+    return layer.dtype if isinstance(layer, QuantDense) else \
+        layer.weight.dtype
+
+
+def _lin(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Dense in the layer's compute dtype (flax Dense(dtype) casts its
+    input)."""
+    return layer(x.to(_dtype(layer)))
 
 
 def _kernel_geometry(n_state: int, d_k: int) -> bool:
@@ -95,14 +171,14 @@ class MHA(nn.Module):
     """Whisper attention: q/out have bias, k has none, v has bias; scaling
     by d_k**-0.25 applied to both q and k."""
 
-    def __init__(self, n_state: int, n_head: int):
+    def __init__(self, n_state: int, n_head: int, quant: bool = False):
         super().__init__()
         self.n_state = n_state
         self.n_head = n_head
-        self.query = nn.Linear(n_state, n_state)
-        self.key = nn.Linear(n_state, n_state, bias=False)
-        self.value = nn.Linear(n_state, n_state)
-        self.out = nn.Linear(n_state, n_state)
+        self.query = _dense(quant, n_state, n_state)
+        self.key = _dense(quant, n_state, n_state, bias=False)
+        self.value = _dense(quant, n_state, n_state)
+        self.out = _dense(quant, n_state, n_state)
 
     def forward(self, x, xa=None, mask=None, kv_cache=None, cache_index=None,
                 precomputed_kv=None, pad_lens=None):
@@ -112,11 +188,13 @@ class MHA(nn.Module):
         (kp, vp, kg, vg[, anc]). Caches are updated IN PLACE (the JAX
         model's dynamic_update_slice on its loop carry) and returned.
         precomputed_kv: optional (k, v) [Bm, S, D] cross-attention memory
-        already projected (see WhisperModel.precompute_cross_kv).
+        already projected (see WhisperModel.precompute_cross_kv), or its
+        int8 form (k8, k_scale, v8, v_scale, s_valid) from
+        WhisperModel.quantize_cross_kv.
         Returns (out, attention weights or None, cache or None)."""
         d_k = self.n_state // self.n_head
         H = self.n_head
-        dtype = self.query.weight.dtype
+        dtype = _dtype(self.query)
         q = _lin(self.query, x)
         if precomputed_kv is not None:
             out, w = self._attend_precomputed(q, precomputed_kv, mask)
@@ -200,18 +278,17 @@ class MHA(nn.Module):
         return _lin(self.out, out), w, new_cache
 
     def _attend_precomputed(self, q, precomputed_kv, mask):
-        """Cross-attention against an already-projected memory (k, v)
-        [Bm, S, D]. When the query batch B is a multiple of Bm (beam
-        search: K beams share one window's memory) the beam axis folds
-        into the query-time axis, so the memory is read once per window.
-        Returns (out [B, T, D] pre-out-projection, weights)."""
-        if len(precomputed_kv) != 2:
-            raise NotImplementedError(INT8_SLICE_MSG)
+        """Cross-attention against an already-projected memory: (k, v)
+        [Bm, S, D], or the int8 5-tuple (k8, k_scale, v8, v_scale,
+        s_valid). When the query batch B is a multiple of Bm (beam search:
+        K beams share one window's memory) the beam axis folds into the
+        query-time axis, so the memory is read once per window.
+        Returns (out [B, T, D] pre-out-projection, weights or None)."""
         d_k = self.n_state // self.n_head
         H = self.n_head
-        dtype = self.query.weight.dtype
+        dtype = _dtype(self.query)
         B, T, _ = q.shape
-        k, v = precomputed_kv
+        k = precomputed_kv[0]
         Bm, S = k.shape[:2]
         fold = Bm != B
         if fold:
@@ -219,6 +296,28 @@ class MHA(nn.Module):
             q = q.reshape(Bm, (B // Bm) * T, self.n_state)
         Tq = q.shape[1]
         scale = d_k ** -0.25
+        if len(precomputed_kv) == 5:
+            assert mask is None, "quantized cross-attention is unmasked"
+            k8, k_s, v8, v_s, s_valid = precomputed_kv
+            if uses_xattn_int8(B, T, precomputed_kv):
+                # decode steps: the k-scales and both scale factors fold
+                # into q in f32; the kernel reads the int8 bytes (decode
+                # paths never consume these attention weights)
+                q_eff = ((q.float() * scale) * (k_s * scale)).to(dtype)
+                out = xattn_int8(q_eff.contiguous(), k8, v8,
+                                 v_s[:, 0].contiguous(), d_k, s_valid)
+                if fold:
+                    out = out.reshape(B, T, self.n_state)
+                return out.to(dtype), None
+            # prefill: one dequantized pass with the padding masked
+            k = (k8.float() * k_s).to(dtype)
+            v = (v8.float() * v_s).to(dtype)
+            mask = torch.where(
+                torch.arange(S, device=q.device) >= s_valid,
+                torch.tensor(-1e30, device=q.device),
+                torch.tensor(0.0, device=q.device))[None, None, None, :]
+        else:
+            v = precomputed_kv[1]
         qh = q.reshape(Bm, Tq, H, d_k).transpose(1, 2)
         kh = k.reshape(Bm, S, H, d_k).transpose(1, 2)
         vh = v.reshape(Bm, S, H, d_k).transpose(1, 2)
@@ -236,17 +335,18 @@ class MHA(nn.Module):
 
 class ResidualBlock(nn.Module):
     def __init__(self, n_state: int, n_head: int,
-                 cross_attention: bool = False):
+                 cross_attention: bool = False, quant: bool = False):
         super().__init__()
-        self.attn = MHA(n_state, n_head)
-        self.attn_ln = nn.LayerNorm(n_state, eps=LN_EPS)
-        self.cross_attn = MHA(n_state, n_head) if cross_attention else None
-        self.cross_attn_ln = (nn.LayerNorm(n_state, eps=LN_EPS)
+        self.attn = MHA(n_state, n_head, quant)
+        self.attn_ln = LayerNorm(n_state, eps=LN_EPS)
+        self.cross_attn = MHA(n_state, n_head, quant) if cross_attention \
+            else None
+        self.cross_attn_ln = (LayerNorm(n_state, eps=LN_EPS)
                               if cross_attention else None)
-        self.mlp = nn.Sequential(nn.Linear(n_state, 4 * n_state),
+        self.mlp = nn.Sequential(_dense(quant, n_state, 4 * n_state),
                                  nn.GELU(approximate="none"),
-                                 nn.Linear(4 * n_state, n_state))
-        self.mlp_ln = nn.LayerNorm(n_state, eps=LN_EPS)
+                                 _dense(quant, 4 * n_state, n_state))
+        self.mlp_ln = LayerNorm(n_state, eps=LN_EPS)
 
     def forward(self, x, xa=None, mask=None, kv_cache=None, cache_index=None,
                 cross_kv=None, pad_lens=None):
@@ -286,16 +386,19 @@ class AudioEncoder(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, dims: WhisperDims):
+    def __init__(self, dims: WhisperDims, quant: bool = False):
         super().__init__()
         d = self.dims = dims
-        self.token_embedding = nn.Embedding(d.n_vocab, d.n_text_state)
+        self.quant = quant
+        self.token_embedding = (QuantEmbedding if quant else nn.Embedding)(
+            d.n_vocab, d.n_text_state)
         self.positional_embedding = nn.Parameter(
             torch.empty(d.n_text_ctx, d.n_text_state))
         self.blocks = nn.ModuleList(
-            ResidualBlock(d.n_text_state, d.n_text_head, cross_attention=True)
+            ResidualBlock(d.n_text_state, d.n_text_head, cross_attention=True,
+                          quant=quant)
             for _ in range(d.n_text_layer))
-        self.ln = nn.LayerNorm(d.n_text_state, eps=LN_EPS)
+        self.ln = LayerNorm(d.n_text_state, eps=LN_EPS)
 
     def forward(self, tokens, xa, pos_offset: int = 0, kv_caches=None,
                 return_cross_attn: bool = False, cross_kvs=None,
@@ -307,7 +410,8 @@ class TextDecoder(nn.Module):
         caches (decode mode: T new tokens written at cache slot
         pos_offset) or split beam caches (kp, vp, kg, vg[, anc]); updated
         in place. cross_kvs: None or per-layer (k, v) cross-attention
-        projections (WhisperModel.precompute_cross_kv). pad_lens: None or
+        projections (WhisperModel.precompute_cross_kv), or their int8 form
+        (WhisperModel.quantize_cross_kv). pad_lens: None or
         [B] int32 left-pad widths of per-row prompts right-aligned in a
         common bucket (pad slots are masked; positions shift by -pad so
         each row's first real token sits at position 0).
@@ -316,7 +420,13 @@ class TextDecoder(nn.Module):
         d = self.dims
         dev = tokens.device
         T = tokens.shape[1]
-        emb = self.token_embedding(tokens)
+        if self.quant:
+            # int8 rows times their scale, in f32: the int8 decoder's
+            # residual stream is f32 (as in flax, f32 + bf16 positions)
+            emb8 = self.token_embedding
+            emb = emb8.weight[tokens].float() * emb8.scale[tokens][..., None]
+        else:
+            emb = self.token_embedding(tokens)
         if pad_lens is None:
             x = emb + self.positional_embedding[pos_offset:pos_offset + T]
         else:
@@ -367,8 +477,16 @@ class TextDecoder(nn.Module):
             if return_cross_attn:
                 cross_ws.append(cw)
         x = self.ln(x)
-        logits = torch.matmul(x.float(),
-                              self.token_embedding.weight.float().T)
+        if self.quant:
+            # bf16 x times the widened int8 rows, summed in f32, times the
+            # per-row scale (the JAX einsum's preferred_element_type=f32)
+            dt = self.ln.weight.dtype
+            emb8 = self.token_embedding
+            logits = torch.matmul(x.to(dt).float(),
+                                  emb8.weight.float().T) * emb8.scale
+        else:
+            logits = torch.matmul(x.float(),
+                                  self.token_embedding.weight.float().T)
         return logits, (new_caches if kv_caches is not None else None), \
             cross_ws
 
@@ -379,19 +497,29 @@ class WhisperModel(nn.Module):
     Built directly on ``device`` (default: the card; raises without one)
     in ``dtype``; weights come from ``load_state_dict`` (openai layout,
     see load_openai_whisper_checkpoint / variables_from_jax) or ``init``.
-    Inference only: parameters do not require grad."""
+    Inference only: parameters do not require grad.
+
+    quant_decoder=True builds the weight-only int8 decoder (QuantDense,
+    QuantEmbedding); load it with a state_dict from
+    quantize_whisper_decoder (or variables_from_jax of a quantized JAX
+    tree). Its int8 weights and f32 scales keep their dtypes; the encoder
+    stays in ``dtype``."""
 
     def __init__(self, dims: WhisperDims, dtype=torch.float32, device=None,
                  quant_decoder: bool = False):
         super().__init__()
-        if quant_decoder:
-            raise NotImplementedError(INT8_SLICE_MSG)
         dev = resolve_device(device)
         self.dims = dims
+        self.quant_decoder = quant_decoder
         with torch.device(dev):
             self.encoder = AudioEncoder(dims)
-            self.decoder = TextDecoder(dims)
+            self.decoder = TextDecoder(dims, quant=quant_decoder)
         self.to(device=dev, dtype=dtype)
+        for mod in self.decoder.modules():
+            if isinstance(mod, QuantDense):
+                mod.dtype = dtype
+            if isinstance(mod, (QuantDense, QuantEmbedding)):
+                mod.scale = mod.scale.float()    # .to(dtype) rounded it
         self.requires_grad_(False)
 
     @property
@@ -407,7 +535,12 @@ class WhisperModel(nn.Module):
         """Seeded random weights with the JAX model's init scales: Dense
         and Conv kernels normal(0, fan_in**-0.5) (lecun), zero biases,
         unit LayerNorms, token embedding normal(0.02), decoder positions
-        normal(0.01). ``generator`` must live on the model's device."""
+        normal(0.01). ``generator`` must live on the model's device. The
+        int8 decoder is made from float weights by
+        quantize_whisper_decoder instead."""
+        if self.quant_decoder:
+            raise ValueError("init a float WhisperModel and quantize its "
+                             "state_dict with quantize_whisper_decoder")
         for mod in self.modules():
             if isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
@@ -452,10 +585,36 @@ class WhisperModel(nn.Module):
 
     def precompute_cross_kv(self, xa: torch.Tensor):
         """Per-layer cross-attention (k, v) projections of xa, hoisted out
-        of the decode loop (they depend only on the encoder output)."""
+        of the decode loop (they depend only on the encoder output). The
+        int8 decoder's QuantDense applies the key/value scales."""
         xa_c = xa.to(self.dtype)
         return [(_lin(b.cross_attn.key, xa_c), _lin(b.cross_attn.value, xa_c))
                 for b in self.decoder.blocks]
+
+    @staticmethod
+    def quantize_cross_kv(cross_kvs):
+        """Per-(row, channel) symmetric int8 quantization of the
+        precomputed cross-attention K/V (JAX WhisperModel.quantize_cross_kv,
+        the same operations in the same order, so equal inputs give equal
+        codes): scale = max|x| over S, floored at 1e-6, / 127; codes
+        round(x / scale) (round half to even) as int8; S zero-padded to a
+        multiple of 32 (1500 -> 1504).
+
+        Returns per layer (k8 [B, S_pad, D], k_scale [B, 1, D] f32, v8,
+        v_scale, s_valid) with s_valid the real memory length."""
+        out = []
+        for k, v in cross_kvs:
+            codes, scales = [], []
+            for x in (k.float(), v.float()):
+                s = torch.clamp_min(x.abs().amax(dim=1, keepdim=True),
+                                    1e-6) / 127.0
+                codes.append(torch.round(x / s).to(torch.int8))
+                scales.append(s)
+            s_valid = codes[0].shape[1]
+            s_pad = -(-s_valid // 32) * 32
+            codes = [F.pad(c, (0, 0, 0, s_pad - s_valid)) for c in codes]
+            out.append((codes[0], scales[0], codes[1], scales[1], s_valid))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -477,18 +636,24 @@ def load_openai_whisper_checkpoint(path
 
 def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
     """The JAX package's flax variables {"encoder", "decoder"} (numpy or
-    array-like leaves) -> a WhisperModel state_dict (f32). Inverse of
-    notsofar_tpu.models.whisper.convert_whisper_state_dict: Dense kernels
-    (in, out) -> Linear weights [out, in]; Conv kernels (k, in, out) ->
-    [out, in, k]; LayerNorm scale -> weight."""
+    array-like leaves) -> a WhisperModel state_dict (f32, int8 kept).
+    Inverse of notsofar_tpu.models.whisper.convert_whisper_state_dict:
+    Dense kernels (in, out) -> Linear weights [out, in]; Conv kernels
+    (k, in, out) -> [out, in, k]; LayerNorm scale -> weight. A tree from the
+    JAX package's quantize_whisper_decoder (int8 kernels with their
+    ``scale``, int8 ``token_embedding`` with ``token_scale``) gives the
+    state_dict of a quant_decoder=True model."""
     sd: Dict[str, torch.Tensor] = {}
 
     def t(x, perm=None):
-        a = np.asarray(x, dtype=np.float32)
+        a = np.asarray(x)
+        a = a if a.dtype == np.int8 else a.astype(np.float32)
         return torch.tensor(a if perm is None else a.transpose(perm))
 
     def lin(prefix, p, bias=True):
         sd[prefix + ".weight"] = t(p["kernel"], (1, 0))
+        if "scale" in p:            # QuantDense
+            sd[prefix + ".scale"] = t(p["scale"])
         if bias:
             sd[prefix + ".bias"] = t(p["bias"])
 
@@ -525,9 +690,40 @@ def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
             WhisperDims.n_audio_ctx, sd["encoder.ln_post.weight"].shape[0]))
     dec = variables["decoder"]["params"]
     sd["decoder.token_embedding.weight"] = t(dec["token_embedding"])
+    if "token_scale" in dec:
+        sd["decoder.token_embedding.scale"] = t(dec["token_scale"])
     sd["decoder.positional_embedding"] = t(dec["positional_embedding"])
     ln("decoder.ln", dec["ln"])
     n_text = sum(1 for k in dec if k.startswith("block_"))
     for i in range(n_text):
         block(f"decoder.blocks.{i}", dec[f"block_{i}"], cross=True)
     return sd
+
+
+_QUANT_KEY = re.compile(r"decoder\.(blocks\.\d+\.((cross_)?attn\.(query|key|"
+                        r"value|out)|mlp\.[02])|token_embedding)\.weight")
+
+
+def quantize_whisper_decoder(sd: Dict[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """A float WhisperModel state_dict -> the state_dict of a
+    quant_decoder=True model (JAX quantize_whisper_decoder).
+
+    Every decoder block's self- and cross-attention query/key/value/out
+    and mlp weights get a per-output-channel scale max|w| / 127 (0 -> 1)
+    and codes clip(round(w / scale), -127, 127) as int8; the tied token
+    embedding gets a per-row scale. Layer norms, biases, the positional
+    embedding and the encoder are untouched. Runs on the tensors' own
+    device, so a model on the card is quantized there and only int8 bytes
+    reach the int8 model."""
+    out = dict(sd)
+    for name, w in sd.items():
+        if not _QUANT_KEY.fullmatch(name):
+            continue
+        w = w.float()                       # [out, in] or [V, D]: per row
+        s = w.abs().amax(dim=1) / 127.0
+        s = torch.where(s == 0, torch.ones_like(s), s)
+        out[name] = torch.clamp(torch.round(w / s[:, None]), -127,
+                                127).to(torch.int8)
+        out[name[:-len("weight")] + "scale"] = s
+    return out

@@ -1,6 +1,6 @@
-"""The port's kernels (the ASR path's attention kernels, the TitaNet
-depthwise conv, MVDR's masked covariance): CUDA wrappers, plain versions
-and launch counters.
+"""The port's kernels (the ASR path's attention kernels, the int8
+decoder's cross-attention, the TitaNet depthwise conv, MVDR's masked
+covariance): CUDA wrappers, plain versions and launch counters.
 
 Each function here has three parts:
 
@@ -360,4 +360,75 @@ def masked_scm(wta: torch.Tensor, stft_c: torch.Tensor) -> torch.Tensor:
                         B, F, T, K, M, _stream())
     LAUNCHES["masked_scm"] += 1
     _check_rc("masked_scm", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# xattn_int8 (pallas_kernels.py:108)
+# ---------------------------------------------------------------------------
+
+def xattn_int8_plain(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                     v_scale: torch.Tensor, dk: int,
+                     s_valid: int) -> torch.Tensor:
+    """q_eff [B, T, D] bf16 or f32 (k-scales and both dk**-0.25 factors
+    folded);
+    k8/v8 [B, S_pad, D] int8; v_scale [B, D] f32 -> [B, T, D] f32. Per
+    head: f32 logits, -1e30 for keys >= s_valid, f32 max/exp/sum, weights
+    normalized and THEN rounded to bf16, f32 p.v, times the v-scales."""
+    B, T, D = q_eff.shape
+    S = k8.shape[1]
+    H = D // dk
+    qh = q_eff.float().reshape(B, T, H, dk)
+    kh = k8.float().reshape(B, S, H, dk)
+    lg = torch.einsum("bthd,bshd->bhts", qh, kh)
+    masked = torch.arange(S, device=q_eff.device) >= s_valid
+    lg = lg.masked_fill(masked, MASKED)
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    out = torch.einsum("bhts,bshd->bthd", p, v8.float().reshape(B, S, H, dk))
+    return out.reshape(B, T, D) * v_scale[:, None, :]
+
+
+def xattn_int8(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+               v_scale: torch.Tensor, dk: int, s_valid: int) -> torch.Tensor:
+    """Fused cross-attention against int8 K/V memory (int8 decode steps).
+
+    q_eff: [B, T, D] bf16 (f32 for the f32 parity model), T <= 8, with the
+    per-channel k-scales and both dk**-0.25 factors folded in; k8/v8:
+    [B, S_pad, D] int8, S_pad a multiple of 32, zero past s_valid;
+    v_scale: [B, D] f32. Returns [B, T, D] f32 (pre-out-projection,
+    v-scales applied)."""
+    s_valid = int(s_valid)
+    if not _on_card("xattn_int8", q_eff, k8, v8, v_scale):
+        return xattn_int8_plain(q_eff, k8, v8, v_scale, dk, s_valid)
+    if q_eff.dim() != 3 or k8.dim() != 3:
+        raise ValueError("xattn_int8: q [B, T, D], k8/v8 [B, S_pad, D]")
+    B, T, D = q_eff.shape
+    S_pad = k8.shape[1]
+    if k8.shape != (B, S_pad, D) or v8.shape != k8.shape or \
+            v_scale.shape != (B, D):
+        raise ValueError("xattn_int8: k8/v8 [B, S_pad, D], v_scale [B, D]")
+    if q_eff.dtype not in (torch.bfloat16, torch.float32) or \
+            k8.dtype != torch.int8 or v8.dtype != torch.int8 or \
+            v_scale.dtype != torch.float32:
+        raise ValueError("xattn_int8: q bf16 or f32, k8/v8 int8, "
+                         "v_scale f32")
+    if not 1 <= T <= 8 or S_pad % 32 or not 0 < s_valid <= S_pad:
+        raise ValueError(f"xattn_int8: T={T} must be in [1, 8], "
+                         f"S_pad={S_pad} a multiple of 32, 0 < s_valid="
+                         f"{s_valid} <= S_pad")
+    if dk not in (64, 128) or D % dk or not 0 < B <= 65535:
+        raise ValueError(f"xattn_int8: dk={dk} with D={D}, B={B}")
+    smem = (T * (dk + S_pad) + 8 * T * dk) * 4
+    if smem > 232448:
+        raise ValueError(f"xattn_int8: S_pad={S_pad} needs {smem} bytes of "
+                         "shared memory (227 KB per block)")
+    out = torch.empty((B, T, D), dtype=torch.float32, device=q_eff.device)
+    lib = build.load("xattn_int8")
+    rc = lib.xattn_int8(q_eff.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+                        v_scale.data_ptr(), out.data_ptr(), B, T, S_pad, D,
+                        dk, s_valid, int(q_eff.dtype == torch.bfloat16),
+                        _stream())
+    LAUNCHES["xattn_int8"] += 1
+    _check_rc("xattn_int8", rc)
     return out

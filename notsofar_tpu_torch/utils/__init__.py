@@ -1,1 +1,2 @@
-"""Logging, wav I/O, stage timing and device selection."""
+"""Logging, wav I/O, stage timing, device selection, text normalization
+and scoring."""

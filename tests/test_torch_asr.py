@@ -23,8 +23,8 @@ from notsofar_tpu_torch.asr import decoding as tdec
 from notsofar_tpu_torch.asr import inference as tinf
 from notsofar_tpu_torch.asr import transcribe as ttr
 from notsofar_tpu_torch.models import whisper as tw
-from tests.test_torch_whisper import (KDIMS_ARGS, mini_tokenizers,  # noqa
-                                      pair, torch_threads)
+from tests.test_torch_whisper import (KDIMS_ARGS, int8_pair,  # noqa
+                                      mini_tokenizers, pair, torch_threads)
 
 # a word's start/end may move by one 20 ms DTW frame: the JAX package runs
 # the DTW on device in f32, the port on the host in float64, and razor
@@ -76,6 +76,35 @@ def test_beam3_decode_prompted_matches_jax(pair):  # noqa: F811
     _assert_same_decode(
         td.decode_prompted(torch.from_numpy(xa), prompts),
         jd.decode_prompted(variables, jnp.asarray(xa), prompts))
+
+
+def test_int8_greedy_and_beam3_decodes_match_jax(pair):  # noqa: F811
+    """The int8 decoder with int8 cross-attention K/V (f32 compute, the
+    same int8 weights on both sides): greedy and prompted greedy (T = 1
+    steps through xattn_int8), and beam 3 with the beams folded into the
+    query axis (Tq = 3 through xattn_int8, the 3-token prefill too) give
+    the JAX package's tokens; avg_logprob within 1e-4."""
+    _, variables, _ = pair
+    jm, qv, tm = int8_pair(variables, "f32")
+    jt, tt = mini_tokenizers()
+    opts = dict(max_new_tokens=8, cross_kv_quant=True)
+    xa = _xa(11, 3)
+    jd = jdec.GreedyDecoder(jm, jt, jdec.DecodeOptions(**opts))
+    td = tdec.GreedyDecoder(tm, tt, tdec.DecodeOptions(**opts))
+    _assert_same_decode(td.decode(torch.from_numpy(xa)),
+                        jd.decode(qv, jnp.asarray(xa)))
+    prompts = [[5, 6, 7], None, list(range(40, 52))]
+    _assert_same_decode(td.decode_prompted(torch.from_numpy(xa), prompts),
+                        jd.decode_prompted(qv, jnp.asarray(xa), prompts))
+    jb = jbeam.BeamDecoder(jm, jt, jdec.DecodeOptions(**opts), beam_size=3,
+                           cache_dtype=jnp.float32)
+    tb = tbeam.BeamDecoder(tm, tt, tdec.DecodeOptions(**opts), beam_size=3,
+                           cache_dtype=torch.float32)
+    tdec.reset_decoder_calls()
+    _assert_same_decode(tb.decode(torch.from_numpy(xa)),
+                        jb.decode(qv, jnp.asarray(xa)))
+    # the 3-token prefill and every folded beam step reach xattn_int8
+    assert tdec.DECODER_CALLS["xattn_int8"] >= 2
 
 
 def test_beam_unified_cache_matches_split_cache(pair):  # noqa: F811
@@ -231,6 +260,41 @@ def test_transcribe_batch_matches_jax(pair):  # noqa: F811
                 assert abs(a["start"] - b["start"]) <= WORD_TIME_TOL
                 assert abs(a["end"] - b["end"]) <= WORD_TIME_TOL
     assert n_segments >= 8 and n_words >= 2
+
+
+def test_int8_transcribe_batch_matches_jax(pair):  # noqa: F811
+    """transcribe_batch with the int8 decoder (f32 compute; the x10
+    embedding of test_transcribe_batch_matches_jax applied before
+    quantization): cross_kv_quant follows the model on both sides, with
+    48 rows per dispatch. Texts and segment tokens equal to the JAX
+    package's; times within one DTW frame."""
+    jm0, variables, _ = pair
+    dec = dict(variables["decoder"]["params"])
+    dec["token_embedding"] = dec["token_embedding"] * 10.0
+    jm, qv, tm = int8_pair(dict(variables, decoder={"params": dec}), "f32")
+    jt, tt = mini_tokenizers()
+    opts = dict(temperatures=(0.0,), max_new_tokens=16,
+                logprob_threshold=None, no_speech_threshold=None)
+    audios = _synthetic_streams([33.0, 12.0])
+    jtrans = jtr.WhisperTranscriber(jm, qv, jt, jtr.TranscribeOptions(**opts))
+    ttrans = ttr.WhisperTranscriber(tm, tt, ttr.TranscribeOptions(**opts))
+    assert ttrans.decoder.opt.cross_kv_quant and \
+        ttrans.decoder.opt.max_rows_per_dispatch == 48
+    want = jtrans.transcribe_batch([a.copy() for a in audios])
+    got = ttrans.transcribe_batch([a.copy() for a in audios])
+    n_segments = 0
+    for g, w in zip(got, want):
+        assert g["text"] == w["text"]
+        assert len(g["segments"]) == len(w["segments"])
+        for sg, sw in zip(g["segments"], w["segments"]):
+            n_segments += 1
+            assert sg["tokens"] == sw["tokens"]
+            assert abs(sg["start"] - sw["start"]) <= WORD_TIME_TOL
+            assert abs(sg["end"] - sw["end"]) <= WORD_TIME_TOL
+            for a, b in zip(sg["words"], sw["words"]):
+                assert a["word"] == b["word"]
+                assert abs(a["start"] - b["start"]) <= WORD_TIME_TOL
+    assert n_segments >= 4
 
 
 @pytest.mark.parametrize("variant", ["serial", "lockstep"])

@@ -254,6 +254,118 @@ def test_masked_scm_of_an_all_zero_window_is_the_regularizer():
     assert not torch.equal(got[0], eye.expand(4, 6, 7, 7))
 
 
+def xattn_case(rng, B, T, D, dk, S, s_valid, q_scale):
+    """q (bf16 values) [B, T, D], int8 k8/v8 [B, S, D] zero past s_valid,
+    v-scales [B, D] in [0, 0.01)."""
+    q = bf16_round(rng.randn(B, T, D).astype(np.float32) * q_scale)
+    k8, v8 = (rng.randint(-127, 128, (B, S, D)).astype(np.int8)
+              for _ in range(2))
+    k8[:, s_valid:] = 0
+    v8[:, s_valid:] = 0
+    vs = rng.rand(B, D).astype(np.float32) * 0.01
+    return q, k8, v8, vs
+
+
+def xattn_tolerance(q, k8, vs, dk, s_valid) -> float:
+    """Each output is vs * sum_s p_s v_s with |v_s| <= 127 and sum p = 1.
+    Two versions that sum in other f32 orders differ (a) by at most
+    s_valid f32 roundings of that sum, and (b) where a logit's summation
+    order sends its weight to the other bf16 neighbour, by one bf16 ulp
+    (<= 2**-7 p) of that weight times 127; (b) is allowed once, at the
+    largest weight."""
+    B, T, D = q.shape
+    H = D // dk
+    lg = np.einsum("bthd,bshd->bhts", q.reshape(B, T, H, dk).astype(
+        np.float64), k8[:, :s_valid].reshape(B, s_valid, H, dk))
+    p = np.exp(lg - lg.max(-1, keepdims=True))
+    p_max = (p / p.sum(-1, keepdims=True)).max()
+    return 127 * float(vs.max()) * (2.0 ** -7 * p_max
+                                    + s_valid * 2.0 ** -24)
+
+
+XATTN_FLIP_SHARE = 5e-3
+
+
+def xattn_rms_tolerance(q, k8, v8, vs, dk, s_valid) -> float:
+    """The RMS error over all outputs that two correct versions may show:
+    bf16 roundings of the weights sent to the other neighbour at a share
+    XATTN_FLIP_SHARE of all weights, each moving an output by ulp(p) v vs
+    (a weight flips with odds of about its relative change over 2**-8, so
+    the share stands for relative changes of p near 2e-5, far above what
+    the f32 summation orders give); plus sqrt(s_valid) f32 roundings of
+    the weighted value sum. Moving the rounding point of p (rounding before
+    normalizing, or not rounding) changes every weight by a fraction of an
+    ulp, like flips at a share of 1/12 or more, so at logits of unit scale
+    it lands 2-4x above this; see xattn_rounding_mutant."""
+    B, T, D = q.shape
+    H = D // dk
+    lg = np.einsum("bthd,bshd->bhts", q.reshape(B, T, H, dk).astype(
+        np.float64), k8[:, :s_valid].reshape(B, s_valid, H, dk))
+    p = np.exp(lg - lg.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    ulp = np.ldexp(1.0, np.frexp(p)[1] - 8)         # bf16 ulp of each p
+    v = v8[:, :s_valid].reshape(B, s_valid, H, dk).astype(np.float64)
+    w = vs.reshape(B, 1, H, dk).astype(np.float64)
+    flips = np.einsum("bhts,bshd->bthd", ulp ** 2, v ** 2) * w ** 2
+    mag = np.einsum("bhts,bshd->bthd", p, np.abs(v)) * np.abs(w)
+    return float(np.sqrt(XATTN_FLIP_SHARE * flips.mean())
+                 + np.sqrt(s_valid) * 2.0 ** -24 * np.sqrt((mag ** 2).mean()))
+
+
+def xattn_rounding_mutant(q, k8, v8, vs, dk, s_valid, mode):
+    """xattn_int8_plain with the bf16 rounding of p moved: 'unnormalized'
+    rounds exp(l - max) before dividing by the sum (an online softmax's
+    rounding point), 'none' never rounds."""
+    B, T, D = q.shape
+    S = k8.shape[1]
+    H = D // dk
+    lg = torch.einsum("bthd,bshd->bhts", q.float().reshape(B, T, H, dk),
+                      k8.float().reshape(B, S, H, dk))
+    lg = lg.masked_fill(torch.arange(S, device=q.device) >= s_valid, -1e30)
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    if mode == "unnormalized":
+        e = e.to(torch.bfloat16).float()
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhts,bshd->bthd", p, v8.float().reshape(B, S, H, dk))
+    return out.reshape(B, T, D) * vs[:, None, :]
+
+
+def rms(x) -> float:
+    return float(torch.as_tensor(x).double().pow(2).mean().sqrt())
+
+
+# the three shapes of test_pallas_kernels.py, Tq 8, and the large-v3 memory
+# (S_pad 1504, s_valid 1500) with logits of unit scale as the model makes
+# them
+@pytest.mark.parametrize("B,T,D,dk,S,s_valid,q_scale", [
+    (2, 1, 256, 64, 96, 77, 0.2), (2, 5, 384, 64, 96, 77, 0.2),
+    (1, 1, 128, 128, 32, 20, 0.2), (2, 8, 256, 64, 96, 77, 0.2),
+    (2, 5, 128, 64, 1504, 1500, 0.004)])
+def test_xattn_int8_plain_matches_pallas(B, T, D, dk, S, s_valid, q_scale):
+    """Within the worst-case max tolerance and the RMS tolerance; the
+    rounding of p moved (before normalizing, or never) is outside the RMS
+    tolerance at unit-scale logits."""
+    rng = np.random.RandomState(4 + T + S)
+    q, k8, v8, vs = xattn_case(rng, B, T, D, dk, S, s_valid, q_scale)
+    want = np.asarray(pk.xattn_int8(jnp.asarray(q, jnp.bfloat16),
+                                    jnp.asarray(k8), jnp.asarray(v8),
+                                    jnp.asarray(vs), dk, s_valid,
+                                    interpret=True))
+    got = tk.xattn_int8(t(q).bfloat16(), t(k8), t(v8), t(vs), dk, s_valid)
+    assert got.dtype == torch.float32 and got.shape == (B, T, D)
+    tol = xattn_tolerance(q, k8, vs, dk, s_valid)
+    err = np.abs(got.numpy() - want).max()
+    assert err <= tol, (err, tol)
+    rms_tol = xattn_rms_tolerance(q, k8, v8, vs, dk, s_valid)
+    assert rms(got.numpy() - want) <= rms_tol
+    # at q_scale 0.2 one weight holds nearly all the mass and is 1 in bf16
+    # wherever it is rounded; the rounding point shows at unit-scale logits
+    for mode in ("unnormalized", "none") if q_scale < 0.01 else ():
+        mutant = xattn_rounding_mutant(t(q).bfloat16(), t(k8), t(v8), t(vs),
+                                       dk, s_valid, mode)
+        assert rms(mutant.numpy() - want) > rms_tol, mode
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     tk.reset_launches()
     q = torch.randn(2, 512, 64).bfloat16()
@@ -263,6 +375,13 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
                                                  dtype=torch.complex64)
     torch.testing.assert_close(tk.masked_scm(wta, x),
                                tk.masked_scm_plain(wta, x))
+    k8 = torch.randint(-127, 128, (1, 32, 128), dtype=torch.int8)
+    vs = torch.rand(1, 128)
+    torch.testing.assert_close(
+        tk.xattn_int8(q[:1, :3, :].reshape(1, 3, 64).repeat(1, 1, 2), k8, k8,
+                      vs, 64, 30),
+        tk.xattn_int8_plain(q[:1, :3, :].reshape(1, 3, 64).repeat(1, 1, 2),
+                            k8, k8, vs, 64, 30))
     assert all(n == 0 for n in tk.LAUNCHES.values())
 
 
@@ -391,6 +510,46 @@ def test_gpu_masked_scm_kernel(cuda, B, F, T, K, M):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T,D,dk,S,s_valid,q_scale", [
+    (9, 5, 1280, 64, 1504, 1500, 0.004),     # beam 5, 9 streams
+    (48, 1, 1280, 64, 1504, 1500, 0.004),    # greedy, 48 rows
+    (2, 8, 256, 128, 96, 77, 0.2), (3, 3, 384, 64, 64, 33, 0.2),
+    (1, 1, 128, 64, 1504, 1500, 0.004)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_xattn_int8_kernel(cuda, B, T, D, dk, S, s_valid, q_scale,
+                               dtype):
+    """The CUDA kernel against its plain version within the tolerances of
+    test_xattn_int8_plain_matches_pallas; the plain version with the key
+    of the largest weight negated is outside the max tolerance, and with
+    the rounding of p moved (at unit-scale logits), outside the RMS
+    tolerance."""
+    rng = np.random.RandomState(B + T + S)
+    q, k8, v8, vs = xattn_case(rng, B, T, D, dk, S, s_valid, q_scale)
+    qc = t(q).to(cuda, dtype)
+    k8c, v8c, vsc = (t(x).to(cuda) for x in (k8, v8, vs))
+    before = tk.LAUNCHES["xattn_int8"]
+    out = tk.xattn_int8(qc, k8c, v8c, vsc, dk, s_valid)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["xattn_int8"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, T, D)
+    ref = tk.xattn_int8_plain(qc, k8c, v8c, vsc, dk, s_valid)
+    tol = xattn_tolerance(q, k8, vs, dk, s_valid)
+    assert (out - ref).abs().max().item() <= tol
+    rms_tol = xattn_rms_tolerance(q, k8, v8, vs, dk, s_valid)
+    assert rms(out - ref) <= rms_tol
+    lg = q[0, 0, :dk].astype(np.float64) @ k8[0, :s_valid, :dk].T.astype(
+        np.float64)
+    k_mut = k8.copy()
+    k_mut[0, lg.argmax()] = -k_mut[0, lg.argmax()]
+    mutant = tk.xattn_int8_plain(qc, t(k_mut).to(cuda), v8c, vsc, dk,
+                                 s_valid)
+    assert (out - mutant).abs().max().item() > tol
+    for mode in ("unnormalized", "none") if q_scale < 0.01 else ():
+        mutant = xattn_rounding_mutant(qc, k8c, v8c, vsc, dk, s_valid, mode)
+        assert rms(out - mutant) > rms_tol, mode
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 512, 64, device=cuda).half()   # no f16 kernel
     with pytest.raises(ValueError):
@@ -418,3 +577,10 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tk.masked_scm(wta[..., :4], torch.randn(1, 3, 8, 7,
                                                 dtype=torch.complex128,
                                                 device=cuda))
+    q = torch.randn(2, 9, 128, device=cuda).bfloat16()   # T > 8
+    k8 = torch.zeros(2, 64, 128, dtype=torch.int8, device=cuda)
+    vs = torch.ones(2, 128, device=cuda)
+    with pytest.raises(ValueError):
+        tk.xattn_int8(q, k8, k8, vs, 64, 64)
+    with pytest.raises(ValueError):                    # S_pad % 32 != 0
+        tk.xattn_int8(q[:, :1], k8[:, :60], k8[:, :60], vs, 64, 60)

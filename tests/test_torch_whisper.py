@@ -204,13 +204,192 @@ def test_tokenizer_copy_matches_jax():
         assert t.split_to_word_tokens(ids) == j.split_to_word_tokens(ids)
 
 
-def test_int8_decoder_is_a_later_slice():
+def to_bf16_tree(variables):
+    """The JAX package's bf16 cast of a float tree (asr/inference.py: every
+    f32 leaf to bf16, before quantization)."""
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16))
+        if x.dtype == np.float32 else x, variables)
+
+
+def int8_pair(variables, dtype):
+    """(JAX int8 model, its quantized variables, port int8 model) from the
+    same float variables, in compute dtype f32 or bf16 (bf16: the float
+    tree is cast to bf16 first, as the serving loader does)."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    src = variables if dtype == "f32" else to_bf16_tree(variables)
+    qv = jw.quantize_whisper_decoder(src)
+    jm = jw.WhisperModel(jw.WhisperDims(*KDIMS_ARGS), dtype=jdt,
+                         quant_decoder=True)
+    tm = tw.WhisperModel(tw.WhisperDims(*KDIMS_ARGS), dtype=tdt,
+                         device="cpu", quant_decoder=True)
+    tm.load_state_dict(tw.variables_from_jax(qv))
+    return jm, qv, tm
+
+
+def test_quantize_whisper_decoder_matches_jax(pair):
+    """Both routes to the port's int8 state_dict -- the JAX package's
+    quantized tree through variables_from_jax, and the port's
+    quantize_whisper_decoder on the bridged float tree -- give the same
+    int8 codes and f32 scales, bit for bit, from f32 and from bf16
+    weights; everything else (encoder, layer norms, biases, positions)
+    is the float tree's."""
+    _, variables, _ = pair
+    for src in (variables, to_bf16_tree(variables)):
+        via_jax = tw.variables_from_jax(jw.quantize_whisper_decoder(src))
+        via_port = tw.quantize_whisper_decoder(tw.variables_from_jax(src))
+        assert set(via_jax) == set(via_port)
+        n_int8 = 0
+        for k in via_jax:
+            assert via_jax[k].dtype == via_port[k].dtype, k
+            assert torch.equal(via_jax[k], via_port[k]), k
+            n_int8 += via_jax[k].dtype == torch.int8
+        # 2 blocks x (8 attention + 2 mlp matrices) + the embedding
+        assert n_int8 == 21
+        assert via_port["decoder.token_embedding.scale"].dtype == \
+            torch.float32
+
+
+def test_quantize_cross_kv_matches_jax():
+    """Per-(row, channel) int8 cross-attention memory: codes equal to the
+    JAX package's, scales within one f32 ulp, S = 1500 zero-padded to
+    1504, s_valid 1500."""
+    rng = np.random.RandomState(9)
+    kvs = [(rng.randn(2, 1500, 128).astype(np.float32) * s,
+            rng.randn(2, 1500, 128).astype(np.float32))
+           for s in (0.5, 3.0)]
+    kvs[1][0][:, :, 5] = 0.0                   # an all-zero channel: 1e-6
+    want = jw.WhisperModel.quantize_cross_kv(
+        [(jnp.asarray(k), jnp.asarray(v)) for k, v in kvs])
+    got = tw.WhisperModel.quantize_cross_kv(
+        [(torch.from_numpy(k), torch.from_numpy(v)) for k, v in kvs])
+    for w, g in zip(want, got):
+        assert g[4] == w[4] == 1500
+        for i in (0, 2):
+            assert g[i].dtype == torch.int8 and g[i].shape == (2, 1504, 128)
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w[i]))
+            assert not g[i][:, 1500:].any()
+        for i in (1, 3):
+            assert g[i].shape == (2, 1, 128)
+            np.testing.assert_allclose(g[i].numpy(), np.asarray(w[i]),
+                                       rtol=2.0 ** -23, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quant_dense_matches_flax(dtype):
+    """QuantDense against flax QuantDense on the same int8 kernel, scale
+    and bias: f32 within 1e-6 relative (sums in another order); bf16 -- x
+    @ w8, * s and + b each rounded to bf16 on both sides -- within one
+    bf16 ulp (2**-8 relative to the binade) of each output."""
+    rng = np.random.RandomState(2)
+    x = rng.randn(3, 5, 96).astype(np.float32)
+    k8 = rng.randint(-127, 128, (96, 40)).astype(np.int8)
+    sc = (rng.rand(40).astype(np.float32) + 0.1) * 0.01
+    bias = rng.randn(40).astype(np.float32) * 0.1
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = np.asarray(jw.QuantDense(40, dtype=jdt).apply(
+        {"params": {"kernel": k8, "scale": sc, "bias": bias}},
+        jnp.asarray(x)).astype(jnp.float32))
+    dense = tw.QuantDense(96, 40)
+    dense.load_state_dict({"weight": torch.from_numpy(k8.T.copy()),
+                           "scale": torch.from_numpy(sc),
+                           "bias": torch.from_numpy(bias)})
+    dense.dtype = tdt
+    with torch.no_grad():
+        got = dense(torch.from_numpy(x))
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max())
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30)))
+                      - 7)
+        assert (np.abs(got - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_int8_decoder_teacher_forced_matches_jax(pair, dtype, tol):
+    """The int8 decoder (f32 residual stream, int8 embedding rows, int8
+    logits matrix) against the JAX int8 decoder on the same int8 weights,
+    teacher-forced with and without left pads. Tolerance relative to the
+    largest |logit|: 1e-5 in f32 (sums in another order), 2e-2 in bf16
+    (bf16 roundings of products summed in another order)."""
+    _, variables, _ = pair
+    jm, qv, tm = int8_pair(variables, dtype)
+    rng = np.random.RandomState(5)
+    xa = rng.randn(2, 64, 128).astype(np.float32) * 0.3
+    toks = rng.randint(0, 1000, (2, 7))
+    for pads in (None, np.asarray([0, 3], np.int32)):
+        want, _, _ = jm.decoder.apply(
+            qv["decoder"], jnp.asarray(toks, jnp.int32), jnp.asarray(xa), 0,
+            pad_lens=None if pads is None else jnp.asarray(pads))
+        got, _, _ = tm.decoder(
+            torch.from_numpy(toks), torch.from_numpy(xa), 0,
+            pad_lens=None if pads is None else torch.from_numpy(pads))
+        want = np.asarray(want)
+        assert got.dtype == torch.float32
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_cross_kv_quant_parity(pair, dtype, tol):
+    """The int8 decoder through the int8 cross-attention memory: a 12-token
+    prefill (Tq > 8: the dequantized einsum with the padding masked), then
+    T = 1 cache steps (xattn_int8 in interpret mode / the port's wrapper);
+    step logits relative to the largest |logit| within 1e-5 (f32) and
+    2e-2 (bf16) of the JAX package's, and the memory's int8 codes equal."""
+    _, variables, _ = pair
+    jm, qv, tm = int8_pair(variables, dtype)
+    rng = np.random.RandomState(21)
+    xa = rng.randn(2, 1500, 128).astype(np.float32) * 0.3
+    toks = rng.randint(0, 1000, (2, 16))
+    jxa, txa = jnp.asarray(xa), torch.from_numpy(xa)
+    jcross = jm.quantize_cross_kv(jm.precompute_cross_kv(qv["decoder"], jxa))
+    tcross = tm.quantize_cross_kv(tm.precompute_cross_kv(txa))
+    if dtype == "f32":
+        for jc, tc in zip(jcross, tcross):
+            np.testing.assert_array_equal(tc[0].numpy(), np.asarray(jc[0]))
+            np.testing.assert_array_equal(tc[2].numpy(), np.asarray(jc[2]))
+    jc = jm.empty_kv_caches(2, cache_len=64)
+    tc = tm.empty_kv_caches(2, cache_len=64)
+    jl, jc, _ = jm.decoder.apply(qv["decoder"],
+                                 jnp.asarray(toks[:, :12], jnp.int32), jxa,
+                                 0, jc, cross_kvs=jcross)
+    tl, tc, _ = tm.decoder(torch.from_numpy(toks[:, :12]), txa, 0, tc,
+                           cross_kvs=tcross)
+    j_out, t_out = [np.asarray(jl)], [tl.numpy()]
+    for s in range(12, 16):
+        jl, jc, _ = jm.decoder.apply(
+            qv["decoder"], jnp.asarray(toks[:, s:s + 1], jnp.int32), jxa, s,
+            jc, cross_kvs=jcross)
+        tl, tc, _ = tm.decoder(torch.from_numpy(toks[:, s:s + 1]), txa, s,
+                               tc, cross_kvs=tcross)
+        j_out.append(np.asarray(jl))
+        t_out.append(tl.numpy())
+    want, got = np.concatenate(j_out, 1), np.concatenate(t_out, 1)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= tol, err
+
+
+def test_int8_load_path():
+    """load_whisper_model(compute_dtype='int8') gives the int8 decoder:
+    int8 kernels with f32 scales, an int8 embedding with f32 row scales,
+    bf16 biases and layer norms, and a bf16 encoder."""
     from notsofar_tpu_torch.asr.inference import load_whisper_model
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tw.WhisperModel(tw.WhisperDims(*KDIMS_ARGS), device="cpu",
-                        quant_decoder=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_whisper_model("tiny", compute_dtype="int8", device="cpu")
+    model, _, _ = load_whisper_model("tiny", compute_dtype="int8",
+                                     device="cpu")
+    assert model.quant_decoder and model.dtype == torch.bfloat16
+    q = model.decoder.blocks[0].attn.query
+    assert q.weight.dtype == torch.int8 and q.scale.dtype == torch.float32
+    assert q.bias.dtype == torch.bfloat16 and q.dtype == torch.bfloat16
+    emb = model.decoder.token_embedding
+    assert emb.weight.dtype == torch.int8 and emb.scale.dtype == torch.float32
+    assert model.encoder.conv1.weight.dtype == torch.bfloat16
+    assert model.decoder.blocks[0].mlp[0].weight.dtype == torch.int8
 
 
 def test_entry_points_raise_without_a_card():
@@ -243,11 +422,11 @@ def _imported_modules(path: Path):
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    """No module of notsofar_tpu_torch, nor chip_smoke.py, imports jax,
-    flax or notsofar_tpu: statically, and in a fresh interpreter that
-    imports every module of the port."""
+    """No module of notsofar_tpu_torch, nor chip_smoke.py or
+    run_inference_gpu.py, imports jax, flax or notsofar_tpu: statically,
+    and in a fresh interpreter that imports every module of the port."""
     files = sorted((REPO / "notsofar_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py", REPO / "run_inference_gpu.py"]
     banned = ("jax", "jaxlib", "flax", "notsofar_tpu")
     for f in files:
         for mod in _imported_modules(f):
@@ -257,7 +436,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import notsofar_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, run_inference_gpu\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{banned!r})\n"
         "assert not bad, bad\n"
@@ -266,4 +445,4 @@ def test_port_never_imports_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 41
+    assert int(out.stdout.strip()) >= 59
