@@ -12,12 +12,18 @@ Phases (any failure raises and exits non-zero):
              parallel); at the main path's shapes (large-v3 attention,
              the int8 decoder's cross-attention at its beam-5 and greedy
              serving shapes, TitaNet-large depthwise convs at k = 7, 11,
-             15, MVDR's masked covariance) hold each
+             15, MVDR's masked covariance) and the kernel tools' default
+             shapes (xattn_stream and xattn_onedot at 24 rows of int8
+             K/V, S 1504, D 1280; attn_step_split_bias at 8 streams x 5
+             beams, Pp 256, G 192, with a finite bias and a row masked
+             everywhere) hold each
              kernel against its plain PyTorch version, show that the
              tolerance would catch a change of one key, tap, mask or
              STFT entry, and time
              kernel, plain version and one PyTorch library call (CUDA
-             events, L2 flushed before every call).
+             events, L2 flushed before every call). xattn_stream must be
+             bit-exact with a checksum equal to the sum of every K and V
+             byte.
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
              and beam-3 decode tokens (f32, TF32 off), and the same for
@@ -69,22 +75,30 @@ Phases (any failure raises and exits non-zero):
              A seeded hypothesis is then scored against the
              meeting's GT through calc_wer with known answers (the GT
              itself: 0; one word dropped: 1/N), naming the scorer core.
+9. tools     python -m notsofar_tpu_torch.tools.bench_xattn_variants and
+             .bisect_attn_split at their default shapes with a few
+             iterations: the numeric line must match the plain versions,
+             every timed row be finite, and each kernel launch as many
+             times as the tool's loops call it.
 
 Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 186 frames, 4 masks, 7 mics), and phase 3 a small MC Conformer CSS on the
 card against the CPU (masks in f32 and bf16, one short engine pass with
 the kernel against the CPU's plain path).
 
-The line before the last is {"kernels": [...]}, with each kernel's
-launches summed over phases 4-8 and split by phase in
-"launches_by_path"; the last line is {"ok": true, "device": {...}}. The
+The line before the last is {"kernels": [...]}, all nine kernels, with
+each kernel's launches summed over phases 4-9 and split by phase in
+"launches_by_path" (phase 9 as "tools"); the last line is {"ok": true,
+"device": {...}}. The
 run writes under chiprun_out/: the kernels' ptxas report
 (kernel_build.log) and, while it runs, the sessions' wavs, ASR and
 diarization pickles and separated streams (deleted at the end).
 """
+import contextlib
+import io
 import json
 import math
-import subprocess
+import re
 import sys
 import tempfile
 import time
@@ -93,13 +107,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from notsofar_tpu_torch.tools.common import bound_ms as card_bound_ms
+from notsofar_tpu_torch.tools.common import card_line, time_cuda
+from notsofar_tpu_torch.utils.flops import (H100_HBM_BYTES_PER_S,
+                                            H100_PEAK_BF16, H100_PEAK_F32)
+
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
-# H100 SXM published peaks (NVIDIA data sheet, dense)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12           # f32 FMA outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, dense; utils/flops.py)
+PEAK_BYTES_PER_S = H100_HBM_BYTES_PER_S
+PEAK_BF16_FLOPS = H100_PEAK_BF16
+PEAK_F32_FLOPS = H100_PEAK_F32   # f32 FMA outside the tensor cores
 
 KERNEL_ITERS = 50                # timed calls per kernel in phase 2
 
@@ -108,60 +127,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
-
-
-# --------------------------------------------------------------------------
-# timing
-# --------------------------------------------------------------------------
-
-def time_cuda(fn, iters: int) -> float:
-    """Mean milliseconds of fn() on the card: CUDA events around each call,
-    with a 256 MB write (evicts the 50 MB L2) and a short spin before it,
-    so every call finds its inputs in device memory and the host has
-    enqueued the call before the card reaches it."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    evs = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(100_000)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        evs.append((s, e))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in evs) / iters
-
-
 def as_real(x: torch.Tensor) -> torch.Tensor:
     """f32 for real tensors; complex ones stay complex (abs is modulus)."""
     return x if x.is_complex() else x.float()
 
 
-def xattn_tolerance(q_eff, k8, vs, dk: int, s_valid: int) -> float:
+def xattn_tolerance(q_eff, k8, vs, dk: int, s_valid: int,
+                    flip: float = 2.0 ** -7) -> float:
     """Each xattn_int8 output is vs * sum_s p_s v_s with |v_s| <= 127 and
     sum p = 1. Summed in other f32 orders, two versions differ (a) by at
     most s_valid f32 roundings of that sum and (b), where a logit's
     summation order sends its weight to the other bf16 neighbour, by one
     bf16 ulp (<= 2**-7 p) of that weight times 127; (b) is allowed once,
-    at the largest weight (tests/test_torch_kernels.py's tolerance)."""
+    at the largest weight (tests/test_torch_kernels.py's tolerance). Where
+    each product v * p is rounded to bf16 (xattn_onedot), a flip also moves
+    the two roundings of its product (each <= 2**-8 of 127 p): flip 2**-6."""
     B, T, D = q_eff.shape
     H = D // dk
     lg = torch.einsum("bthd,bshd->bhts",
                       q_eff.double().reshape(B, T, H, dk),
                       k8[:, :s_valid].double().reshape(B, s_valid, H, dk))
     p_max = torch.softmax(lg, dim=-1).max().item()
-    return 127 * vs.max().item() * (2.0 ** -7 * p_max
-                                    + s_valid * 2.0 ** -24)
+    return 127 * vs.max().item() * (flip * p_max + s_valid * 2.0 ** -24)
 
 
 XATTN_FLIP_SHARE = 5e-3
@@ -214,15 +201,76 @@ def xattn_rounding_mutant(q_eff, k8, v8, vs, dk: int, s_valid: int,
     return out.reshape(B, T, D) * vs[:, None, :]
 
 
+def onedot_lane_weights(q, k8, dk: int, s_valid: int) -> torch.Tensor:
+    """xattn_onedot's float64 weights of each lane, [B, s_valid, D]: the
+    softmax of head d % H's logits for lane d (the tool's pltpu.repeat
+    tiles the [S, H] weights along the lanes)."""
+    B, _, D = q.shape
+    H = D // dk
+    lg = torch.einsum("bhd,bshd->bhs", q.double().reshape(B, H, dk),
+                      k8[:, :s_valid].double().reshape(B, s_valid, H, dk))
+    p = torch.softmax(lg, dim=-1)
+    return p[:, torch.arange(D, device=q.device) % H].transpose(1, 2)
+
+
+def onedot_rms_tolerance(q, k8, v8, vs, dk: int, s_valid: int) -> float:
+    """xattn_rms_tolerance's model for xattn_onedot, whose lane d takes
+    head d % H's weights: bf16 flips of the weights at a share
+    XATTN_FLIP_SHARE, each moving its rounded product by about ulp(p) v vs,
+    plus sqrt(s_valid) f32 roundings of the sum. Leaving the products
+    unrounded moves every product by up to half its bf16 ulp, like flips
+    at a share of 1/12 (onedot_rounding_mutant; the same tolerance as
+    tests/test_torch_kernels.py's)."""
+    pe = onedot_lane_weights(q, k8, dk, s_valid)
+    ulp = torch.ldexp(torch.ones_like(pe), torch.frexp(pe)[1] - 8)
+    v = v8[:, :s_valid].double()
+    w = vs.double()
+    flips = (ulp ** 2 * v ** 2).sum(1) * w ** 2
+    mag = (pe * v.abs()).sum(1) * w.abs()
+    return (math.sqrt(XATTN_FLIP_SHARE * flips.mean().item())
+            + math.sqrt(s_valid) * 2.0 ** -24
+            * mag.pow(2).mean().sqrt().item())
+
+
+def onedot_rounding_mutant(q, k8, v8, vs, dk: int, s_valid: int):
+    """The plain xattn_onedot with the products v * p left unrounded."""
+    B, _, D = q.shape
+    S = k8.shape[1]
+    H = D // dk
+    lg = torch.einsum("bhd,bshd->bhs", q.float().reshape(B, H, dk),
+                      k8.float().reshape(B, S, H, dk))
+    lg = lg.masked_fill(torch.arange(S, device=q.device) >= s_valid, -1e30)
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    lane_p = p[:, torch.arange(D, device=q.device) % H].transpose(1, 2)
+    return (v8.float() * lane_p).sum(dim=1, keepdim=True) * vs[:, None, :]
+
+
+def split_bias_tolerance(q, keys, vals, bias, dk: int) -> float:
+    """Each attn_step_split_bias output is sum_c p_c v_c (f32). Two
+    versions that sum the logits and p.v in other f32 orders differ by at
+    most ncol f32 roundings of sum_c p_c |v_c|, and, where a logit's order
+    sends its weight to the other bf16 neighbour, by one bf16 ulp
+    (<= 2**-7 p) of that weight times |v|; allowed once, at the largest
+    weight and value (tests/test_torch_kernels.py's tolerance)."""
+    B, K, D = q.shape
+    H = D // dk
+    ncol = keys.shape[1]
+    lg = torch.einsum("bjhd,bchd->bhjc", q.double().reshape(B, K, H, dk),
+                      keys.double().reshape(B, ncol, H, dk))
+    p = torch.softmax(lg + bias.double()[:, None], dim=-1)
+    mag = torch.einsum("bhjc,bchd->bjhd", p,
+                       vals.double().abs().reshape(B, ncol, H, dk))
+    return (2.0 ** -7 * p.max().item() * vals.abs().max().item()
+            + ncol * 2.0 ** -24 * mag.max().item())
+
+
 def rms(x: torch.Tensor) -> float:
     return x.double().pow(2).mean().sqrt().item()
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
+    return card_bound_ms(nbytes, flops, peak_flops, PEAK_BYTES_PER_S)
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +297,8 @@ def check_kernels(iters: int):
         hold the RMS of out - ref within it and each of `rms_mutants`
         (name -> plain version with a rounding point moved) outside it;
         then time. With `row`, the result becomes the kernel's row of the
-        {"kernels": ...} line; without, it is only logged."""
+        {"kernels": ...} line (and is returned); without, it is only
+        logged."""
         label = label or name
         torch.cuda.synchronize()
         err = (as_real(out) - as_real(ref)).abs().max().item()
@@ -258,14 +307,14 @@ def check_kernels(iters: int):
             err_rms = rms(out - ref)
             moved_rms = {k: rms(out - m) for k, m in rms_mutants.items()}
             log(f"kernel {label}: RMS error {err_rms:.3e} (tolerance "
-                f"{rms_tol:.3e}); p rounded elsewhere moves it "
+                f"{rms_tol:.3e}); a rounding moved takes it to "
                 + ", ".join(f"{k} {v:.3e}" for k, v in moved_rms.items()))
             if not (math.isfinite(err_rms) and err_rms <= rms_tol):
                 raise AssertionError(f"{label}: RMS error {err_rms} > "
                                      f"{rms_tol}")
             for k, v in moved_rms.items():
                 if not v > rms_tol:
-                    raise AssertionError(f"{label}: p rounded {k} moves the "
+                    raise AssertionError(f"{label}: rounding {k} moves the "
                                          f"RMS {v}, within {rms_tol}")
         ref = as_real(ref)
         ms = time_cuda(fn, iters)
@@ -292,6 +341,7 @@ def check_kernels(iters: int):
                              launches_by_path=None, max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=b,
                              bound_by=by, library_ms=lib_ms))
+            return rows[-1]
 
     # encoder_mha: 3 windows x 20 heads, S=1500, dk=64; q and k pre-scaled
     # by dk**-0.25 as the encoder does. Every key is visible.
@@ -542,7 +592,156 @@ def check_kernels(iters: int):
            # weighted complex adds (4 FLOP each)
            flops=Bm * Fm * Tm * ne * (6 + 4 * Km),
            peak_flops=PEAK_F32_FLOPS)
+    check_tool_kernels(iters, record, randn)
     return rows
+
+
+def check_tool_kernels(iters: int, record, randn) -> None:
+    """Phase 2 for the kernel-decomposition tools' three kernels, at the
+    tools' default shapes (notsofar_tpu_torch/tools), through
+    check_kernels' record and seeded randn."""
+    import torch.nn.functional as F
+    from notsofar_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    bf = torch.bfloat16
+    dk = 64
+
+    # xattn_stream at bench_xattn_variants' layer: 24 rows of large-v3's
+    # int8 cross-attention memory, S 1504, D 1280. Exact: integer sums,
+    # one f32 rounding; the checksum must be the sum of every K and V byte
+    # of a row, and a byte changed past row 7 must change it
+    Bx, Sx, D = 24, 1504, 1280
+    k8, v8 = (torch.randint(-127, 128, (Bx, Sx, D), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    out, checksum = K.xattn_stream(k8, v8)
+    ref, _ = K.xattn_stream_plain(k8, v8)
+    want = (k8.sum((1, 2), dtype=torch.int32)
+            + v8.sum((1, 2), dtype=torch.int32))
+    v_late = v8.clone()
+    v_late[-1, -1, -1] ^= 1
+    moved_sum = K.xattn_stream(k8, v_late)[1]
+    log(f"kernel xattn_stream: checksum equal to the byte sums "
+        f"{torch.equal(checksum, want)}; one byte of the last row's last "
+        f"key changed changes it {bool(moved_sum[-1] != checksum[-1])}")
+    if not torch.equal(checksum, want) or moved_sum[-1] == checksum[-1]:
+        raise AssertionError("xattn_stream: checksum is not the byte sum")
+    k_mut = k8.clone()
+    k_mut[0, 0] = -k8[0, 0]              # row 0's first key negated
+    del v_late
+    stream = record("xattn_stream", "tools/bench_xattn_variants.py:53",
+                    out, ref, 0.0, K.xattn_stream_plain(k_mut, v8)[0],
+                    lambda: K.xattn_stream(k8, v8),
+                    lambda: K.xattn_stream_plain(k8, v8), None,
+                    # every K and V byte, the f32 output and the int32
+                    # checksum; one integer add per byte
+                    nbytes=2 * Bx * Sx * D + Bx * D * 4 + Bx * 4,
+                    flops=2 * Bx * Sx * D, peak_flops=PEAK_F32_FLOPS)
+    # no PyTorch call computes this function; for reference, a full int8
+    # sum of each of K and V reads the same bytes (two calls)
+    stream["int8_sum_ms"] = time_cuda(
+        lambda: (k8.sum((1, 2), dtype=torch.int32),
+                 v8.sum((1, 2), dtype=torch.int32)), iters)
+    log(f"kernel xattn_stream: two int8 torch.sum calls (K, V) "
+        f"{stream['int8_sum_ms']:.4f} ms")
+    del k_mut
+
+    # xattn_onedot at the same shape, s_valid = S as the tool passes it,
+    # seeded like the tool's inputs but with q scaled to unit-scale logits
+    # (the tool's 0.1 gives one weight ~1 per head, which is 1 in bf16
+    # wherever it is rounded, so the product rounding could not show)
+    q = (randn(Bx, 1, D, dtype=torch.float32) * 0.004).to(bf)
+    vs = torch.rand(Bx, D, generator=g, device="cuda") * 0.01
+    s_valid = Sx
+    tol = xattn_tolerance(q, k8, vs, dk, s_valid, flip=2.0 ** -6)
+    rms_tol = onedot_rms_tolerance(q, k8, v8, vs, dk, s_valid)
+    top = int((k8[0, :, :dk].float() @ q[0, 0, :dk].float()).argmax())
+    k_mut = k8.clone()
+    k_mut[0, top] = -k8[0, top]
+    H = D // dk
+    q_lib = q.view(Bx, 1, H, dk).transpose(1, 2)
+
+    def deq_sdpa():
+        kb, vb = (x.to(bf).view(Bx, Sx, H, dk).transpose(1, 2)
+                  for x in (k8, v8))
+        o = F.scaled_dot_product_attention(q_lib, kb, vb, scale=1.0)
+        return o.transpose(1, 2).reshape(Bx, 1, D).float() * vs[:, None]
+
+    onedot = record(
+        "xattn_onedot", "tools/bench_xattn_variants.py:96",
+        K.xattn_onedot(q, k8, v8, vs, dk, s_valid),
+        K.xattn_onedot_plain(q, k8, v8, vs, dk, s_valid), tol,
+        K.xattn_onedot_plain(q, k_mut, v8, vs, dk, s_valid),
+        lambda: K.xattn_onedot(q, k8, v8, vs, dk, s_valid),
+        lambda: K.xattn_onedot_plain(q, k8, v8, vs, dk, s_valid), None,
+        nbytes=Bx * D * 2 + 2 * Bx * s_valid * D + Bx * D * 4 + Bx * D * 4,
+        flops=4 * Bx * s_valid * D, peak_flops=PEAK_F32_FLOPS,
+        rms_tol=rms_tol,
+        rms_mutants={"products unrounded": onedot_rounding_mutant(
+            q, k8, v8, vs, dk, s_valid)})
+    # no PyTorch call computes this function (its lanes take head d % H's
+    # weights); for reference, attention over the same bytes as
+    # xattn_int8's row times it: dequantize, then SDPA (two calls)
+    onedot["dequant_sdpa_ms"] = time_cuda(deq_sdpa, iters)
+    log(f"kernel xattn_onedot: dequantize + SDPA (two calls, bf16 memory) "
+        f"{onedot['dequant_sdpa_ms']:.4f} ms")
+    del k8, v8, k_mut
+
+    # attn_step_split_bias at bisect_attn_split's shape: 8 streams x 5
+    # beams, Pp 256, G 192, D 1280, bf16 caches; the bias of
+    # split_visibility_bias (random pads and ancestry, the newest slot
+    # visible to its own beam) plus finite N(0, 2) values on the visible
+    # columns, and stream 1's beam 2 masked everywhere (uniform weights)
+    Bs, Kb, Pp, G = 8, 5, 256, 192
+    ncol = Pp + Kb * G
+    qs = (randn(Bs, Kb, D, dtype=torch.float32) * dk ** -0.5).to(bf)
+    kp, vp = randn(Bs, Pp, D), randn(Bs, Pp, D)
+    kg, vg = randn(Bs, Kb * G, D), randn(Bs, Kb * G, D)
+    pads = torch.randint(0, 128, (Bs,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    anc = torch.randint(0, Kb, (Bs, Kb, G), generator=g, device="cuda",
+                        dtype=torch.int32)
+    anc[:, :, G - 1] = torch.arange(Kb, device="cuda", dtype=torch.int32)
+    bias = K.split_visibility_bias(Bs, Kb, Pp, G, G - 1, pads, anc)
+    bias = torch.where(bias == 0, 2.0 * torch.randn(
+        bias.shape, generator=g, device="cuda"), bias)
+    bias[1, 2] = K.MASKED
+    keys = torch.cat([kp, kg], 1)
+    tol = split_bias_tolerance(qs, keys, torch.cat([vp, vg], 1), bias, dk)
+    lg = keys[0, :, :dk].float() @ qs[0, 0, :dk].float() + bias[0, 0]
+    top = int(lg.argmax())
+    kp_mut, kg_mut = kp.clone(), kg.clone()
+    if top < Pp:
+        kp_mut[0, top] = -kp[0, top]
+    else:
+        kg_mut[0, top - Pp] = -kg[0, top - Pp]
+    out = K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk)
+    uniform = (torch.tensor(1.0 / ncol).to(bf).float()
+               * torch.cat([vp, vg], 1)[1].float().sum(0))
+    log(f"kernel attn_step_split_bias: the row masked everywhere is "
+        f"{(out[1, 2] - uniform).abs().max().item():.3e} from the uniform "
+        f"average of the values; outputs finite {bool(out.isfinite().all())}")
+    if not out.isfinite().all():
+        raise AssertionError("attn_step_split_bias: non-finite output")
+    # library: SDPA with the bias as an additive mask in the query dtype,
+    # the keys pre-concatenated as [prompt | K generated segments]
+    q_lib = qs.view(Bs, Kb, H, dk).transpose(1, 2)
+    k_lib, v_lib = (x.view(Bs, ncol, H, dk).transpose(1, 2)
+                    for x in (keys, torch.cat([vp, vg], 1)))
+    mask = bias.to(bf)[:, None]
+    record("attn_step_split_bias", "tools/bisect_attn_split.py:58",
+           out, K.attn_step_split_bias_plain(qs, kp, vp, kg, vg, bias, dk),
+           tol, K.attn_step_split_bias_plain(qs, kp_mut, vp, kg_mut, vg,
+                                             bias, dk),
+           lambda: K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk),
+           lambda: K.attn_step_split_bias_plain(qs, kp, vp, kg, vg, bias,
+                                                dk),
+           lambda: F.scaled_dot_product_attention(q_lib, k_lib, v_lib,
+                                                  attn_mask=mask, scale=1.0),
+           nbytes=(Bs * Kb * D + 2 * Bs * ncol * D) * 2 + Bs * Kb * ncol * 4
+           + Bs * Kb * D * 4,
+           flops=4 * Bs * Kb * ncol * D)
 
 
 # --------------------------------------------------------------------------
@@ -1490,6 +1689,90 @@ def check_scoring(out_dir: Path, gt) -> None:
         raise AssertionError(f"calc_wer on known answers: {rates}")
 
 
+# --------------------------------------------------------------------------
+# phase 9: the kernel-decomposition tools, end to end
+# --------------------------------------------------------------------------
+
+TOOL_ITERS = {"bench_xattn_variants": 3, "bisect_attn_split": 10}
+
+
+def run_tool(name: str, iters: int):
+    """python -m notsofar_tpu_torch.tools.<name> --iters <iters> at its
+    default shapes, in this process; returns its output lines and the
+    kernel launches it made."""
+    import importlib
+    from notsofar_tpu_torch.ops import kernels
+    main = importlib.import_module(f"notsofar_tpu_torch.tools.{name}").main
+    before = dict(kernels.LAUNCHES)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--iters", str(iters)])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {name}: {line}")
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    log(f"tools {name}: rc {rc}, {time.perf_counter() - t0:.1f} s, kernel "
+        f"launches {launched}")
+    if rc != 0 or not lines or not lines[0].startswith("device: NVIDIA"):
+        raise AssertionError(f"{name}: rc {rc}, first line {lines[:1]}")
+    return lines, launched
+
+
+def run_tools() -> dict:
+    """Both tools at their default shapes. bench_xattn_variants: its
+    numeric line must equal the plain versions' on the same layer (the
+    tool's seeded inputs) within 2% (the line prints 3 digits; onedot's
+    lanes take another head's weights than xattn_int8's, so the two are
+    far apart), every chain's ms finite and positive, and each chain
+    variant launched 32 x (iters + 1) times (+1 for the numeric line).
+    bisect_attn_split: every row's ms finite and positive, kernel_only and
+    full launched iters + 1 times. Returns the phase's launch counts."""
+    from notsofar_tpu_torch.ops import kernels as K
+    from notsofar_tpu_torch.tools import bench_xattn_variants as bx
+    K.reset_launches()
+    n = TOOL_ITERS["bench_xattn_variants"]
+    lines, launched = run_tool("bench_xattn_variants", n)
+    rel = float(re.fullmatch(r"onedot vs current: rel maxdiff (\S+)",
+                             lines[1]).group(1))
+    q, kvs = bx.make_inputs(24, 1504, 1280, 1, torch.device("cuda"))
+    k8, v8, vs = kvs[0]
+    a = K.xattn_int8_plain(q, k8, v8, vs, bx.DK, 1504)
+    b = K.xattn_onedot_plain(q, k8, v8, vs, bx.DK, 1504)
+    rel_plain = ((a - b).abs().max() / a.abs().max()).item()
+    log(f"tools bench_xattn_variants: rel maxdiff {rel:.3e}, the plain "
+        f"versions' {rel_plain:.3e}")
+    if not abs(rel - rel_plain) <= 0.02 * rel_plain:
+        raise AssertionError(f"bench_xattn_variants: rel maxdiff {rel}, "
+                             f"plain {rel_plain}")
+    for line, name in zip(lines[2:5], ("stream", "current", "onedot")):
+        m = re.fullmatch(rf"{name}\s*:\s+(\S+) ms .*", line)
+        if not (m and math.isfinite(float(m.group(1)))
+                and float(m.group(1)) > 0):
+            raise AssertionError(f"bench_xattn_variants: {line!r}")
+    chain = 32 * (n + 1)
+    want = {"xattn_stream": chain, "xattn_int8": chain + 1,
+            "xattn_onedot": chain + 1}
+    if launched != want:
+        raise AssertionError(f"bench_xattn_variants launched {launched}, "
+                             f"expected {want}")
+    n = TOOL_ITERS["bisect_attn_split"]
+    lines, launched = run_tool("bisect_attn_split", n)
+    for line, name in zip(lines[1:5], ("pack(bias)", "kernel_only", "full",
+                                       "library")):
+        m = re.fullmatch(rf"{re.escape(name)}: (\S+) ms/call", line)
+        if not (m and math.isfinite(float(m.group(1)))
+                and float(m.group(1)) > 0):
+            raise AssertionError(f"bisect_attn_split: {line!r}")
+    want = {"attn_step_split_bias": n + 1, "attn_step_split": n + 1}
+    if launched != want:
+        raise AssertionError(f"bisect_attn_split launched {launched}, "
+                             f"expected {want}")
+    return dict(K.LAUNCHES)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1537,6 +1820,8 @@ def main() -> int:
         by_path["css"] = run_css(work)
         log("phase 8 pipeline, inference_v1.yaml with int8 ASR")
         by_path["pipeline"] = run_pipeline(work)
+    log("phase 9 tools, bench_xattn_variants and bisect_attn_split")
+    by_path["tools"] = run_tools()
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

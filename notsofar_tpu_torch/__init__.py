@@ -8,7 +8,8 @@ never ``jax`` or ``notsofar_tpu``; modules it needs that have no framework
 code are copied, not imported.
 
 Ported so far (slice 1, ASR serving; slice 2, word-based diarization;
-slice 3, CSS separation):
+slice 3, CSS separation; slice 4, the int8 decoder, orchestrator and
+scorer; slice 5, the kernel-decomposition tools):
     utils        — logging, wav I/O and session/scp readers, stage timing,
                    device selection, YAML configs, morphology, mic array
     asr          — mel frontend, tokenizer, greedy/beam decoding, word
@@ -23,6 +24,8 @@ slice 3, CSS separation):
     ops          — STFT, features, MVDR, PIT, and the hand-written Hopper
                    kernels (csrc/*.cu) behind their wrappers, each with a
                    plain PyTorch version
+    tools        — the kernel-decomposition tools (bench_xattn_variants,
+                   bisect_attn_split), run with python -m
     training     — the config dataclasses that loading a CSS model needs
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

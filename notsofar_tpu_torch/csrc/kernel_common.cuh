@@ -1,5 +1,6 @@
 // Helpers shared by the decode-step attention kernels (attn_step.cu,
-// attn_step_split.cu, xattn_int8.cu): 16-byte vector loads of bf16 or f32
+// attn_step_split.cu, attn_step_split_bias.cu, xattn_int8.cu,
+// xattn_onedot.cu): 16-byte vector loads of bf16 or f32
 // rows into f32 registers, the rounding of softmax weights to the cache
 // dtype, and warp reductions.
 #pragma once

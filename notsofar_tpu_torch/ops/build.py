@@ -21,7 +21,8 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d",
-           "masked_scm", "xattn_int8")
+           "masked_scm", "xattn_int8", "xattn_stream", "xattn_onedot",
+           "attn_step_split_bias")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,6 +41,12 @@ _ARGTYPES = {
     "masked_scm": ("masked_scm", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "xattn_int8": ("xattn_int8", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P]),
+    "xattn_stream": ("xattn_stream", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "xattn_onedot": ("xattn_onedot", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _P]),
+    "attn_step_split_bias": ("attn_step_split_bias",
+                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

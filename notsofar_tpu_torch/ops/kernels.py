@@ -1,6 +1,8 @@
 """The port's kernels (the ASR path's attention kernels, the int8
 decoder's cross-attention, the TitaNet depthwise conv, MVDR's masked
-covariance): CUDA wrappers, plain versions and launch counters.
+covariance, and the three variants that the kernel-decomposition tools
+time: xattn_stream, xattn_onedot, attn_step_split_bias): CUDA wrappers,
+plain versions and launch counters.
 
 Each function here has three parts:
 
@@ -194,23 +196,18 @@ def attn_step_split_plain(q_eff, k_prompt, v_prompt, k_gen, v_gen,
                           gslot: int, pad_lens: torch.Tensor, dk: int,
                           beams: int,
                           anc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: the wrapper's bias plus per-head attention over each
-    stream's (prompt | all K generated segments) keys. -> [B*K, 1, D] f32."""
+    """Plain version: the wrapper's bias, then the kernel body's attention
+    over each stream's (prompt | all K generated segments) keys
+    (attn_step_split_bias_plain). -> [B*K, 1, D] f32."""
     BK, _, D = q_eff.shape
     K = beams
     B = BK // K
     Pp, G = k_prompt.shape[1], k_gen.shape[1]
-    H = D // dk
     bias = split_visibility_bias(B, K, Pp, G, gslot,
                                  pad_lens.to(q_eff.device), anc)
-    keys = torch.cat([k_prompt, k_gen.reshape(B, K * G, D)], dim=1).float()
-    vals = torch.cat([v_prompt, v_gen.reshape(B, K * G, D)], dim=1)
-    qh = q_eff.reshape(B, K, H, dk).float()
-    lg = torch.einsum("bjhd,bchd->bhjc", qh, keys.reshape(B, -1, H, dk))
-    lg = lg + bias[:, None]
-    p = torch.softmax(lg, dim=-1).to(vals.dtype).float()
-    out = torch.einsum("bhjc,bchd->bjhd", p,
-                       vals.float().reshape(B, -1, H, dk))
+    out = attn_step_split_bias_plain(
+        q_eff.reshape(B, K, D), k_prompt, v_prompt,
+        k_gen.reshape(B, K * G, D), v_gen.reshape(B, K * G, D), bias, dk)
     return out.reshape(BK, 1, D)
 
 
@@ -267,6 +264,86 @@ def attn_step_split(q_eff: torch.Tensor, k_prompt: torch.Tensor,
         B, K, Pp, G, D, dk, gslot, int(dt == torch.bfloat16), _stream())
     LAUNCHES["attn_step_split"] += 1
     _check_rc("attn_step_split", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attn_step_split_bias (tools/bisect_attn_split.py:58, the body at
+# pallas_kernels.py:270)
+# ---------------------------------------------------------------------------
+
+def attn_step_split_bias_plain(q: torch.Tensor, k_prompt: torch.Tensor,
+                               v_prompt: torch.Tensor, k_gen: torch.Tensor,
+                               v_gen: torch.Tensor, bias: torch.Tensor,
+                               dk: int) -> torch.Tensor:
+    """q [B, K, D] (dk**-0.5 folded, cache dtype); keys/values [prompt |
+    generated] = [B, Pp, D] then [B, Ng, D]; bias [B, K, Pp + Ng] f32 ->
+    [B, K, D] f32. Per head: f32 logits plus the bias, f32 max/exp/sum,
+    weights normalized and then rounded to the value dtype, f32 p.v."""
+    B, K, D = q.shape
+    H = D // dk
+    keys = torch.cat([k_prompt, k_gen], dim=1).float()
+    vals = torch.cat([v_prompt, v_gen], dim=1)
+    ncol = keys.shape[1]
+    lg = torch.einsum("bjhd,bchd->bhjc", q.float().reshape(B, K, H, dk),
+                      keys.reshape(B, ncol, H, dk)) + bias[:, None]
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(vals.dtype).float()
+    out = torch.einsum("bhjc,bchd->bjhd", p,
+                       vals.float().reshape(B, ncol, H, dk))
+    return out.reshape(B, K, D)
+
+
+def attn_step_split_bias(q: torch.Tensor, k_prompt: torch.Tensor,
+                         v_prompt: torch.Tensor, k_gen: torch.Tensor,
+                         v_gen: torch.Tensor, bias: torch.Tensor,
+                         dk: int) -> torch.Tensor:
+    """attn_step_split's kernel body on the blocks its wrapper passes, with
+    a general additive bias in place of the visibility mask.
+
+    q: [B, K, D] the streams' beam queries (dk**-0.5 folded), cache dtype;
+    k_prompt/v_prompt: [B, Pp, D]; k_gen/v_gen: [B, Ng, D] (the K
+    generated segments of a stream laid out beam-major, Ng = K*G); bias:
+    [B, K, Pp + Ng] f32 added to the f32 logits (-1e30 masks a column; a
+    row masked everywhere averages the values uniformly). Returns
+    [B, K, D] f32."""
+    tensors = (q, k_prompt, v_prompt, k_gen, v_gen, bias)
+    if not _on_card("attn_step_split_bias", *tensors):
+        return attn_step_split_bias_plain(*tensors, dk)
+    if q.dim() != 3:
+        raise ValueError("attn_step_split_bias: q must be [B, K, D]")
+    B, K, D = q.shape
+    Pp, Ng = k_prompt.shape[1], k_gen.shape[1]
+    ncol = Pp + Ng
+    if k_prompt.shape != (B, Pp, D) or v_prompt.shape != k_prompt.shape or \
+            k_gen.shape != (B, Ng, D) or v_gen.shape != k_gen.shape or \
+            bias.shape != (B, K, ncol):
+        raise ValueError("attn_step_split_bias: prompt [B, Pp, D], "
+                         "generated [B, Ng, D], bias [B, K, Pp + Ng]")
+    if not 1 <= K <= 8 or ncol == 0 or not 0 < B <= 65535:
+        raise ValueError(f"attn_step_split_bias: K={K} must be in [1, 8], "
+                         f"Pp + Ng={ncol} nonzero, B={B} in [1, 65535]")
+    if dk not in (64, 128) or D % dk:
+        raise ValueError(f"attn_step_split_bias: dk={dk} with D={D}")
+    dt = q.dtype
+    if dt not in (torch.bfloat16, torch.float32) or \
+            any(t.dtype != dt for t in tensors[1:5]) or \
+            bias.dtype != torch.float32:
+        raise ValueError("attn_step_split_bias: q and caches share bf16 or "
+                         "f32, bias f32")
+    lanes = dk // (8 if dt == torch.bfloat16 else 4)
+    smem = (K * dk + K * ncol + 512 // lanes * dk) * 4
+    if smem > 232448:
+        raise ValueError(f"attn_step_split_bias: {ncol} columns need {smem} "
+                         "bytes of shared memory (227 KB per block)")
+    out = torch.empty((B, K, D), dtype=torch.float32, device=q.device)
+    lib = build.load("attn_step_split_bias")
+    rc = lib.attn_step_split_bias(
+        q.data_ptr(), k_prompt.data_ptr(), v_prompt.data_ptr(),
+        k_gen.data_ptr(), v_gen.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        B, K, Pp, Ng, D, dk, int(dt == torch.bfloat16), _stream())
+    LAUNCHES["attn_step_split_bias"] += 1
+    _check_rc("attn_step_split_bias", rc)
     return out
 
 
@@ -431,4 +508,117 @@ def xattn_int8(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                         _stream())
     LAUNCHES["xattn_int8"] += 1
     _check_rc("xattn_int8", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# xattn_stream (tools/bench_xattn_variants.py:53, run_stream)
+# ---------------------------------------------------------------------------
+
+def xattn_stream_plain(k8: torch.Tensor, v8: torch.Tensor):
+    """k8/v8 [B, S, D] int8 -> (out [B, 1, D] f32, checksum [B] int32):
+    out = 1e-6 * (sum of rows 0-7 of k8 + those of v8), the integer sums
+    exact and one f32 rounding; checksum = the sum of all of a row's K and
+    V bytes, mod 2**32."""
+    n = min(8, k8.shape[1])
+    head = k8[:, :n].sum(dim=1, dtype=torch.int32) + \
+        v8[:, :n].sum(dim=1, dtype=torch.int32)
+    checksum = k8.sum(dim=(1, 2), dtype=torch.int32) + \
+        v8.sum(dim=(1, 2), dtype=torch.int32)
+    return head.float()[:, None, :] * 1e-6, checksum
+
+
+def xattn_stream(k8: torch.Tensor, v8: torch.Tensor):
+    """The streaming floor of xattn_int8: reads every byte of the int8
+    K/V memory k8/v8 [B, S, D] (D % 16 == 0) and returns
+    (out [B, 1, D] f32, checksum [B] int32) as xattn_stream_plain. The
+    checksum is what makes the kernel consume every byte it loads."""
+    if not _on_card("xattn_stream", k8, v8):
+        return xattn_stream_plain(k8, v8)
+    if k8.dim() != 3 or v8.shape != k8.shape:
+        raise ValueError("xattn_stream: k8/v8 [B, S, D] of one shape")
+    B, S, D = k8.shape
+    if k8.dtype != torch.int8 or v8.dtype != torch.int8:
+        raise ValueError("xattn_stream: k8/v8 int8")
+    if D % 16 or not 0 < B <= 65535 or S == 0:
+        raise ValueError(f"xattn_stream: D={D} must be a multiple of 16, "
+                         f"B={B} in [1, 65535], S nonzero")
+    out = torch.empty((B, 1, D), dtype=torch.float32, device=k8.device)
+    checksum = torch.zeros(B, dtype=torch.int32, device=k8.device)
+    lib = build.load("xattn_stream")
+    rc = lib.xattn_stream(k8.data_ptr(), v8.data_ptr(), out.data_ptr(),
+                          checksum.data_ptr(), B, S, D, _stream())
+    LAUNCHES["xattn_stream"] += 1
+    _check_rc("xattn_stream", rc)
+    return out, checksum
+
+
+# ---------------------------------------------------------------------------
+# xattn_onedot (tools/bench_xattn_variants.py:96, onedot)
+# ---------------------------------------------------------------------------
+
+def xattn_onedot_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                       v_scale: torch.Tensor, dk: int,
+                       s_valid: int) -> torch.Tensor:
+    """q [B, 1, D] (rounded to bf16, as the tool's head-masked query is);
+    k8/v8 [B, S, D] int8; v_scale [B, D] f32 -> [B, 1, D] f32. Per head
+    h: f32 logits, -1e30 for keys >= s_valid, f32 max/exp/sum, p[h] =
+    bf16(exp / sum). Value pass: lane d takes the weights of head d % H
+    (the tool tiles the [S, H] weights dk times along the lanes), each
+    product v * p rounded to bf16, the products summed in f32, times the
+    v-scales."""
+    B, _, D = q.shape
+    S = k8.shape[1]
+    H = D // dk
+    qh = q.to(torch.bfloat16).float().reshape(B, H, dk)
+    lg = torch.einsum("bhd,bshd->bhs", qh, k8.float().reshape(B, S, H, dk))
+    lg = lg.masked_fill(torch.arange(S, device=q.device) >= s_valid, MASKED)
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    lane_p = p[:, torch.arange(D, device=q.device) % H].transpose(1, 2)
+    prod = (v8.float() * lane_p).to(torch.bfloat16).float()     # [B, S, D]
+    return prod.sum(dim=1, keepdim=True) * v_scale[:, None, :]
+
+
+def xattn_onedot(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                 v_scale: torch.Tensor, dk: int, s_valid: int) -> torch.Tensor:
+    """The one-matmul variant of xattn_int8 that the kernel-decomposition
+    tool times, at one query per row: the value pass rounds each product
+    (bf16(v * p), summed in f32), and lane d takes head d % H's weights,
+    as the tool's pltpu.repeat (a tile) gives them, so it is not
+    xattn_int8's attention (see xattn_onedot_plain).
+
+    q: [B, 1, D] bf16 (k-scales and both dk**-0.25 folded); k8/v8:
+    [B, S, D] int8; v_scale: [B, D] f32; keys >= s_valid are masked;
+    D <= 4096. Returns [B, 1, D] f32."""
+    s_valid = int(s_valid)
+    if not _on_card("xattn_onedot", q, k8, v8, v_scale):
+        return xattn_onedot_plain(q, k8, v8, v_scale, dk, s_valid)
+    if q.dim() != 3 or k8.dim() != 3:
+        raise ValueError("xattn_onedot: q [B, 1, D], k8/v8 [B, S, D]")
+    B, T, D = q.shape
+    S = k8.shape[1]
+    if T != 1 or k8.shape != (B, S, D) or v8.shape != k8.shape or \
+            v_scale.shape != (B, D):
+        raise ValueError("xattn_onedot: q [B, 1, D], k8/v8 [B, S, D], "
+                         "v_scale [B, D]")
+    if q.dtype != torch.bfloat16 or k8.dtype != torch.int8 or \
+            v8.dtype != torch.int8 or v_scale.dtype != torch.float32:
+        raise ValueError("xattn_onedot: q bf16, k8/v8 int8, v_scale f32")
+    if dk not in (64, 128) or D % dk or D > 4096 or \
+            not 0 < B <= 2 ** 31 - 1 or not 0 < s_valid <= S:
+        raise ValueError(f"xattn_onedot: dk={dk} with D={D} <= 4096, B={B}, "
+                         f"0 < s_valid={s_valid} <= S={S}")
+    H = D // dk
+    smem = (D + H * (S | 1) + 512 // (D // 8) * D) * 4
+    if smem > 232448:
+        raise ValueError(f"xattn_onedot: S={S} needs {smem} bytes of shared "
+                         "memory (227 KB per block)")
+    out = torch.empty((B, 1, D), dtype=torch.float32, device=q.device)
+    lib = build.load("xattn_onedot")
+    rc = lib.xattn_onedot(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+                          v_scale.data_ptr(), out.data_ptr(), B, S, D, dk,
+                          s_valid, _stream())
+    LAUNCHES["xattn_onedot"] += 1
+    _check_rc("xattn_onedot", rc)
     return out

@@ -266,21 +266,22 @@ def xattn_case(rng, B, T, D, dk, S, s_valid, q_scale):
     return q, k8, v8, vs
 
 
-def xattn_tolerance(q, k8, vs, dk, s_valid) -> float:
+def xattn_tolerance(q, k8, vs, dk, s_valid, flip=2.0 ** -7) -> float:
     """Each output is vs * sum_s p_s v_s with |v_s| <= 127 and sum p = 1.
     Two versions that sum in other f32 orders differ (a) by at most
     s_valid f32 roundings of that sum, and (b) where a logit's summation
     order sends its weight to the other bf16 neighbour, by one bf16 ulp
     (<= 2**-7 p) of that weight times 127; (b) is allowed once, at the
-    largest weight."""
+    largest weight. Where each product v * p is rounded to bf16
+    (xattn_onedot), a flip also moves the two roundings of its product
+    (each <= 2**-8 of 127 p): flip = 2**-6."""
     B, T, D = q.shape
     H = D // dk
     lg = np.einsum("bthd,bshd->bhts", q.reshape(B, T, H, dk).astype(
         np.float64), k8[:, :s_valid].reshape(B, s_valid, H, dk))
     p = np.exp(lg - lg.max(-1, keepdims=True))
     p_max = (p / p.sum(-1, keepdims=True)).max()
-    return 127 * float(vs.max()) * (2.0 ** -7 * p_max
-                                    + s_valid * 2.0 ** -24)
+    return 127 * float(vs.max()) * (flip * p_max + s_valid * 2.0 ** -24)
 
 
 XATTN_FLIP_SHARE = 5e-3
@@ -334,6 +335,92 @@ def rms(x) -> float:
     return float(torch.as_tensor(x).double().pow(2).mean().sqrt())
 
 
+def onedot_lane_weights(q, k8, dk, s_valid) -> np.ndarray:
+    """xattn_onedot's float64 weights of each lane, [B, s_valid, D]: the
+    softmax of head d % H's logits for lane d (the tool's pltpu.repeat
+    tiles the [S, H] weights along the lanes)."""
+    B, _, D = q.shape
+    H = D // dk
+    lg = np.einsum("bhd,bshd->bhs", q.reshape(B, H, dk).astype(np.float64),
+                   k8[:, :s_valid].reshape(B, s_valid, H, dk))
+    p = np.exp(lg - lg.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return p[:, np.arange(D) % H].transpose(0, 2, 1)
+
+
+def onedot_rms_tolerance(q, k8, v8, vs, dk, s_valid) -> float:
+    """xattn_rms_tolerance's model for xattn_onedot, whose lane d takes
+    head d % H's weights: bf16 flips of the weights at a share
+    XATTN_FLIP_SHARE, each moving its rounded product by about ulp(p) v vs,
+    plus sqrt(s_valid) f32 roundings of the sum. Leaving the products
+    unrounded moves every product by up to half its bf16 ulp, like flips
+    at a share of 1/12 (onedot_rounding_mutant)."""
+    pe = onedot_lane_weights(q, k8, dk, s_valid)
+    ulp = np.ldexp(1.0, np.frexp(pe)[1] - 8)
+    v = v8[:, :s_valid].astype(np.float64)
+    w = vs.astype(np.float64)
+    flips = (ulp ** 2 * v ** 2).sum(1) * w ** 2
+    mag = (pe * np.abs(v)).sum(1) * np.abs(w)
+    return float(np.sqrt(XATTN_FLIP_SHARE * flips.mean())
+                 + np.sqrt(s_valid) * 2.0 ** -24 * np.sqrt((mag ** 2).mean()))
+
+
+def onedot_rounding_mutant(q, k8, v8, vs, dk, s_valid):
+    """xattn_onedot_plain with the products v * p left unrounded."""
+    B, _, D = q.shape
+    S = k8.shape[1]
+    H = D // dk
+    lg = torch.einsum("bhd,bshd->bhs", q.float().reshape(B, H, dk),
+                      k8.float().reshape(B, S, H, dk))
+    lg = lg.masked_fill(torch.arange(S, device=q.device) >= s_valid, -1e30)
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    lane_p = p[:, torch.arange(D, device=q.device) % H].transpose(1, 2)
+    return (v8.float() * lane_p).sum(dim=1, keepdim=True) * vs[:, None, :]
+
+
+def split_bias_tolerance(q, keys, vals, bias, dk) -> float:
+    """Each f32 output is sum_c p_c v_c. Two versions that sum the logits
+    and p.v in other f32 orders differ by at most ncol f32 roundings of
+    sum_c p_c |v_c|, and, where a logit's order sends its weight to the
+    other neighbour of the value dtype, by one bf16 ulp (<= 2**-7 p) of
+    that weight times |v|; allowed once, at the largest weight and value."""
+    B, K, D = q.shape
+    H = D // dk
+    ncol = keys.shape[1]
+    lg = np.einsum("bjhd,bchd->bhjc",
+                   q.reshape(B, K, H, dk).astype(np.float64),
+                   keys.reshape(B, ncol, H, dk).astype(np.float64))
+    lg = lg + bias[:, None]
+    p = np.exp(lg - lg.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    mag = np.einsum("bhjc,bchd->bjhd", p,
+                    np.abs(vals).reshape(B, ncol, H, dk).astype(np.float64))
+    return float(2.0 ** -7 * p.max() * np.abs(vals).max()
+                 + ncol * 2.0 ** -24 * mag.max())
+
+
+def split_case(rng, B, K, Pp, G, bias_kind, D=128, dk=64):
+    """bf16 values in f32 arrays: q [B, K, D] scaled by dk**-0.5, caches
+    [B, Pp, D] and [B, K*G, D] of unit scale; the bias [B, K, Pp + K*G] of
+    split_visibility_bias with pads and a random ancestry ('visibility'),
+    or that bias plus finite N(0, 2) values on the visible columns
+    ('finite'); both with beam 1 of stream 0 masked everywhere."""
+    q = bf16_round(rng.randn(B, K, D).astype(np.float32) * dk ** -0.5)
+    kp, vp = (bf16_round(rng.randn(B, Pp, D).astype(np.float32))
+              for _ in range(2))
+    kg, vg = (bf16_round(rng.randn(B, K * G, D).astype(np.float32))
+              for _ in range(2))
+    pads = torch.from_numpy(rng.randint(0, Pp // 2, B).astype(np.int32))
+    anc = torch.from_numpy(rng.randint(0, K, (B, K, G)).astype(np.int32))
+    bias = tk.split_visibility_bias(B, K, Pp, G, G - 3, pads, anc).numpy()
+    if bias_kind == "finite":
+        bias = np.where(bias == 0, rng.randn(*bias.shape) * 2.0,
+                        bias).astype(np.float32)
+    bias[0, min(1, K - 1)] = tk.MASKED
+    return q, kp, vp, kg, vg, bias
+
+
 # the three shapes of test_pallas_kernels.py, Tq 8, and the large-v3 memory
 # (S_pad 1504, s_valid 1500) with logits of unit scale as the model makes
 # them
@@ -382,6 +469,19 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
                       vs, 64, 30),
         tk.xattn_int8_plain(q[:1, :3, :].reshape(1, 3, 64).repeat(1, 1, 2),
                             k8, k8, vs, 64, 30))
+    out, checksum = tk.xattn_stream(k8, k8)
+    torch.testing.assert_close(out, tk.xattn_stream_plain(k8, k8)[0])
+    q1 = q[:1, :1, :].repeat(1, 1, 2)
+    torch.testing.assert_close(tk.xattn_onedot(q1, k8, k8, vs, 64, 30),
+                               tk.xattn_onedot_plain(q1, k8, k8, vs, 64, 30))
+    bias = torch.zeros(1, 1, 64)
+    torch.testing.assert_close(
+        tk.attn_step_split_bias(q1, k8[:, :32].bfloat16(),
+                                k8[:, :32].bfloat16(), k8.bfloat16(),
+                                k8.bfloat16(), bias, 64),
+        tk.attn_step_split_bias_plain(q1, k8[:, :32].bfloat16(),
+                                      k8[:, :32].bfloat16(), k8.bfloat16(),
+                                      k8.bfloat16(), bias, 64))
     assert all(n == 0 for n in tk.LAUNCHES.values())
 
 
@@ -550,6 +650,103 @@ def test_gpu_xattn_int8_kernel(cuda, B, T, D, dk, S, s_valid, q_scale,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D", [(24, 1504, 1280), (3, 5, 128),
+                                   (2, 333, 272)])
+def test_gpu_xattn_stream_kernel(cuda, B, S, D):
+    """Bit for bit against the plain version: the output (integer sums,
+    one f32 rounding) and the checksum of every K and V byte of a row;
+    the tools' shape, S < 8, and rows that end inside a 32 KB chunk."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    k8, v8 = (torch.randint(-127, 128, (B, S, D), generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    before = tk.LAUNCHES["xattn_stream"]
+    out, checksum = tk.xattn_stream(k8, v8)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["xattn_stream"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, 1, D)
+    ref, ref_checksum = tk.xattn_stream_plain(k8, v8)
+    assert torch.equal(out, ref)
+    assert torch.equal(checksum, ref_checksum)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,dk,s_valid,q_scale", [
+    (24, 1504, 1280, 64, 1504, 0.004),   # the tool's shape
+    (24, 1504, 1280, 64, 1504, 0.1),     # and its q scale (peaked weights)
+    (2, 96, 384, 64, 77, 0.004), (3, 64, 256, 128, 33, 0.2),
+    (1, 40, 4096, 128, 40, 0.004)])
+def test_gpu_xattn_onedot_kernel(cuda, B, S, D, dk, s_valid, q_scale):
+    """The CUDA kernel against its plain version within xattn_tolerance
+    (flip 2**-6) and onedot_rms_tolerance; the plain version with the key
+    of the largest logit negated is outside the max tolerance, and at
+    unit-scale logits with the products unrounded, outside the RMS
+    tolerance."""
+    rng = np.random.RandomState(B + S + D)
+    q, k8, v8, vs = xattn_case(rng, B, 1, D, dk, S, s_valid, q_scale)
+    qc = t(q).to(cuda, torch.bfloat16)
+    k8c, v8c, vsc = (t(x).to(cuda) for x in (k8, v8, vs))
+    before = tk.LAUNCHES["xattn_onedot"]
+    out = tk.xattn_onedot(qc, k8c, v8c, vsc, dk, s_valid)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["xattn_onedot"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, 1, D)
+    ref = tk.xattn_onedot_plain(qc, k8c, v8c, vsc, dk, s_valid)
+    tol = xattn_tolerance(q, k8, vs, dk, s_valid, flip=2.0 ** -6)
+    assert (out - ref).abs().max().item() <= tol
+    rms_tol = onedot_rms_tolerance(q, k8, v8, vs, dk, s_valid)
+    assert rms(out - ref) <= rms_tol
+    lg = q[0, 0, :dk].astype(np.float64) @ k8[0, :s_valid, :dk].T.astype(
+        np.float64)
+    k_mut = k8.copy()
+    k_mut[0, lg.argmax()] = -k_mut[0, lg.argmax()]
+    mutant = tk.xattn_onedot_plain(qc, t(k_mut).to(cuda), v8c, vsc, dk,
+                                   s_valid)
+    assert (out - mutant).abs().max().item() > tol
+    if q_scale < 0.01:
+        mutant = onedot_rounding_mutant(qc, k8c, v8c, vsc, dk, s_valid)
+        assert rms(out - mutant) > rms_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,Pp,G,D,dk,dtype,bias_kind", [
+    (8, 5, 256, 192, 1280, 64, torch.bfloat16, "visibility"),  # tool shape
+    (8, 5, 256, 192, 1280, 64, torch.bfloat16, "finite"),
+    (2, 3, 16, 8, 128, 64, torch.float32, "finite"),
+    (3, 1, 40, 24, 256, 128, torch.bfloat16, "visibility"),
+    (2, 8, 32, 16, 384, 128, torch.float32, "visibility")])
+def test_gpu_attn_step_split_bias_kernel(cuda, B, K, Pp, G, D, dk, dtype,
+                                         bias_kind):
+    """The CUDA kernel against its plain version within
+    split_bias_tolerance, the row masked everywhere included (the uniform
+    average of the values); the key of the largest weight of a visible
+    row negated is outside the tolerance."""
+    rng = np.random.RandomState(B + K + Pp + G)
+    q, kp, vp, kg, vg, bias = split_case(rng, B, K, Pp, G, bias_kind, D, dk)
+    args = [t(x).to(cuda, dtype) for x in (q, kp, vp, kg, vg)]
+    bias_c = t(bias).to(cuda)
+    before = tk.LAUNCHES["attn_step_split_bias"]
+    out = tk.attn_step_split_bias(*args, bias_c, dk)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["attn_step_split_bias"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, K, D)
+    ref = tk.attn_step_split_bias_plain(*args, bias_c, dk)
+    keys = np.concatenate([kp, kg], 1)
+    tol = split_bias_tolerance(q, keys, np.concatenate([vp, vg], 1), bias,
+                               dk)
+    assert (out - ref).abs().max().item() <= tol
+    assert torch.isfinite(out).all()
+    b = B - 1
+    lg = q[b, 0, :dk].astype(np.float64) @ keys[b, :, :dk].T.astype(
+        np.float64) + bias[b, 0]
+    k_mut = keys.copy()
+    k_mut[b, lg.argmax()] = -k_mut[b, lg.argmax()]
+    mutant = tk.attn_step_split_bias_plain(
+        args[0], t(k_mut[:, :Pp]).to(cuda, dtype), args[2],
+        t(k_mut[:, Pp:]).to(cuda, dtype), args[4], bias_c, dk)
+    assert (out - mutant).abs().max().item() > tol
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 512, 64, device=cuda).half()   # no f16 kernel
     with pytest.raises(ValueError):
@@ -584,3 +781,20 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tk.xattn_int8(q, k8, k8, vs, 64, 64)
     with pytest.raises(ValueError):                    # S_pad % 32 != 0
         tk.xattn_int8(q[:, :1], k8[:, :60], k8[:, :60], vs, 64, 60)
+    k8 = torch.zeros(2, 64, 24, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):                    # D % 16 != 0
+        tk.xattn_stream(k8, k8)
+    k8 = torch.zeros(2, 64, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):                    # T > 1
+        tk.xattn_onedot(q[:, :2], k8, k8, vs, 64, 64)
+    with pytest.raises(ValueError):                    # f32 q
+        tk.xattn_onedot(q[:, :1].float(), k8, k8, vs, 64, 64)
+    q9 = torch.randn(2, 9, 128, device=cuda).bfloat16()   # K > 8
+    kc = torch.zeros(2, 16, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        tk.attn_step_split_bias(q9, kc, kc, kc, kc,
+                                torch.zeros(2, 9, 32, device=cuda), 64)
+    with pytest.raises(ValueError):                    # bf16 bias
+        tk.attn_step_split_bias(q9[:, :5], kc, kc, kc, kc,
+                                torch.zeros(2, 5, 32, device=cuda).bfloat16(),
+                                64)
