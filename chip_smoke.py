@@ -16,7 +16,9 @@ Phases (any failure raises and exits non-zero):
              shapes (xattn_stream and xattn_onedot at 24 rows of int8
              K/V, S 1504, D 1280; attn_step_split_bias at 8 streams x 5
              beams, Pp 256, G 192, with a finite bias and a row masked
-             everywhere) hold each
+             everywhere), plus attn_step_split at 9 and 16 beams (Pp 224,
+             G 224; logged) and with gslot as a device tensor (equal to
+             the int path bit for bit), hold each
              kernel against its plain PyTorch version, show that the
              tolerance would catch a change of one key, tap, mask or
              STFT entry, and time
@@ -367,6 +369,7 @@ def check_kernels(iters: int):
            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                   scale=1.0),
            nbytes=4 * BH * S * dk * 2, flops=4 * BH * S * S * dk)
+    log(f"kernel encoder_mha: launch {K.encoder_mha_launch(BH, S, bf)}")
 
     # attn_step: 12 rows (greedy / fallback dispatch width), ctx 448,
     # D 1280 (20 heads of 64), pos at the last slot, per-row left pads
@@ -458,6 +461,64 @@ def check_kernels(iters: int):
            nbytes=(2 * n_rows * D + Bs * Kb * D) * 2 + Bs * 4
            + Bs * Kb * n_gen * 4 + Bs * Kb * D * 4,
            flops=4 * D * (Kb * n_prompt + Bs * Kb * n_gen))
+    log("kernel attn_step_split: launch "
+        f"{K.attn_step_split_launch(Bs, Kb, Pp, G, D, dk)}")
+
+    # gslot as a 0-d device tensor, read by the kernel: the same kernel
+    # on the gated row's inputs, so its output must equal the int path's
+    # bit for bit
+    slot_t = torch.tensor(gslot, dtype=torch.int32, device="cuda")
+    by_int = K.attn_step_split(qe2, kp, vp, kg, vg, gslot, pads2, dk, Kb,
+                               anc=anc)
+    by_tensor = K.attn_step_split(qe2, kp, vp, kg, vg, slot_t, pads2, dk, Kb,
+                                  anc=anc)
+    torch.cuda.synchronize()
+    if not torch.equal(by_int, by_tensor):
+        raise AssertionError("attn_step_split: gslot as a device tensor "
+                             "differs from gslot as an int")
+    ms_t = time_cuda(lambda: K.attn_step_split(qe2, kp, vp, kg, vg, slot_t,
+                                               pads2, dk, Kb, anc=anc),
+                     iters)
+    log(f"kernel attn_step_split gslot as a device tensor: equal to the int "
+        f"path, kernel {ms_t:.4f} ms")
+
+    # attn_step_split past the 8 beams of its first design (9 and 16) at
+    # Whisper's 448-token context (Pp 224, G 224, the current token at the
+    # last slot): the row's gates, logged only
+    for Kx, Px, Gx in ((9, 224, 224), (16, 224, 224)):
+        gx = Gx - 1
+        qx = (randn(Bs * Kx, 1, D, dtype=torch.float32)
+              * dk ** -0.5).to(bf)
+        kpx, vpx = randn(Bs, Px, D), randn(Bs, Px, D)
+        kgx, vgx = randn(Bs * Kx, Gx, D), randn(Bs * Kx, Gx, D)
+        padx = torch.randint(0, Px // 2, (Bs,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        ancx = torch.randint(0, Kx, (Bs, Kx, Gx), generator=g, device="cuda",
+                             dtype=torch.int32)
+        ancx[:, :, gx] = torch.arange(Kx, device="cuda", dtype=torch.int32)
+        ancx_mut = ancx.clone()
+        ancx_mut[0, 0, 0] = (ancx[0, 0, 0] + 1) % Kx
+        seen = torch.zeros(Bs, Kx, Gx, device="cuda").scatter_(
+            1, ancx.long(), 1.0)
+        rows_x = int((Px - padx).sum()) + int(seen.sum())
+        record("attn_step_split", "notsofar_tpu/ops/pallas_kernels.py:334",
+               K.attn_step_split(qx, kpx, vpx, kgx, vgx, gx, padx, dk, Kx,
+                                 anc=ancx),
+               K.attn_step_split_plain(qx, kpx, vpx, kgx, vgx, gx, padx, dk,
+                                       Kx, anc=ancx), 1e-5,
+               K.attn_step_split_plain(qx, kpx, vpx, kgx, vgx, gx, padx, dk,
+                                       Kx, anc=ancx_mut),
+               lambda: K.attn_step_split(qx, kpx, vpx, kgx, vgx, gx, padx,
+                                         dk, Kx, anc=ancx),
+               lambda: K.attn_step_split_plain(qx, kpx, vpx, kgx, vgx, gx,
+                                               padx, dk, Kx, anc=ancx),
+               None,
+               nbytes=(2 * rows_x * D + Bs * Kx * D) * 2 + Bs * 4
+               + Bs * Kx * Gx * 4 + Bs * Kx * D * 4,
+               flops=4 * D * (Kx * int((Px - padx).sum()) + Bs * Kx * Gx),
+               label=f"attn_step_split K={Kx} Pp={Px} G={Gx}", row=False)
+        log(f"kernel attn_step_split K={Kx}: launch "
+            f"{K.attn_step_split_launch(Bs, Kx, Px, Gx, D, dk)}")
 
     # xattn_int8 at the int8 decoder's serving shapes: the large-v3 cross-
     # attention memory (D 1280, 20 heads of 64, 1500 frames padded to

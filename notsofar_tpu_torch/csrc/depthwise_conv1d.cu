@@ -119,7 +119,11 @@ int dispatch(const void* x, const float* w, float* out, int B, int T_len,
     NT_DW_CASE(2) NT_DW_CASE(3) NT_DW_CASE(4) NT_DW_CASE(5) NT_DW_CASE(6)
     NT_DW_CASE(7) NT_DW_CASE(8) NT_DW_CASE(9) NT_DW_CASE(10) NT_DW_CASE(11)
     NT_DW_CASE(12) NT_DW_CASE(13) NT_DW_CASE(14) NT_DW_CASE(15)
-    NT_DW_CASE(16)
+    NT_DW_CASE(16) NT_DW_CASE(17) NT_DW_CASE(18) NT_DW_CASE(19)
+    NT_DW_CASE(20) NT_DW_CASE(21) NT_DW_CASE(22) NT_DW_CASE(23)
+    NT_DW_CASE(24) NT_DW_CASE(25) NT_DW_CASE(26) NT_DW_CASE(27)
+    NT_DW_CASE(28) NT_DW_CASE(29) NT_DW_CASE(30) NT_DW_CASE(31)
+    NT_DW_CASE(32) NT_DW_CASE(33)
 #undef NT_DW_CASE
   }
   return (int)cudaErrorInvalidValue;
@@ -128,7 +132,8 @@ int dispatch(const void* x, const float* w, float* out, int B, int T_len,
 }  // namespace
 
 // x [B, T, C] (bf16 when is_bf16, else f32), w [k, C] f32, out [B, T, C]
-// f32, all contiguous and 16-byte aligned; C % 128 == 0; 2 <= k <= 16.
+// f32, all contiguous and 16-byte aligned; C % 128 == 0; 2 <= k <= 33
+// (the f32 halo tile of k = 33 fills the 48 KB of static shared memory).
 // Returns cudaGetLastError() of the launch.
 extern "C" int depthwise_conv1d(const void* x, const float* w, float* out,
                                 int B, int T_len, int C, int k, int is_bf16,

@@ -34,8 +34,8 @@ _ARGTYPES = {
     "attn_step": ("attn_step", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _P]),
     "attn_step_split": ("attn_step_split", [_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _I, _I, _I, _I, _I, _I, _I, _I,
-                                            _P]),
+                                            _P, _I, _I, _I, _I, _I, _I, _I,
+                                            _I, _I, _P]),
     "depthwise_conv1d": ("depthwise_conv1d", [_P, _P, _P, _I, _I, _I, _I,
                                               _I, _P]),
     "masked_scm": ("masked_scm", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -19,13 +19,17 @@ Each function here has three parts:
 * the kernel source, which names the TPU kernel it replaces
   (notsofar_tpu/ops/pallas_kernels.py) and what bounds it on an H100.
 """
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from notsofar_tpu_torch.ops import build
 
 MASKED = -1e30   # the Pallas kernels' masked-logit value
+
+# a decode slot: a host int, or a 0-d int32 tensor the kernel reads on the
+# device
+Slot = Union[int, torch.Tensor]
 
 # launches of each CUDA kernel in this process (the plain path never counts)
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -76,6 +80,14 @@ def encoder_mha_plain(qh: torch.Tensor, kh: torch.Tensor,
     lg = torch.matmul(qh.float(), kh.float().transpose(1, 2))
     w = torch.softmax(lg, dim=-1).to(vh.dtype)
     return torch.matmul(w.float(), vh.float()).to(vh.dtype)
+
+
+def encoder_mha_launch(BH: int, S: int, dtype: torch.dtype) -> dict:
+    """Grid and block size of the CUDA kernel for [BH, S, dk] inputs: bf16
+    runs 3 warpgroups (a TMA producer, two wgmma consumers) per 128 query
+    rows, f32 one thread per query row in blocks of 128."""
+    threads = 384 if dtype == torch.bfloat16 else 128
+    return dict(grid=(-(-S // 128), BH), threads=threads, cluster=1)
 
 
 def encoder_mha(qh: torch.Tensor, kh: torch.Tensor,
@@ -171,11 +183,12 @@ def attn_step(q_eff: torch.Tensor, k_cache: torch.Tensor,
 # attn_step_split (pallas_kernels.py:334)
 # ---------------------------------------------------------------------------
 
-def split_visibility_bias(B: int, K: int, Pp: int, G: int, gslot: int,
+def split_visibility_bias(B: int, K: int, Pp: int, G: int, gslot: Slot,
                           pad_lens: torch.Tensor,
                           anc: Optional[torch.Tensor]) -> torch.Tensor:
     """The additive f32 bias [B, K, Pp + K*G] the JAX wrapper builds
-    (pallas_kernels.py:375-388): 0 where visible, -1e30 elsewhere."""
+    (pallas_kernels.py:375-388): 0 where visible, -1e30 elsewhere. gslot
+    is an int or a 0-d int32 tensor (compared on the device, no sync)."""
     dev = pad_lens.device
     colp = torch.arange(Pp, device=dev)
     beam_ids = torch.arange(K, device=dev)
@@ -193,7 +206,7 @@ def split_visibility_bias(B: int, K: int, Pp: int, G: int, gslot: int,
 
 
 def attn_step_split_plain(q_eff, k_prompt, v_prompt, k_gen, v_gen,
-                          gslot: int, pad_lens: torch.Tensor, dk: int,
+                          gslot: Slot, pad_lens: torch.Tensor, dk: int,
                           beams: int,
                           anc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: the wrapper's bias, then the kernel body's attention
@@ -211,9 +224,32 @@ def attn_step_split_plain(q_eff, k_prompt, v_prompt, k_gen, v_gen,
     return out.reshape(BK, 1, D)
 
 
+SPLIT_THREADS = 256          # threads per block of the CUDA kernel
+SPLIT_COLS_PER_BLOCK = 128   # columns of Pp + K*G the cluster size aims at
+SPLIT_MAX_CLUSTER = 8        # portable thread-block cluster size
+SMEM_LIMIT = 232448          # shared memory one block may use (227 KB)
+
+
+def attn_step_split_launch(B: int, K: int, Pp: int, G: int, D: int,
+                           dk: int) -> dict:
+    """Grid, cluster size and shared memory of the CUDA kernel: a cluster
+    of R blocks per (head, stream) along z, R from Pp + K*G (the grid
+    depends on G, never on gslot); each block holds its share of the
+    logits, the queries, the ancestry rows and a [warp, 8 beams, dk]
+    reduction block in shared memory (csrc/attn_step_split.cu
+    smem_words)."""
+    cols = Pp + K * G
+    R = max(1, min(SPLIT_MAX_CLUSTER, -(-cols // SPLIT_COLS_PER_BLOCK)))
+    per = -(-cols // R)
+    words = (K * dk + K * G + K * per + per + SPLIT_THREADS // 32 * 8 * dk
+             + K * dk + (4 + 2 * R) * K)
+    return dict(grid=(D // dk, B, R), threads=SPLIT_THREADS, cluster=R,
+                smem=4 * words)
+
+
 def attn_step_split(q_eff: torch.Tensor, k_prompt: torch.Tensor,
                     v_prompt: torch.Tensor, k_gen: torch.Tensor,
-                    v_gen: torch.Tensor, gslot: int, pad_lens: torch.Tensor,
+                    v_gen: torch.Tensor, gslot: Slot, pad_lens: torch.Tensor,
                     dk: int, beams: int,
                     anc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Beam-search decode-step self-attention over a split KV cache.
@@ -221,11 +257,16 @@ def attn_step_split(q_eff: torch.Tensor, k_prompt: torch.Tensor,
     q_eff: [B*K, 1, D] (row b*K+j = stream b, beam j), dk**-0.5 folded,
     cache dtype; k_prompt/v_prompt: [B, Pp, D] per-stream prompt cache
     shared by the K beams; k_gen/v_gen: [B*K, G, D] per-beam generated
-    caches with the current token at gslot; pad_lens: [B] int32 per-stream
-    left-pad widths; anc: optional [B, K, G] int32 ancestry (anc[b, j, s]
-    is the physical beam row whose slot-s K/V is in logical beam j's
-    history). Returns [B*K, 1, D] f32."""
-    gslot = int(gslot)
+    caches with the current token at gslot; gslot: an int, or a 0-d int32
+    tensor on the caches' device that the kernel reads there (0 <= gslot <
+    G; a tensor is not checked on the host, and the kernel clamps it);
+    pad_lens: [B] int32 per-stream left-pad widths; anc: optional
+    [B, K, G] int32 ancestry (anc[b, j, s] is the physical beam row whose
+    slot-s K/V is in logical beam j's history). Any beam count K up to the
+    kernel's shared memory (K = 16 at Whisper's 448-token context).
+    Returns [B*K, 1, D] f32."""
+    if not isinstance(gslot, torch.Tensor):
+        gslot = int(gslot)
     tensors = [q_eff, k_prompt, v_prompt, k_gen, v_gen, pad_lens]
     if anc is not None:
         tensors.append(anc)
@@ -234,18 +275,26 @@ def attn_step_split(q_eff: torch.Tensor, k_prompt: torch.Tensor,
                                      v_gen, gslot, pad_lens, dk, beams, anc)
     BK, T, D = q_eff.shape
     K = beams
-    if T != 1 or BK % K or not 1 <= K <= 8:
-        raise ValueError(f"attn_step_split: q [B*K, 1, D] with 1 <= K <= 8")
+    if T != 1 or K < 1 or BK % K:
+        raise ValueError("attn_step_split: q [B*K, 1, D] with K >= 1")
     B = BK // K
     Pp, G = k_prompt.shape[1], k_gen.shape[1]
     if k_prompt.shape != (B, Pp, D) or v_prompt.shape != k_prompt.shape or \
             k_gen.shape != (BK, G, D) or v_gen.shape != k_gen.shape:
         raise ValueError("attn_step_split: prompt [B, Pp, D], "
                          "generated [B*K, G, D]")
-    if not 0 <= gslot < G:
+    if isinstance(gslot, torch.Tensor):
+        if gslot.dim() != 0 or gslot.dtype != torch.int32 or \
+                gslot.device != q_eff.device:
+            raise ValueError("attn_step_split: a gslot tensor must be a 0-d "
+                             "int32 tensor on the caches' device")
+        slot, slot_ptr = 0, gslot.data_ptr()
+    elif not 0 <= gslot < G:
         raise ValueError(f"attn_step_split: gslot={gslot} outside [0, {G})")
-    if dk not in (64, 128) or D % dk:
-        raise ValueError(f"attn_step_split: dk={dk} with D={D}")
+    else:
+        slot, slot_ptr = gslot, None
+    if dk not in (64, 128) or D % dk or not 0 < B <= 65535:
+        raise ValueError(f"attn_step_split: dk={dk} with D={D}, B={B}")
     dt = q_eff.dtype
     if dt not in (torch.bfloat16, torch.float32) or \
             any(t.dtype != dt for t in tensors[1:5]):
@@ -255,13 +304,20 @@ def attn_step_split(q_eff: torch.Tensor, k_prompt: torch.Tensor,
     if anc is not None and (anc.dtype != torch.int32
                             or anc.shape != (B, K, G)):
         raise ValueError("attn_step_split: anc must be int32 [B, K, G]")
+    shape = attn_step_split_launch(B, K, Pp, G, D, dk)
+    if shape["smem"] > SMEM_LIMIT:
+        raise ValueError(
+            f"attn_step_split: K={K} beams over Pp={Pp} + K*G={K * G} "
+            f"columns need {shape['smem']} bytes of shared memory per block, "
+            f"past the {SMEM_LIMIT} bytes (227 KB) a block may use")
     out = torch.empty((BK, 1, D), dtype=torch.float32, device=q_eff.device)
     lib = build.load("attn_step_split")
     rc = lib.attn_step_split(
         q_eff.data_ptr(), k_prompt.data_ptr(), v_prompt.data_ptr(),
         k_gen.data_ptr(), v_gen.data_ptr(), pad_lens.data_ptr(),
-        anc.data_ptr() if anc is not None else None, out.data_ptr(),
-        B, K, Pp, G, D, dk, gslot, int(dt == torch.bfloat16), _stream())
+        anc.data_ptr() if anc is not None else None, slot_ptr,
+        out.data_ptr(), B, K, Pp, G, D, dk, slot, shape["cluster"],
+        int(dt == torch.bfloat16), _stream())
     LAUNCHES["attn_step_split"] += 1
     _check_rc("attn_step_split", rc)
     return out
@@ -366,13 +422,16 @@ def depthwise_conv1d_plain(x: torch.Tensor, w: torch.Tensor,
     return acc
 
 
+DWCONV_MAX_K = 33   # taps the CUDA kernel is instantiated for
+
+
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, k: int
                      ) -> torch.Tensor:
     """'Same'-padded depthwise conv over time (TitaNet's channels-as-groups
     conv).
 
     x: [B, T, C] bf16 or f32 with C % 128 == 0; w: [k, C] f32 per-channel
-    taps, 2 <= k <= 16. Returns [B, T, C] f32."""
+    taps, 2 <= k <= 33. Returns [B, T, C] f32."""
     k = int(k)
     if not _on_card("depthwise_conv1d", x, w):
         return depthwise_conv1d_plain(x, w, k)
@@ -382,9 +441,10 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, k: int
     if C % 128 or B == 0 or T == 0:
         raise ValueError(f"depthwise_conv1d: C={C} must be a multiple of "
                          "128 and B, T nonzero")
-    if not 2 <= k <= 16 or w.shape != (k, C):
+    if not 2 <= k <= DWCONV_MAX_K or w.shape != (k, C):
         raise ValueError(f"depthwise_conv1d: w must be [k, C] with "
-                         f"2 <= k <= 16, got {tuple(w.shape)} for k={k}")
+                         f"2 <= k <= {DWCONV_MAX_K}, got {tuple(w.shape)} "
+                         f"for k={k}")
     if x.dtype not in (torch.bfloat16, torch.float32) or \
             w.dtype != torch.float32:
         raise ValueError("depthwise_conv1d: x bf16 or f32, w f32")

@@ -35,13 +35,17 @@ def bf16_round(x: np.ndarray) -> np.ndarray:
     return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
 
 
-@pytest.mark.parametrize("S,dk,seed", [(621, 64, 7), (512, 64, 8)])
-def test_encoder_mha_plain_matches_pallas(S, dk, seed):
+@pytest.mark.parametrize("S,dk,seed,BH", [
+    pytest.param(621, 64, 7, 4, id="621-64-7"),
+    pytest.param(512, 64, 8, 4, id="512-64-8"),
+    pytest.param(1500, 64, 9, 2, id="1500-64-9-BH2"),   # the encode shape
+])
+def test_encoder_mha_plain_matches_pallas(S, dk, seed, BH):
     """621 pads to 1024 inside the Pallas wrapper (masked key padding);
-    512 is block-aligned. bf16 inputs, bf16 output on both sides:
-    tolerance one bf16 ulp of the output scale (2**-8 relative)."""
+    512 is block-aligned; 1500 (Whisper's encoder length) pads to 1536.
+    bf16 inputs, bf16 output on both sides: tolerance one bf16 ulp of the
+    output scale (2**-8 relative)."""
     rng = np.random.RandomState(seed)
-    BH = 4
     scale = dk ** -0.25
     q, k, v = (bf16_round(rng.randn(BH, S, dk).astype(np.float32) * 0.5)
                for _ in range(3))
@@ -77,12 +81,18 @@ def test_attn_step_plain_matches_pallas(dk, H, ctx, pos, pads):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("with_anc", [False, True])
-def test_attn_step_split_plain_matches_pallas(with_anc):
+@pytest.mark.parametrize("K,with_anc", [
+    pytest.param(3, False, id="False"), pytest.param(3, True, id="True"),
+    pytest.param(9, False, id="K9-False"), pytest.param(9, True, id="K9-True"),
+    pytest.param(16, False, id="K16-False"),
+    pytest.param(16, True, id="K16-True"),
+])
+def test_attn_step_split_plain_matches_pallas(K, with_anc):
     """Split prompt/generated cache with per-stream pads, with and without
-    the beam ancestry matrix; tolerance 1e-5 (f32)."""
-    rng = np.random.RandomState(11 + with_anc)
-    B, K, Pp, G, H, dk = 2, 3, 16, 32, 4, 64
+    the beam ancestry matrix, at 3 beams and past the 8 the first CUDA
+    kernel took (9, 16); tolerance 1e-5 (f32)."""
+    rng = np.random.RandomState(11 + with_anc + 100 * (K != 3) + K)
+    B, Pp, G, H, dk = 2, 16, 32, 4, 64
     D, BK, gslot = H * dk, B * K, 9
     pads = np.asarray([0, 5], np.int32)
     q = rng.randn(BK, 1, D).astype(np.float32) * 0.3 * dk ** -0.5
@@ -103,6 +113,34 @@ def test_attn_step_split_plain_matches_pallas(with_anc):
                              t(pads), dk, K,
                              anc=None if anc is None else t(anc))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("gslot", [0, 13, 31])
+def test_attn_step_split_takes_gslot_as_int_or_tensor(gslot):
+    """gslot as a Python int and as a 0-d int32 tensor give the same output
+    (the plain path here; the kernel reads the tensor on the device), at
+    the first slot, a middle one and the last (G - 1)."""
+    rng = np.random.RandomState(21 + gslot)
+    B, K, Pp, G, H, dk = 2, 5, 8, 32, 2, 64
+    D = H * dk
+    q = t(rng.randn(B * K, 1, D).astype(np.float32) * 0.3)
+    kp, vp = (t(rng.randn(B, Pp, D).astype(np.float32) * 0.3)
+              for _ in range(2))
+    kg, vg = (t(rng.randn(B * K, G, D).astype(np.float32) * 0.3)
+              for _ in range(2))
+    pads = t(np.asarray([0, 3], np.int32))
+    anc = rng.randint(0, K, (B, K, G)).astype(np.int32)
+    anc[:, :, gslot] = np.arange(K)[None, :]
+    for a in (None, t(anc)):
+        by_int = tk.attn_step_split(q, kp, vp, kg, vg, gslot, pads, dk, K, a)
+        by_tensor = tk.attn_step_split(
+            q, kp, vp, kg, vg, torch.tensor(gslot, dtype=torch.int32), pads,
+            dk, K, a)
+        assert torch.equal(by_int, by_tensor)
+        bias = tk.split_visibility_bias(
+            B, K, Pp, G, torch.tensor(gslot, dtype=torch.int32), pads, a)
+        assert torch.equal(bias, tk.split_visibility_bias(B, K, Pp, G, gslot,
+                                                          pads, a))
 
 
 def test_attn_step_split_single_beam_matches_attn_step():
@@ -172,11 +210,12 @@ def test_depthwise_conv1d_plain_matches_pallas_and_grouped_conv(k, C):
         assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
 
 
-@pytest.mark.parametrize("C,k", [(128, 7), (80, 3), (128, 1)])
+@pytest.mark.parametrize("C,k", [(128, 7), (80, 3), (128, 1), (128, 17)])
 def test_titanet_depthwise_module_matches_jax(C, k):
     """The port's DepthwiseConv against the JAX module with the same taps,
-    f32: C=128, k=7 takes the kernel wrapper (its plain version here),
-    C=80 and k=1 the grouped conv, as in the JAX module. Tolerance 1e-5."""
+    f32: C=128 with k=7 or 17 (past the 16 taps the first CUDA kernel
+    took) takes the kernel wrapper (its plain version here), C=80 and k=1
+    the grouped conv, as in the JAX module. Tolerance 1e-5."""
     from notsofar_tpu.models import titanet as jt
     from notsofar_tpu_torch.models import titanet as tt
     rng = np.random.RandomState(3 + C + k)
@@ -497,16 +536,24 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,dk,dtype,tol", [
-    (621, 64, torch.bfloat16, 1e-2),   # one bf16 ulp at |out| <= 2
-    (1500, 64, torch.bfloat16, 1e-2),
-    (1500, 128, torch.bfloat16, 1e-2),
-    (621, 64, torch.float32, 1e-5),    # f32 sums in another order
-    (1500, 128, torch.float32, 1e-5),
+@pytest.mark.parametrize("S,dk,dtype,tol,BH", [
+    (621, 64, torch.bfloat16, 1e-2, 6),   # one bf16 ulp at |out| <= 2
+    (1500, 64, torch.bfloat16, 1e-2, 6),
+    (1500, 128, torch.bfloat16, 1e-2, 6),
+    (621, 64, torch.float32, 1e-5, 6),    # f32 sums in another order
+    (1500, 128, torch.float32, 1e-5, 6),
+    # the wgmma kernel's edges: one key; one 64-row half of a block; a
+    # ragged 128-key tile; a whole number of tiles; odd BH; dk 128 ragged
+    (1, 64, torch.bfloat16, 1e-2, 5),
+    (64, 64, torch.bfloat16, 1e-2, 5),
+    (127, 64, torch.bfloat16, 1e-2, 5),
+    (1500, 64, torch.bfloat16, 1e-2, 61),
+    (1536, 64, torch.bfloat16, 1e-2, 5),
+    (127, 128, torch.bfloat16, 1e-2, 3),
 ])
-def test_gpu_encoder_mha_kernel(cuda, S, dk, dtype, tol):
+def test_gpu_encoder_mha_kernel(cuda, S, dk, dtype, tol, BH):
     g = torch.Generator(device=cuda).manual_seed(S)
-    q, k, v = (torch.randn(6, S, dk, generator=g, device=cuda)
+    q, k, v = (torch.randn(BH, S, dk, generator=g, device=cuda)
                .mul(0.35).to(dtype) for _ in range(3))
     before = tk.LAUNCHES["encoder_mha"]
     out = tk.encoder_mha(q, k, v)
@@ -533,33 +580,46 @@ def test_gpu_attn_step_kernel(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K", [5, 1, 9, 16])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-3)])
-def test_gpu_attn_step_split_kernel(cuda, dtype, tol):
-    g = torch.Generator(device=cuda).manual_seed(4)
-    B, K, Pp, G, D, dk, gslot = 3, 5, 32, 64, 1280, 64, 20
+def test_gpu_attn_step_split_kernel(cuda, dtype, tol, K):
+    """The cluster kernel against its plain version at K beams (past the
+    first kernel's 8 included), with and without ancestry, gslot at 0, in
+    the middle and at G - 1, as an int and as a device tensor; stream 2's
+    pad passes the prompt (no prompt key visible)."""
+    g = torch.Generator(device=cuda).manual_seed(4 + K)
+    B, Pp, G, D, dk = 3, 32, 64, 1280, 64
     q = torch.randn(B * K, 1, D, generator=g, device=cuda).mul(0.125) \
         .to(dtype)
     kp, vp = (torch.randn(B, Pp, D, generator=g, device=cuda).to(dtype)
               for _ in range(2))
     kg, vg = (torch.randn(B * K, G, D, generator=g, device=cuda).to(dtype)
               for _ in range(2))
-    pads = torch.tensor([0, 7, 31], dtype=torch.int32, device=cuda)
-    anc = torch.randint(0, K, (B, K, G), generator=g, device=cuda,
-                        dtype=torch.int32)
-    anc[:, :, gslot] = torch.arange(K, dtype=torch.int32, device=cuda)
-    for a in (None, anc):
-        out = tk.attn_step_split(q, kp, vp, kg, vg, gslot, pads, dk, K, a)
-        ref = tk.attn_step_split_plain(q, kp, vp, kg, vg, gslot, pads, dk,
-                                       K, a)
-        assert (out - ref).abs().max().item() <= tol
+    pads = torch.tensor([0, 7, Pp + 3], dtype=torch.int32, device=cuda)
+    for gslot in (0, 20, G - 1):
+        anc = torch.randint(0, K, (B, K, G), generator=g, device=cuda,
+                            dtype=torch.int32)
+        anc[:, :, gslot] = torch.arange(K, dtype=torch.int32, device=cuda)
+        slot_t = torch.tensor(gslot, dtype=torch.int32, device=cuda)
+        for a in (None, anc):
+            ref = tk.attn_step_split_plain(q, kp, vp, kg, vg, gslot, pads,
+                                           dk, K, a)
+            for slot in (gslot, slot_t):
+                before = tk.LAUNCHES["attn_step_split"]
+                out = tk.attn_step_split(q, kp, vp, kg, vg, slot, pads, dk,
+                                         K, a)
+                torch.cuda.synchronize()
+                assert tk.LAUNCHES["attn_step_split"] == before + 1
+                assert (out - ref).abs().max().item() <= tol, (gslot, slot)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,C,k", [(40, 128, 3), (320, 1024, 15),
                                    (97, 256, 7), (64, 128, 11),
-                                   (1, 128, 16), (200, 384, 2)])
+                                   (1, 128, 16), (200, 384, 2),
+                                   (97, 256, 17), (320, 1024, 33)])
 def test_gpu_depthwise_conv1d_kernel(cuda, T, C, k, dtype):
     """The CUDA kernel against its plain version, ragged T included. The
     kernel sums with FMAs, the plain version with a rounded product and a
@@ -764,8 +824,8 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                    # bf16 taps
         tk.depthwise_conv1d(x, torch.randn(3, 128, device=cuda).bfloat16(),
                             3)
-    with pytest.raises(ValueError):                    # k > 16
-        tk.depthwise_conv1d(x, torch.randn(17, 128, device=cuda), 17)
+    with pytest.raises(ValueError):                    # k > 33
+        tk.depthwise_conv1d(x, torch.randn(34, 128, device=cuda), 34)
     wta = torch.rand(1, 3, 8, 9, device=cuda)            # K > 8
     with pytest.raises(ValueError):
         tk.masked_scm(wta, torch.randn(1, 3, 8, 7, dtype=torch.complex64,
@@ -798,3 +858,12 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tk.attn_step_split_bias(q9[:, :5], kc, kc, kc, kc,
                                 torch.zeros(2, 5, 32, device=cuda).bfloat16(),
                                 64)
+    q40 = torch.zeros(40, 1, 128, device=cuda).bfloat16()  # 40 beams at
+    kp = torch.zeros(1, 0, 128, device=cuda).bfloat16()    # G 448: past
+    kg = torch.zeros(40, 448, 128, device=cuda).bfloat16()  # 227 KB
+    pads = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="227 KB"):
+        tk.attn_step_split(q40, kp, kp, kg, kg, 0, pads, 64, 40)
+    with pytest.raises(ValueError):                    # int64 gslot tensor
+        tk.attn_step_split(q40[:5], kp, kp, kg[:5], kg[:5],
+                           torch.tensor(0, device=cuda), pads, 64, 5)
