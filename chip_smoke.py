@@ -17,15 +17,18 @@ Phases (any failure raises and exits non-zero):
              K/V, S 1504, D 1280; attn_step_split_bias at 8 streams x 5
              beams, Pp 256, G 192, with a finite bias and a row masked
              everywhere), plus attn_step_split at 9 and 16 beams (Pp 224,
-             G 224; logged) and with gslot as a device tensor (equal to
-             the int path bit for bit), hold each
+             G 224; logged), attn_step_split_bias at 9 beams (2 streams,
+             Pp 224, G 224; logged) and attn_step_split with gslot as a
+             device tensor (equal to the int path bit for bit), hold each
              kernel against its plain PyTorch version, show that the
              tolerance would catch a change of one key, tap, mask or
              STFT entry, and time
              kernel, plain version and one PyTorch library call (CUDA
              events, L2 flushed before every call). xattn_stream must be
              bit-exact with a checksum equal to the sum of every K and V
-             byte.
+             byte. The two split-softmax kernels (xattn_int8,
+             attn_step_split_bias) also log their launch plan and their
+             times over cluster sizes R = 1-8.
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
              and beam-3 decode tokens (f32, TF32 off), and the same for
@@ -279,6 +282,31 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 # phase 2: kernels against their plain versions at large-v3 shapes
 # --------------------------------------------------------------------------
 
+def plan_line(plan: dict) -> str:
+    """A split-softmax kernel's launch plan (ops/kernels.py *_launch)."""
+    return (f"grid {plan['grid']}, clusters of {plan['cluster']} blocks of "
+            f"{plan['threads']} threads, {plan['smem']} bytes of shared "
+            f"memory a block, shares of up to {plan['per']}")
+
+
+def launch_sweep(label: str, launches: dict, out_shape, iters: int) -> None:
+    """Time a split-softmax kernel (csrc/split_softmax.cuh) through its C
+    function under each launch configuration, launches[name](out) -> rc,
+    on the row's inputs, and log the times: the measurement behind the
+    plans' choice of cluster size (for xattn_int8, R = 1 is the block-per-row
+    design).
+    A configuration whose block passes the shared memory a block may use
+    is logged as such. These launches count in no launch counter."""
+    times = {}
+    for name, launch in launches.items():
+        out = torch.empty(out_shape, dtype=torch.float32, device="cuda")
+        if launch(out) != 0:
+            times[name] = "too large"
+            continue
+        times[name] = round(time_cuda(lambda: launch(out), iters), 4)
+    log(f"kernel {label}: ms by launch configuration {times}")
+
+
 def check_kernels(iters: int):
     import torch.nn.functional as F
     from notsofar_tpu_torch.ops import kernels as K
@@ -336,14 +364,15 @@ def check_kernels(iters: int):
         if not moved > tol:
             raise AssertionError(f"{label}: a one-input change moves the "
                                  f"output {moved}, within the tolerance {tol}")
+        result = dict(name=name, route="cuda",
+                      source=f"notsofar_tpu_torch/csrc/{name}.cu",
+                      replaces=replaces, launches=None,
+                      launches_by_path=None, max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                      library_ms=lib_ms)
         if row:
-            rows.append(dict(name=name, route="cuda",
-                             source=f"notsofar_tpu_torch/csrc/{name}.cu",
-                             replaces=replaces, launches=None,
-                             launches_by_path=None, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=b,
-                             bound_by=by, library_ms=lib_ms))
-            return rows[-1]
+            rows.append(result)
+        return result
 
     # encoder_mha: 3 windows x 20 heads, S=1500, dk=64; q and k pre-scaled
     # by dk**-0.25 as the encoder does. Every key is visible.
@@ -555,7 +584,7 @@ def check_kernels(iters: int):
                                                attn_mask=valid, scale=1.0)
             return o.transpose(1, 2).reshape(Bx, Tx, D).float() * vsx[:, None]
 
-        record("xattn_int8", "notsofar_tpu/ops/pallas_kernels.py:108",
+        got = record("xattn_int8", "notsofar_tpu/ops/pallas_kernels.py:108",
                K.xattn_int8(q_eff, k8, v8, vsx, dk, s_valid),
                K.xattn_int8_plain(q_eff, k8, v8, vsx, dk, s_valid), tol,
                K.xattn_int8_plain(q_eff, k_mut, v8, vsx, dk, s_valid),
@@ -578,8 +607,26 @@ def check_kernels(iters: int):
         log(f"kernel {label}: dequantize + SDPA (two calls, bf16 memory) "
             f"{ref_ms:.4f} ms, max abs diff from the plain version "
             f"{ref_err.item():.3e}")
+        plan = K.xattn_int8_launch(Bx, Tx, S_pad, D, dk, s_valid, bf)
+        log(f"kernel {label}: launch {plan_line(plan)} keys")
+        def xattn_c(R, out):
+            return K.build.load("xattn_int8").xattn_int8(
+                q_eff.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+                vsx.data_ptr(), out.data_ptr(), Bx, Tx, S_pad, D, dk,
+                s_valid, R, 1, K._stream())
+
+        # R = 1: a block streams a whole row; R >= 2: clusters
+        launch_sweep(label, {f"R={R}": (lambda out, R=R: xattn_c(R, out))
+                             for R in range(1, 9)}, (Bx, Tx, D), iters)
         if Tx == 5:
-            rows[-1]["dequant_sdpa_ms"] = ref_ms
+            xrow = rows[-1]
+            xrow["dequant_sdpa_ms"] = ref_ms
+        else:
+            # the greedy shape beside the beam-5 row (one row per kernel)
+            xrow["greedy_ms"] = got["ms"]
+            xrow["greedy_bound_ms"] = got["bound_ms"]
+            xrow["greedy_plain_ms"] = got["plain_ms"]
+            xrow["greedy_dequant_sdpa_ms"] = ref_ms
         del k8, v8, k_mut
 
     # depthwise_conv1d at the TitaNet-large shapes of the diarization
@@ -754,55 +801,81 @@ def check_tool_kernels(iters: int, record, randn) -> None:
     # split_visibility_bias (random pads and ancestry, the newest slot
     # visible to its own beam) plus finite N(0, 2) values on the visible
     # columns, and stream 1's beam 2 masked everywhere (uniform weights)
-    Bs, Kb, Pp, G = 8, 5, 256, 192
-    ncol = Pp + Kb * G
-    qs = (randn(Bs, Kb, D, dtype=torch.float32) * dk ** -0.5).to(bf)
-    kp, vp = randn(Bs, Pp, D), randn(Bs, Pp, D)
-    kg, vg = randn(Bs, Kb * G, D), randn(Bs, Kb * G, D)
-    pads = torch.randint(0, 128, (Bs,), generator=g, device="cuda",
-                         dtype=torch.int32)
-    anc = torch.randint(0, Kb, (Bs, Kb, G), generator=g, device="cuda",
-                        dtype=torch.int32)
-    anc[:, :, G - 1] = torch.arange(Kb, device="cuda", dtype=torch.int32)
-    bias = K.split_visibility_bias(Bs, Kb, Pp, G, G - 1, pads, anc)
-    bias = torch.where(bias == 0, 2.0 * torch.randn(
-        bias.shape, generator=g, device="cuda"), bias)
-    bias[1, 2] = K.MASKED
-    keys = torch.cat([kp, kg], 1)
-    tol = split_bias_tolerance(qs, keys, torch.cat([vp, vg], 1), bias, dk)
-    lg = keys[0, :, :dk].float() @ qs[0, 0, :dk].float() + bias[0, 0]
-    top = int(lg.argmax())
-    kp_mut, kg_mut = kp.clone(), kg.clone()
-    if top < Pp:
-        kp_mut[0, top] = -kp[0, top]
-    else:
-        kg_mut[0, top - Pp] = -kg[0, top - Pp]
-    out = K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk)
-    uniform = (torch.tensor(1.0 / ncol).to(bf).float()
-               * torch.cat([vp, vg], 1)[1].float().sum(0))
-    log(f"kernel attn_step_split_bias: the row masked everywhere is "
-        f"{(out[1, 2] - uniform).abs().max().item():.3e} from the uniform "
-        f"average of the values; outputs finite {bool(out.isfinite().all())}")
-    if not out.isfinite().all():
-        raise AssertionError("attn_step_split_bias: non-finite output")
-    # library: SDPA with the bias as an additive mask in the query dtype,
-    # the keys pre-concatenated as [prompt | K generated segments]
-    q_lib = qs.view(Bs, Kb, H, dk).transpose(1, 2)
-    k_lib, v_lib = (x.view(Bs, ncol, H, dk).transpose(1, 2)
-                    for x in (keys, torch.cat([vp, vg], 1)))
-    mask = bias.to(bf)[:, None]
-    record("attn_step_split_bias", "tools/bisect_attn_split.py:58",
-           out, K.attn_step_split_bias_plain(qs, kp, vp, kg, vg, bias, dk),
-           tol, K.attn_step_split_bias_plain(qs, kp_mut, vp, kg_mut, vg,
-                                             bias, dk),
-           lambda: K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk),
-           lambda: K.attn_step_split_bias_plain(qs, kp, vp, kg, vg, bias,
-                                                dk),
-           lambda: F.scaled_dot_product_attention(q_lib, k_lib, v_lib,
-                                                  attn_mask=mask, scale=1.0),
-           nbytes=(Bs * Kb * D + 2 * Bs * ncol * D) * 2 + Bs * Kb * ncol * 4
-           + Bs * Kb * D * 4,
-           flops=4 * Bs * Kb * ncol * D)
+    def split_bias_case(Bs, Kb, Pp, G):
+        qs = (randn(Bs, Kb, D, dtype=torch.float32) * dk ** -0.5).to(bf)
+        kp, vp = randn(Bs, Pp, D), randn(Bs, Pp, D)
+        kg, vg = randn(Bs, Kb * G, D), randn(Bs, Kb * G, D)
+        pads = torch.randint(0, 128, (Bs,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        anc = torch.randint(0, Kb, (Bs, Kb, G), generator=g, device="cuda",
+                            dtype=torch.int32)
+        anc[:, :, G - 1] = torch.arange(Kb, device="cuda", dtype=torch.int32)
+        bias = K.split_visibility_bias(Bs, Kb, Pp, G, G - 1, pads, anc)
+        bias = torch.where(bias == 0, 2.0 * torch.randn(
+            bias.shape, generator=g, device="cuda"), bias)
+        bias[1, 2] = K.MASKED
+        keys = torch.cat([kp, kg], 1)
+        lg = keys[0, :, :dk].float() @ qs[0, 0, :dk].float() + bias[0, 0]
+        top = int(lg.argmax())
+        kp_mut, kg_mut = kp.clone(), kg.clone()
+        if top < Pp:
+            kp_mut[0, top] = -kp[0, top]
+        else:
+            kg_mut[0, top - Pp] = -kg[0, top - Pp]
+        return qs, kp, vp, kg, vg, bias, kp_mut, kg_mut
+
+    def check_split_bias(Bs, Kb, Pp, G, row):
+        qs, kp, vp, kg, vg, bias, kp_mut, kg_mut = split_bias_case(Bs, Kb, Pp,
+                                                                   G)
+        ncol = Pp + Kb * G
+        label = "attn_step_split_bias" + ("" if row else f" K={Kb}")
+        vals = torch.cat([vp, vg], 1)
+        tol = split_bias_tolerance(qs, torch.cat([kp, kg], 1), vals, bias, dk)
+        out = K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk)
+        uniform = (torch.tensor(1.0 / ncol).to(bf).float()
+                   * vals[1].float().sum(0))
+        log(f"kernel {label}: the row masked everywhere is "
+            f"{(out[1, 2] - uniform).abs().max().item():.3e} from the uniform "
+            f"average of the values; outputs finite "
+            f"{bool(out.isfinite().all())}")
+        if not out.isfinite().all():
+            raise AssertionError(f"{label}: non-finite output")
+        # library: SDPA with the bias as an additive mask in the query
+        # dtype, the keys pre-concatenated as [prompt | K generated segments]
+        q_lib = qs.view(Bs, Kb, H, dk).transpose(1, 2)
+        k_lib, v_lib = (x.view(Bs, ncol, H, dk).transpose(1, 2)
+                        for x in (torch.cat([kp, kg], 1), vals))
+        mask = bias.to(bf)[:, None]
+        record("attn_step_split_bias", "tools/bisect_attn_split.py:58",
+               out, K.attn_step_split_bias_plain(qs, kp, vp, kg, vg, bias, dk),
+               tol, K.attn_step_split_bias_plain(qs, kp_mut, vp, kg_mut, vg,
+                                                 bias, dk),
+               lambda: K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk),
+               lambda: K.attn_step_split_bias_plain(qs, kp, vp, kg, vg, bias,
+                                                    dk),
+               lambda: F.scaled_dot_product_attention(q_lib, k_lib, v_lib,
+                                                      attn_mask=mask,
+                                                      scale=1.0),
+               nbytes=(Bs * Kb * D + 2 * Bs * ncol * D) * 2
+               + Bs * Kb * ncol * 4 + Bs * Kb * D * 4,
+               flops=4 * Bs * Kb * ncol * D, label=label, row=row)
+        plan = K.attn_step_split_bias_launch(Bs, Kb, Pp, Kb * G, D, dk, bf)
+        log(f"kernel {label}: launch {plan_line(plan)} columns")
+        if row:
+            def bias_c(R, o):
+                return K.build.load("attn_step_split_bias") \
+                    .attn_step_split_bias(
+                        qs.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                        kg.data_ptr(), vg.data_ptr(), bias.data_ptr(),
+                        o.data_ptr(), Bs, Kb, Pp, Kb * G, D, dk, R, 1,
+                        K._stream())
+            launch_sweep(label, {f"R={R}": (lambda o, R=R: bias_c(R, o))
+                                 for R in range(1, 9)}, (Bs, Kb, D), iters)
+
+    check_split_bias(8, 5, 256, 192, row=True)
+    # past the 8 beams of the first CUDA kernel, at Whisper's 448-token
+    # context (Pp 224, G 224): the row's gates, logged only
+    check_split_bias(2, 9, 224, 224, row=False)
 
 
 # --------------------------------------------------------------------------

@@ -40,13 +40,13 @@ _ARGTYPES = {
                                               _I, _P]),
     "masked_scm": ("masked_scm", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "xattn_int8": ("xattn_int8", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _P]),
+                                  _I, _I, _I, _P]),
     "xattn_stream": ("xattn_stream", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "xattn_onedot": ("xattn_onedot", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _P]),
     "attn_step_split_bias": ("attn_step_split_bias",
                              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _P]),
+                              _I, _I, _I, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -228,6 +228,37 @@ SPLIT_THREADS = 256          # threads per block of the CUDA kernel
 SPLIT_COLS_PER_BLOCK = 128   # columns of Pp + K*G the cluster size aims at
 SPLIT_MAX_CLUSTER = 8        # portable thread-block cluster size
 SMEM_LIMIT = 232448          # shared memory one block may use (227 KB)
+SPLIT_MIN_SHARE = 32         # key rows of one mbarrier chunk
+
+
+def split_shares(n: int, R: int) -> list:
+    """The R contiguous shares (c0, len) of n columns as the cluster
+    kernels cut them (csrc/split_softmax.cuh share_of): ceil(n / R)
+    columns each, the last ones short or empty."""
+    s = -(-n // R)
+    shares = []
+    for r in range(R):
+        c0 = min(r * s, n)
+        shares.append((c0, min(c0 + s, n) - c0))
+    return shares
+
+
+def _share_rows(n: int, R: int) -> int:
+    """A block's column capacity: ceil(n / R) rounded up to 16, a
+    tensor-core tile (csrc/split_softmax.cuh share_rows)."""
+    return (-(-n // R) + 15) // 16 * 16
+
+
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def _cluster_size(n: int) -> int:
+    """R for n columns: the largest portable cluster (8), fewer where n
+    gives fewer shares of SPLIT_MIN_SHARE rows. Of R = 1-8, 8 was the
+    fastest at each of the smoke's shapes (chip_smoke.py phase 2 logs the
+    sweep)."""
+    return max(1, min(SPLIT_MAX_CLUSTER, -(-n // SPLIT_MIN_SHARE)))
 
 
 def attn_step_split_launch(B: int, K: int, Pp: int, G: int, D: int,
@@ -350,6 +381,70 @@ def attn_step_split_bias_plain(q: torch.Tensor, k_prompt: torch.Tensor,
     return out.reshape(B, K, D)
 
 
+SPLIT_BIAS_THREADS = 256     # threads per block of the CUDA kernel
+
+
+def split_bias_smem(per: int, dk: int, esize: int, K: int, R: int) -> int:
+    """Bytes of shared memory of one block (csrc/attn_step_split_bias.cu
+    layout): mbarriers, queries, key rows, value rows, logits, the bf16
+    path's bf16 weights or the f32 path's [8 warps, 8 beams, dk] partial
+    outputs, the peers' partial outputs of its slice, stats."""
+    return (_align(8 * (1 + -(-per // 32)), 128) + K * dk * esize
+            + 2 * per * dk * esize + K * per * 4
+            + (_align(K, 16) * (per + 8) * 2 if esize == 2 else 8 * 8 * dk * 4)
+            + _align(R * -(-K * dk // R) * 4, 16) + 8 * K * (R + 1))
+
+
+def attn_step_split_bias_launch(B: int, K: int, Pp: int, Ng: int, D: int,
+                                dk: int, dtype: torch.dtype) -> dict:
+    """Grid, cluster size, column shares and shared memory of the CUDA
+    kernel: a cluster of R blocks per (head, stream) pair along x, grid
+    (R, H, B); block r stages its share of the Pp + Ng columns' key and
+    value rows and the stream's bias share in shared memory."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    ncol = Pp + Ng
+    R = _cluster_size(ncol)
+    per = _share_rows(ncol, R)
+    return dict(grid=(R, D // dk, B), threads=SPLIT_BIAS_THREADS, cluster=R,
+                per=per, smem=split_bias_smem(per, dk, esize, K, R),
+                shares=split_shares(ncol, R))
+
+
+def _split_bias_plan(q, k_prompt, v_prompt, k_gen, v_gen, bias,
+                     dk: int) -> dict:
+    """The wrapper's checks of what the CUDA kernel takes (shapes, dtypes,
+    its shared memory), raising ValueError; returns the launch plan."""
+    tensors = (q, k_prompt, v_prompt, k_gen, v_gen, bias)
+    if q.dim() != 3:
+        raise ValueError("attn_step_split_bias: q must be [B, K, D]")
+    B, K, D = q.shape
+    Pp, Ng = k_prompt.shape[1], k_gen.shape[1]
+    ncol = Pp + Ng
+    if k_prompt.shape != (B, Pp, D) or v_prompt.shape != k_prompt.shape or \
+            k_gen.shape != (B, Ng, D) or v_gen.shape != k_gen.shape or \
+            bias.shape != (B, K, ncol):
+        raise ValueError("attn_step_split_bias: prompt [B, Pp, D], "
+                         "generated [B, Ng, D], bias [B, K, Pp + Ng]")
+    if K < 1 or ncol == 0 or not 0 < B <= 65535:
+        raise ValueError(f"attn_step_split_bias: K={K} must be >= 1, "
+                         f"Pp + Ng={ncol} nonzero, B={B} in [1, 65535]")
+    if dk not in (64, 128) or D % dk:
+        raise ValueError(f"attn_step_split_bias: dk={dk} with D={D}")
+    dt = q.dtype
+    if dt not in (torch.bfloat16, torch.float32) or \
+            any(t.dtype != dt for t in tensors[1:5]) or \
+            bias.dtype != torch.float32:
+        raise ValueError("attn_step_split_bias: q and caches share bf16 or "
+                         "f32, bias f32")
+    plan = attn_step_split_bias_launch(B, K, Pp, Ng, D, dk, dt)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(
+            f"attn_step_split_bias: K={K} beams over {ncol} columns need "
+            f"{plan['smem']} bytes of shared memory per block, past the "
+            f"{SMEM_LIMIT} bytes (227 KB) a block may use")
+    return plan
+
+
 def attn_step_split_bias(q: torch.Tensor, k_prompt: torch.Tensor,
                          v_prompt: torch.Tensor, k_gen: torch.Tensor,
                          v_gen: torch.Tensor, bias: torch.Tensor,
@@ -361,43 +456,21 @@ def attn_step_split_bias(q: torch.Tensor, k_prompt: torch.Tensor,
     k_prompt/v_prompt: [B, Pp, D]; k_gen/v_gen: [B, Ng, D] (the K
     generated segments of a stream laid out beam-major, Ng = K*G); bias:
     [B, K, Pp + Ng] f32 added to the f32 logits (-1e30 masks a column; a
-    row masked everywhere averages the values uniformly). Returns
-    [B, K, D] f32."""
+    row masked everywhere averages the values uniformly). Any beam count K
+    up to the kernel's shared memory. Returns [B, K, D] f32."""
     tensors = (q, k_prompt, v_prompt, k_gen, v_gen, bias)
     if not _on_card("attn_step_split_bias", *tensors):
         return attn_step_split_bias_plain(*tensors, dk)
-    if q.dim() != 3:
-        raise ValueError("attn_step_split_bias: q must be [B, K, D]")
+    plan = _split_bias_plan(*tensors, dk)
     B, K, D = q.shape
     Pp, Ng = k_prompt.shape[1], k_gen.shape[1]
-    ncol = Pp + Ng
-    if k_prompt.shape != (B, Pp, D) or v_prompt.shape != k_prompt.shape or \
-            k_gen.shape != (B, Ng, D) or v_gen.shape != k_gen.shape or \
-            bias.shape != (B, K, ncol):
-        raise ValueError("attn_step_split_bias: prompt [B, Pp, D], "
-                         "generated [B, Ng, D], bias [B, K, Pp + Ng]")
-    if not 1 <= K <= 8 or ncol == 0 or not 0 < B <= 65535:
-        raise ValueError(f"attn_step_split_bias: K={K} must be in [1, 8], "
-                         f"Pp + Ng={ncol} nonzero, B={B} in [1, 65535]")
-    if dk not in (64, 128) or D % dk:
-        raise ValueError(f"attn_step_split_bias: dk={dk} with D={D}")
-    dt = q.dtype
-    if dt not in (torch.bfloat16, torch.float32) or \
-            any(t.dtype != dt for t in tensors[1:5]) or \
-            bias.dtype != torch.float32:
-        raise ValueError("attn_step_split_bias: q and caches share bf16 or "
-                         "f32, bias f32")
-    lanes = dk // (8 if dt == torch.bfloat16 else 4)
-    smem = (K * dk + K * ncol + 512 // lanes * dk) * 4
-    if smem > 232448:
-        raise ValueError(f"attn_step_split_bias: {ncol} columns need {smem} "
-                         "bytes of shared memory (227 KB per block)")
     out = torch.empty((B, K, D), dtype=torch.float32, device=q.device)
     lib = build.load("attn_step_split_bias")
     rc = lib.attn_step_split_bias(
         q.data_ptr(), k_prompt.data_ptr(), v_prompt.data_ptr(),
         k_gen.data_ptr(), v_gen.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        B, K, Pp, Ng, D, dk, int(dt == torch.bfloat16), _stream())
+        B, K, Pp, Ng, D, dk, plan["cluster"], int(q.dtype == torch.bfloat16),
+        _stream())
     LAUNCHES["attn_step_split_bias"] += 1
     _check_rc("attn_step_split_bias", rc)
     return out
@@ -526,18 +599,50 @@ def xattn_int8_plain(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     return out.reshape(B, T, D) * v_scale[:, None, :]
 
 
-def xattn_int8(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
-               v_scale: torch.Tensor, dk: int, s_valid: int) -> torch.Tensor:
-    """Fused cross-attention against int8 K/V memory (int8 decode steps).
+XATTN_THREADS = 128          # threads per block of the CUDA kernel
 
-    q_eff: [B, T, D] bf16 (f32 for the f32 parity model), T <= 8, with the
-    per-channel k-scales and both dk**-0.25 factors folded in; k8/v8:
-    [B, S_pad, D] int8, S_pad a multiple of 32, zero past s_valid;
-    v_scale: [B, D] f32. Returns [B, T, D] f32 (pre-out-projection,
-    v-scales applied)."""
-    s_valid = int(s_valid)
-    if not _on_card("xattn_int8", q_eff, k8, v8, v_scale):
-        return xattn_int8_plain(q_eff, k8, v8, v_scale, dk, s_valid)
+
+# (head, row) pairs from which xattn_int8 takes a block per row: 4 blocks
+# of 256 threads on each of the H100's 132 SMs, the card full in one wave
+XATTN_ROW_PAIRS = 4 * 132
+XATTN_ROW_THREADS = 256
+
+
+def xattn_int8_smem(per: int, dk: int, T: int, R: int, qsize: int) -> int:
+    """Bytes of shared memory of one cluster block (csrc/xattn_int8.cu
+    layout): mbarriers, queries of qsize bytes, int8 key and value rows,
+    logits, the [4 warps, T, dk] partial outputs, the peers' partial
+    outputs of its slice, stats."""
+    return (_align(8 * (1 + -(-per // 32)), 128) + T * dk * qsize
+            + 2 * per * dk + T * per * 4 + 4 * T * dk * 4
+            + _align(R * -(-T * dk // R) * 4, 16) + 8 * T * (R + 1))
+
+
+def xattn_int8_launch(B: int, T: int, S_pad: int, D: int, dk: int,
+                      s_valid: int, dtype: torch.dtype) -> dict:
+    """Grid, cluster size, key shares and shared memory of the CUDA kernel
+    for queries of `dtype`, from the grid and S_pad (never from s_valid).
+    Few (head, row) pairs: a cluster of R >= 2 blocks along x per pair,
+    grid (R, H, B), block r staging its share of the s_valid keys' int8
+    key and value rows in shared memory. From XATTN_ROW_PAIRS pairs on
+    (greedy's 48 rows), or where S_pad gives one share: R = 1, a block of
+    256 threads streams a whole row, grid (H, B)."""
+    H = D // dk
+    R = _cluster_size(S_pad)
+    if H * B >= XATTN_ROW_PAIRS or R == 1:
+        return dict(grid=(H, B), threads=XATTN_ROW_THREADS, cluster=1,
+                    per=S_pad, smem=(T * dk + T * S_pad + 8 * T * dk) * 4,
+                    shares=split_shares(s_valid, 1))
+    qsize = 2 if dtype == torch.bfloat16 else 4
+    per = _share_rows(S_pad, R)
+    return dict(grid=(R, H, B), threads=XATTN_THREADS, cluster=R, per=per,
+                smem=xattn_int8_smem(per, dk, T, R, qsize),
+                shares=split_shares(s_valid, R))
+
+
+def _xattn_int8_plan(q_eff, k8, v8, v_scale, dk: int, s_valid: int) -> dict:
+    """The wrapper's checks of what the CUDA kernel takes (shapes, dtypes,
+    its shared memory), raising ValueError; returns the launch plan."""
     if q_eff.dim() != 3 or k8.dim() != 3:
         raise ValueError("xattn_int8: q [B, T, D], k8/v8 [B, S_pad, D]")
     B, T, D = q_eff.shape
@@ -556,16 +661,33 @@ def xattn_int8(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                          f"{s_valid} <= S_pad")
     if dk not in (64, 128) or D % dk or not 0 < B <= 65535:
         raise ValueError(f"xattn_int8: dk={dk} with D={D}, B={B}")
-    smem = (T * (dk + S_pad) + 8 * T * dk) * 4
-    if smem > 232448:
-        raise ValueError(f"xattn_int8: S_pad={S_pad} needs {smem} bytes of "
-                         "shared memory (227 KB per block)")
+    plan = xattn_int8_launch(B, T, S_pad, D, dk, s_valid, q_eff.dtype)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"xattn_int8: S_pad={S_pad} needs {plan['smem']} "
+                         "bytes of shared memory per block (227 KB)")
+    return plan
+
+
+def xattn_int8(q_eff: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+               v_scale: torch.Tensor, dk: int, s_valid: int) -> torch.Tensor:
+    """Fused cross-attention against int8 K/V memory (int8 decode steps).
+
+    q_eff: [B, T, D] bf16 (f32 for the f32 parity model), T <= 8, with the
+    per-channel k-scales and both dk**-0.25 factors folded in; k8/v8:
+    [B, S_pad, D] int8, S_pad a multiple of 32, zero past s_valid;
+    v_scale: [B, D] f32. Returns [B, T, D] f32 (pre-out-projection,
+    v-scales applied)."""
+    s_valid = int(s_valid)
+    if not _on_card("xattn_int8", q_eff, k8, v8, v_scale):
+        return xattn_int8_plain(q_eff, k8, v8, v_scale, dk, s_valid)
+    plan = _xattn_int8_plan(q_eff, k8, v8, v_scale, dk, s_valid)
+    B, T, D = q_eff.shape
     out = torch.empty((B, T, D), dtype=torch.float32, device=q_eff.device)
     lib = build.load("xattn_int8")
     rc = lib.xattn_int8(q_eff.data_ptr(), k8.data_ptr(), v8.data_ptr(),
-                        v_scale.data_ptr(), out.data_ptr(), B, T, S_pad, D,
-                        dk, s_valid, int(q_eff.dtype == torch.bfloat16),
-                        _stream())
+                        v_scale.data_ptr(), out.data_ptr(), B, T,
+                        k8.shape[1], D, dk, s_valid, plan["cluster"],
+                        int(q_eff.dtype == torch.bfloat16), _stream())
     LAUNCHES["xattn_int8"] += 1
     _check_rc("xattn_int8", rc)
     return out

@@ -524,6 +524,129 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     assert all(n == 0 for n in tk.LAUNCHES.values())
 
 
+def covers_once(shares, n) -> bool:
+    """The shares (c0, len) lie end to end from 0 and cover [0, n) once."""
+    pos = 0
+    for c0, length in shares:
+        if length < 0 or (length and c0 != pos):
+            return False
+        pos += length
+    return pos == n
+
+
+# the serving grids (beam 5: 9 rows x 20 heads; greedy: 48 x 20), one row,
+# and the tests' small grids
+@pytest.mark.parametrize("B,D", [(9, 1280), (48, 1280), (1, 128), (3, 256)])
+def test_xattn_int8_plan_covers_the_valid_keys_once(B, D):
+    """Over the wrapper's range (T 1-8, dk 64/128, S_pad to 1504 and every
+    s_valid of a few S_pad, bf16 and f32 queries): the R <= 8 shares cover
+    [0, s_valid) exactly once (empty shares allowed; R = 1, a block per
+    row, for grids of XATTN_ROW_PAIRS pairs or more), a share fits the
+    block's capacity, the grid does not depend on s_valid, and a block's
+    shared memory stays within SMEM_LIMIT."""
+    for dk, dtype in ((64, torch.bfloat16), (128, torch.bfloat16),
+                      (64, torch.float32), (128, torch.float32)):
+        for T in range(1, 9):
+            for S_pad in range(32, 1505, 32):
+                full = S_pad in (32, 96, 1504)
+                valids = range(1, S_pad + 1) if full else \
+                    sorted({1, 2, 7, 9, S_pad // 3, S_pad - 1, S_pad} - {0})
+                grid = None
+                for s_valid in valids:
+                    plan = tk.xattn_int8_launch(B, T, S_pad, D, dk, s_valid,
+                                                dtype)
+                    R = plan["cluster"]
+                    assert 1 <= R <= 8 and len(plan["shares"]) == R
+                    assert plan["grid"] == ((D // dk, B) if R == 1
+                                            else (R, D // dk, B))
+                    assert R == 1 or D // dk * B < tk.XATTN_ROW_PAIRS
+                    assert grid in (None, plan["grid"])
+                    grid = plan["grid"]
+                    assert covers_once(plan["shares"], s_valid)
+                    assert max(n for _, n in plan["shares"]) <= plan["per"]
+                    assert plan["smem"] <= tk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("T,dk,dtype", [(8, 64, torch.bfloat16),
+                                        (8, 128, torch.bfloat16),
+                                        (1, 128, torch.float32),
+                                        (5, 64, torch.float32)])
+def test_xattn_int8_wrapper_raises_exactly_where_the_plan_passes_smem(T, dk,
+                                                                      dtype):
+    """The wrapper's checks raise for the first S_pad whose plan needs more
+    than SMEM_LIMIT bytes of shared memory a block, and take the S_pad
+    before it (shapes only: the checks run before any launch)."""
+    last_ok = None
+    for S_pad in range(1504, 20001, 32):
+        q = torch.empty(1, T, dk, dtype=dtype)
+        k8 = torch.empty(1, S_pad, dk, dtype=torch.int8)
+        vs = torch.empty(1, dk)
+        smem = tk.xattn_int8_launch(1, T, S_pad, dk, dk, S_pad, dtype)["smem"]
+        if smem <= tk.SMEM_LIMIT:
+            assert tk._xattn_int8_plan(q, k8, k8, vs, dk, S_pad)["smem"] == \
+                smem
+            last_ok = S_pad
+            continue
+        with pytest.raises(ValueError, match="227 KB"):
+            tk._xattn_int8_plan(q, k8, k8, vs, dk, S_pad)
+        break
+    else:
+        pytest.fail("no S_pad up to 20000 passes the shared memory")
+    assert last_ok is not None and last_ok >= 1504
+
+
+# the bisect tool's shape (8 streams, Pp 256, G 192), Whisper's context
+# (Pp 224, G 224), the tests' small shapes
+@pytest.mark.parametrize("B,Pp,G,D,dk", [(8, 256, 192, 1280, 64),
+                                         (2, 224, 224, 1280, 64),
+                                         (2, 16, 8, 128, 64),
+                                         (3, 40, 24, 256, 128),
+                                         (1, 0, 3, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_bias_plan_covers_the_columns_once(B, Pp, G, D, dk, dtype):
+    """For K 1-16 beams: R <= 8 shares that cover [0, Pp + K*G) exactly
+    once (empty shares allowed), each within the block's capacity, and
+    a block's shared memory within SMEM_LIMIT: at every K for bf16 caches
+    (the tool's), at the first design's K <= 8 for f32 caches, whose rows
+    take twice the bytes (past that the wrapper may raise, as
+    test_split_bias_wrapper_raises_exactly_where_the_plan_passes_smem
+    holds)."""
+    for K in range(1, 17):
+        ncol = Pp + K * G
+        plan = tk.attn_step_split_bias_launch(B, K, Pp, K * G, D, dk, dtype)
+        R = plan["cluster"]
+        assert 1 <= R <= 8 and plan["grid"] == (R, D // dk, B)
+        assert covers_once(plan["shares"], ncol)
+        assert max(n for _, n in plan["shares"]) <= plan["per"]
+        if dtype == torch.bfloat16 or K <= 8:
+            assert plan["smem"] <= tk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_bias_wrapper_raises_exactly_where_the_plan_passes_smem(dtype):
+    """The wrapper's checks take every beam count whose plan fits the
+    block's shared memory and raise with the first that does not (shapes
+    only: the checks run before any launch)."""
+    B, Pp, G, D, dk = 1, 256, 192, 64, 64
+    for K in range(1, 400):
+        q = torch.empty(B, K, D, dtype=dtype)
+        kp = torch.empty(B, Pp, D, dtype=dtype)
+        kg = torch.empty(B, K * G, D, dtype=dtype)
+        bias = torch.empty(B, K, Pp + K * G)
+        smem = tk.attn_step_split_bias_launch(B, K, Pp, K * G, D, dk,
+                                              dtype)["smem"]
+        if smem <= tk.SMEM_LIMIT:
+            assert tk._split_bias_plan(q, kp, kp, kg, kg, bias, dk)[
+                "smem"] == smem
+            continue
+        with pytest.raises(ValueError, match="227 KB"):
+            tk._split_bias_plan(q, kp, kp, kg, kg, bias, dk)
+        assert K > (16 if dtype == torch.bfloat16 else 8)
+        break
+    else:
+        pytest.fail("no beam count below 400 passes the shared memory")
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -674,7 +797,13 @@ def test_gpu_masked_scm_kernel(cuda, B, F, T, K, M):
     (9, 5, 1280, 64, 1504, 1500, 0.004),     # beam 5, 9 streams
     (48, 1, 1280, 64, 1504, 1500, 0.004),    # greedy, 48 rows
     (2, 8, 256, 128, 96, 77, 0.2), (3, 3, 384, 64, 64, 33, 0.2),
-    (1, 1, 128, 64, 1504, 1500, 0.004)])
+    (1, 1, 128, 64, 1504, 1500, 0.004),
+    # the cluster's shares: s_valid not a multiple of R; s_valid < R
+    # (empty shares) at T 8 and dk 128, and at T 1
+    (9, 5, 1280, 64, 1504, 1499, 0.004), (3, 8, 256, 128, 256, 3, 0.2),
+    (2, 1, 128, 128, 320, 5, 0.2),
+    # a block per row (XATTN_ROW_PAIRS pairs) at T 8 and dk 128
+    (66, 8, 1024, 128, 96, 77, 0.2)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gpu_xattn_int8_kernel(cuda, B, T, D, dk, S, s_valid, q_scale,
                                dtype):
@@ -682,11 +811,17 @@ def test_gpu_xattn_int8_kernel(cuda, B, T, D, dk, S, s_valid, q_scale,
     test_xattn_int8_plain_matches_pallas; the plain version with the key
     of the largest weight negated is outside the max tolerance, and with
     the rounding of p moved (at unit-scale logits), outside the RMS
-    tolerance."""
+    tolerance. Keys past s_valid are not read: they hold garbage here."""
     rng = np.random.RandomState(B + T + S)
     q, k8, v8, vs = xattn_case(rng, B, T, D, dk, S, s_valid, q_scale)
     qc = t(q).to(cuda, dtype)
     k8c, v8c, vsc = (t(x).to(cuda) for x in (k8, v8, vs))
+    k8c[:, s_valid:] = 127
+    v8c[:, s_valid:] = -128
+    plan = tk.xattn_int8_launch(B, T, S, D, dk, s_valid, dtype)
+    if s_valid < 8 and S >= 256:       # the cases with empty shares
+        assert plan["cluster"] > s_valid
+        assert any(n == 0 for _, n in plan["shares"])
     before = tk.LAUNCHES["xattn_int8"]
     out = tk.xattn_int8(qc, k8c, v8c, vsc, dk, s_valid)
     torch.cuda.synchronize()
@@ -773,7 +908,11 @@ def test_gpu_xattn_onedot_kernel(cuda, B, S, D, dk, s_valid, q_scale):
     (8, 5, 256, 192, 1280, 64, torch.bfloat16, "finite"),
     (2, 3, 16, 8, 128, 64, torch.float32, "finite"),
     (3, 1, 40, 24, 256, 128, torch.bfloat16, "visibility"),
-    (2, 8, 32, 16, 384, 128, torch.float32, "visibility")])
+    (2, 8, 32, 16, 384, 128, torch.float32, "visibility"),
+    # past the 8 beams of the first design, a row masked everywhere
+    (2, 9, 224, 224, 1280, 64, torch.bfloat16, "finite"),
+    (2, 16, 64, 32, 256, 64, torch.float32, "visibility"),
+    (1, 16, 40, 24, 256, 128, torch.bfloat16, "finite")])
 def test_gpu_attn_step_split_bias_kernel(cuda, B, K, Pp, G, D, dk, dtype,
                                          bias_kind):
     """The CUDA kernel against its plain version within
@@ -849,11 +988,12 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tk.xattn_onedot(q[:, :2], k8, k8, vs, 64, 64)
     with pytest.raises(ValueError):                    # f32 q
         tk.xattn_onedot(q[:, :1].float(), k8, k8, vs, 64, 64)
-    q9 = torch.randn(2, 9, 128, device=cuda).bfloat16()   # K > 8
+    q9 = torch.randn(2, 9, 128, device=cuda).bfloat16()
     kc = torch.zeros(2, 16, 128, device=cuda).bfloat16()
-    with pytest.raises(ValueError):
-        tk.attn_step_split_bias(q9, kc, kc, kc, kc,
-                                torch.zeros(2, 9, 32, device=cuda), 64)
+    kl = torch.zeros(1, 8192, 128, device=cuda).bfloat16()  # 8 shares of
+    with pytest.raises(ValueError, match="227 KB"):         # 1024 rows:
+        tk.attn_step_split_bias(q9[:1, :1], kl[:, :0], kl[:, :0], kl, kl,
+                                torch.zeros(1, 1, 8192, device=cuda), 64)
     with pytest.raises(ValueError):                    # bf16 bias
         tk.attn_step_split_bias(q9[:, :5], kc, kc, kc, kc,
                                 torch.zeros(2, 5, 32, device=cuda).bfloat16(),

@@ -203,16 +203,22 @@ def test_xattn_onedot_plain_matches_the_tool_body(B, S, D, dk, s_valid,
 # attn_step_split_bias: derived tolerance; fully masked rows; finite bias
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("bias_kind", ["visibility", "finite"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype,bias_kind,K", [
+    pytest.param(torch.bfloat16, "visibility", 3, id="dtype0-visibility"),
+    pytest.param(torch.bfloat16, "finite", 3, id="dtype0-finite"),
+    pytest.param(torch.float32, "visibility", 3, id="dtype1-visibility"),
+    pytest.param(torch.float32, "finite", 3, id="dtype1-finite"),
+    # past the 8 beams the first CUDA kernel took (the TPU body takes any)
+    pytest.param(torch.bfloat16, "finite", 9, id="dtype0-finite-K9"),
+])
 def test_attn_step_split_bias_plain_matches_the_kernel_body(bias_kind,
-                                                            dtype):
-    """B 2, K 3, Pp 16, G 8. Within split_bias_tolerance of the TPU body;
-    the fully masked row is the uniform average of the values, as the
-    body gives it; the key of the largest weight of a visible row negated
-    is outside the tolerance."""
+                                                            dtype, K):
+    """B 2, K 3 (and 9), Pp 16, G 8. Within split_bias_tolerance of the
+    TPU body; the fully masked row is the uniform average of the values,
+    as the body gives it; the key of the largest weight of a visible row
+    negated is outside the tolerance."""
     rng = np.random.RandomState(11 + len(bias_kind))
-    q, kp, vp, kg, vg, bias = split_case(rng, 2, 3, 16, 8, bias_kind)
+    q, kp, vp, kg, vg, bias = split_case(rng, 2, K, 16, 8, bias_kind)
     dk = 64
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     want = run_split_body(q, kp, vp, kg, vg, bias, dk, jdt)
