@@ -26,9 +26,20 @@ Phases (any failure raises and exits non-zero):
              kernel, plain version and one PyTorch library call (CUDA
              events, L2 flushed before every call). xattn_stream must be
              bit-exact with a checksum equal to the sum of every K and V
-             byte. The two split-softmax kernels (xattn_int8,
-             attn_step_split_bias) also log their launch plan and their
-             times over cluster sizes R = 1-8.
+             byte. The split-softmax kernels (xattn_int8,
+             attn_step_split_bias, attn_step) also log their launch plan
+             and their times over cluster sizes R = 1-8. attn_step takes
+             pos as a device tensor, at the last slot (447, the row) and at
+             111 (logged), each against its plain version, the pad mutant
+             and its own bound, and is also timed as 32 launches in one
+             CUDA graph; the timer's floor (one 1-element launch) and
+             xattn_stream over the same bytes are logged beside it. The
+             two kernels that round each normalized weight on the decode
+             step (attn_step, attn_step_split) are then held, over 8
+             seeded draws of their inputs, pos and gslot, to their plain
+             versions and to a float64 witness within the bf16
+             weight-flip model of those inputs (attn_step_split's gates
+             are that model).
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
              and beam-3 decode tokens (f32, TF32 off), and the same for
@@ -37,15 +48,29 @@ Phases (any failure raises and exits non-zero):
              likewise (embeddings in f32 and bf16); the device
              clustering chain on a CUDA affinity against the float64
              host path (p_hat, speaker count, partition).
+3b. graph   the decode loops on the card as CUDA graphs (the default)
+             against the same loops run eagerly: Whisper large-v3 at full
+             width with seeded random weights, bf16 then the int8 decoder,
+             3 seeded mel windows, beam 5 and greedy, 32 new tokens:
+             tokens equal, scores within 1e-4, launch and int8 decoder
+             call counts equal; eager and graphed ms per step logged.
+             Then the bf16 model with its EOT row scaled (rows end at
+             different steps) decodes greedy and beam 5 with the loops'
+             finished.all() interval at 1, 2, 4 and 8: tokens and stats
+             equal, steps and ms per decode call logged.
 4. asr beam  a seeded synthetic session of 3 streams x 40 s through
              asr_inference with the shipped config: Whisper large-v3 at
              full width, bf16, beam 5, word timestamps,
              condition_on_previous_text, seeded random weights.
              Launch counts are reset before the call and read after it:
-             encoder_mha and attn_step_split must be > 0.
+             encoder_mha and attn_step_split must be > 0. The decode
+             steps (replayed from CUDA graphs and eager), the graph
+             captures and their seconds, and ms per step are logged, and
+             the attn_step launches as a histogram of (rows, cache
+             length, pos), which must account for every counted launch.
 5. asr greedy the same session with beam_size=None (greedy + fallback
              ladder); counted the same way: encoder_mha and attn_step
-             must be > 0.
+             must be > 0; its steps logged as phase 4's.
 6. diarization the shipped word_nmesc config (6 scales, dedup,
              TitaNet-large at full width in bf16, seeded random weights)
              on the ASR dataframes of phases 4 and 5 as two sessions,
@@ -77,14 +102,18 @@ Phases (any failure raises and exits non-zero):
              launches = 32 x the decoder calls that reach it, as the
              decoders count them; encoder_mha and attn_step_split launch;
              depthwise_conv1d launches 9 times per planned TitaNet chunk.
-             A seeded hypothesis is then scored against the
+             Decode steps and attn_step traffic logged as phase 4's. A
+             seeded hypothesis is
+             then scored against the
              meeting's GT through calc_wer with known answers (the GT
              itself: 0; one word dropped: 1/N), naming the scorer core.
 9. tools     python -m notsofar_tpu_torch.tools.bench_xattn_variants and
              .bisect_attn_split at their default shapes with a few
-             iterations: the numeric line must match the plain versions,
+             iterations (each chain and row timed as replays of a CUDA
+             graph): the numeric line must match the plain versions,
              every timed row be finite, and each kernel launch as many
-             times as the tool's loops call it.
+             times as the tool's loops call it; the stream chain is
+             logged against 32 x phase 2's xattn_stream time.
 
 Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 186 frames, 4 masks, 7 mics), and phase 3 a small MC Conformer CSS on the
@@ -94,10 +123,12 @@ the kernel against the CPU's plain path).
 The line before the last is {"kernels": [...]}, all nine kernels, with
 each kernel's launches summed over phases 4-9 and split by phase in
 "launches_by_path" (phase 9 as "tools"); the last line is {"ok": true,
-"device": {...}}. The
-run writes under chiprun_out/: the kernels' ptxas report
-(kernel_build.log) and, while it runs, the sessions' wavs, ASR and
-diarization pickles and separated streams (deleted at the end).
+"device": {...}}. The run writes under chiprun_out/: the kernels' ptxas
+report (kernel_build.log), its whole log (chip_smoke.log), the attn_step
+traffic of phases 4, 5 and 8 (attn_step_traffic.json, which
+notsofar_tpu_torch/tools/time_attn_step.py times) and, while it
+runs, the sessions' wavs, ASR and diarization pickles and separated
+streams (deleted at the end).
 """
 import contextlib
 import io
@@ -113,7 +144,8 @@ import numpy as np
 import torch
 
 from notsofar_tpu_torch.tools.common import bound_ms as card_bound_ms
-from notsofar_tpu_torch.tools.common import card_line, time_cuda
+from notsofar_tpu_torch.tools.common import (card_line, time_cuda,
+                                             time_cuda_graph)
 from notsofar_tpu_torch.utils.flops import (H100_HBM_BYTES_PER_S,
                                             H100_PEAK_BF16, H100_PEAK_F32)
 
@@ -129,7 +161,12 @@ KERNEL_ITERS = 50                # timed calls per kernel in phase 2
 
 
 def log(msg: str) -> None:
+    """Print a line, and keep it in chiprun_out/chip_smoke.log (a run on a
+    remote machine may hand back only the end of its output)."""
     print(msg, flush=True)
+    if OUT.is_dir():
+        with open(OUT / "chip_smoke.log", "a") as f:
+            f.write(msg + "\n")
 
 
 def as_real(x: torch.Tensor) -> torch.Tensor:
@@ -251,11 +288,14 @@ def onedot_rounding_mutant(q, k8, v8, vs, dk: int, s_valid: int):
     return (v8.float() * lane_p).sum(dim=1, keepdim=True) * vs[:, None, :]
 
 
-def split_bias_tolerance(q, keys, vals, bias, dk: int) -> float:
-    """Each attn_step_split_bias output is sum_c p_c v_c (f32). Two
-    versions that sum the logits and p.v in other f32 orders differ by at
-    most ncol f32 roundings of sum_c p_c |v_c|, and, where a logit's order
-    sends its weight to the other bf16 neighbour, by one bf16 ulp
+def flip_tolerance(q, keys, vals, bias, dk: int) -> float:
+    """The bf16 weight-flip model of the attention kernels that round each
+    normalized weight p to bf16 (attn_step, attn_step_split,
+    attn_step_split_bias): each output is sum_c p_c v_c (f32) with q [B,
+    K, D], keys and values [B, ncol, D], bias [B, K, ncol] (0 or -1e30).
+    Two versions that sum the logits and p.v in other f32 orders differ by
+    at most ncol f32 roundings of sum_c p_c |v_c|, and, where a logit's
+    order sends its weight to the other bf16 neighbour, by one bf16 ulp
     (<= 2**-7 p) of that weight times |v|; allowed once, at the largest
     weight and value (tests/test_torch_kernels.py's tolerance)."""
     B, K, D = q.shape
@@ -268,6 +308,122 @@ def split_bias_tolerance(q, keys, vals, bias, dk: int) -> float:
                        vals.double().abs().reshape(B, ncol, H, dk))
     return (2.0 ** -7 * p.max().item() * vals.abs().max().item()
             + ncol * 2.0 ** -24 * mag.max().item())
+
+
+def ref64(q, keys, vals, bias, dk: int) -> torch.Tensor:
+    """The same attention in float64 with the kernels' one rounding point:
+    f64 logits plus bias, f64 softmax, each weight rounded to the values'
+    dtype, f64 p.v. q [B, K, D], keys and values [B, ncol, D], bias [B, K,
+    ncol] -> [B, K, D]: a witness independent of the f32 orders of both the
+    kernel and its plain version."""
+    B, K, D = q.shape
+    H = D // dk
+    ncol = keys.shape[1]
+    lg = torch.einsum("bjhd,bchd->bhjc", q.double().reshape(B, K, H, dk),
+                      keys.double().reshape(B, ncol, H, dk))
+    p = torch.softmax(lg + bias.double()[:, None], dim=-1)
+    p = p.to(vals.dtype).double()
+    return torch.einsum("bhjc,bchd->bjhd", p, vals.double().reshape(
+        B, ncol, H, dk)).reshape(B, K, D)
+
+
+# seeds of the sweep that holds the two rounding-point kernels of the decode
+# steps (attn_step, attn_step_split) to the float64 witness
+SWEEP_SEEDS = range(8)
+
+
+def seed_sweep(name: str, draw, seeds) -> None:
+    """Hold a kernel and its plain version, on inputs drawn from each seed,
+    to each other and to the float64 witness (ref64), within the weight-flip
+    model (flip_tolerance) of those inputs; log each seed's distances.
+    draw(seed) -> (kernel output, plain output, q, keys, values, bias, dk,
+    what the seed drew), the outputs [B, K, D]."""
+    worst = 0.0
+    for seed in seeds:
+        out, plain, q, keys, vals, bias, dk, what = draw(seed)
+        ref = ref64(q, keys, vals, bias, dk)
+        tol = flip_tolerance(q, keys, vals, bias, dk)
+        torch.cuda.synchronize()
+        kp = (out.double() - plain.double()).abs().max().item()
+        kr = (out.double() - ref).abs().max().item()
+        pr = (plain.double() - ref).abs().max().item()
+        log(f"kernel {name} seed {seed} ({what}): kernel - plain {kp:.3e}, "
+            f"kernel - float64 {kr:.3e}, plain - float64 {pr:.3e} "
+            f"(flip model {tol:.3e})")
+        if not (math.isfinite(kp) and kp <= tol and kr <= tol):
+            raise AssertionError(f"{name} seed {seed}: kernel - plain {kp}, "
+                                 f"kernel - float64 {kr}, model {tol}")
+        worst = max(worst, kp / tol)
+    log(f"kernel {name}: {len(seeds)} seeds within the flip model, the "
+        f"largest kernel - plain at {worst:.3f} of it")
+
+
+def split_flip_tolerance(qe, kp, vp, kg, vg, gslot: int, pads, dk: int,
+                         beams: int, anc) -> float:
+    """flip_tolerance of attn_step_split's inputs: each stream's keys as
+    [prompt | the beams' generated segments] under the wrapper's bias."""
+    from notsofar_tpu_torch.ops import kernels as K
+    Bs, Pp, D = kp.shape
+    G = kg.shape[1]
+    keys, vals = (torch.cat([p_, g_.view(Bs, beams * G, D)], 1)
+                  for p_, g_ in ((kp, kg), (vp, vg)))
+    bias = K.split_visibility_bias(Bs, beams, Pp, G, gslot, pads, anc)
+    return flip_tolerance(qe.view(Bs, beams, D), keys, vals, bias, dk)
+
+
+def attn_step_draw(seed: int):
+    """seed_sweep's draw for attn_step at the gated shape (12 rows, ctx 448,
+    20 heads of 64, bf16): seeded caches, pads in [0, 64) and pos, the
+    kernel reading pos as a device tensor."""
+    from notsofar_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, ctx, D, dk = 12, 448, 1280, 64
+    qe, kc, vc = (torch.randn(shape, generator=g, device="cuda")
+                  .to(torch.bfloat16) for shape in
+                  ((B, 1, D), (B, ctx, D), (B, ctx, D)))
+    qe = (qe.float() * dk ** -0.5).to(torch.bfloat16)
+    pads = torch.randint(0, 64, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    pos = int(torch.randint(0, ctx, (), generator=g, device="cuda"))
+    keys = torch.arange(ctx, device="cuda")
+    vis = (keys[None] <= pos) & ((keys[None] >= pads[:, None])
+                                 | (keys[None] == pos))
+    bias = torch.where(vis, 0.0, K.MASKED)[:, None]
+    out = K.attn_step(qe, kc, vc, torch.tensor(pos, dtype=torch.int32,
+                                               device="cuda"), pads, dk)
+    return (out, K.attn_step_plain(qe, kc, vc, pos, pads, dk), qe, kc, vc,
+            bias, dk, f"pos {pos}")
+
+
+def attn_step_split_draw(seed: int):
+    """seed_sweep's draw for attn_step_split at the row's shape (2 streams
+    x 5 beams, Pp 256, G 256, bf16): seeded caches, pads in [0, 128),
+    ancestry and gslot, the kernel reading gslot as a device tensor."""
+    from notsofar_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Bs, Kb, Pp, G, D, dk = 2, 5, 256, 256, 1280, 64
+    qe, kp, vp, kg, vg = (torch.randn(shape, generator=g, device="cuda")
+                          .to(torch.bfloat16) for shape in
+                          ((Bs * Kb, 1, D), (Bs, Pp, D), (Bs, Pp, D),
+                           (Bs * Kb, G, D), (Bs * Kb, G, D)))
+    qe = (qe.float() * dk ** -0.5).to(torch.bfloat16)
+    pads = torch.randint(0, 128, (Bs,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    anc = torch.randint(0, Kb, (Bs, Kb, G), generator=g, device="cuda",
+                        dtype=torch.int32)
+    gslot = int(torch.randint(0, G, (), generator=g, device="cuda"))
+    anc[:, :, gslot] = torch.arange(Kb, device="cuda", dtype=torch.int32)
+    out = K.attn_step_split(qe, kp, vp, kg, vg,
+                            torch.tensor(gslot, dtype=torch.int32,
+                                         device="cuda"), pads, dk, Kb,
+                            anc=anc)
+    plain = K.attn_step_split_plain(qe, kp, vp, kg, vg, gslot, pads, dk, Kb,
+                                    anc=anc)
+    keys, vals = (torch.cat([p_, g_.view(Bs, Kb * G, D)], 1)
+                  for p_, g_ in ((kp, kg), (vp, vg)))
+    bias = K.split_visibility_bias(Bs, Kb, Pp, G, gslot, pads, anc)
+    return (out.view(Bs, Kb, D), plain.view(Bs, Kb, D), qe.view(Bs, Kb, D),
+            keys, vals, bias, dk, f"gslot {gslot}")
 
 
 def rms(x: torch.Tensor) -> float:
@@ -401,40 +557,96 @@ def check_kernels(iters: int):
     log(f"kernel encoder_mha: launch {K.encoder_mha_launch(BH, S, bf)}")
 
     # attn_step: 12 rows (greedy / fallback dispatch width), ctx 448,
-    # D 1280 (20 heads of 64), pos at the last slot, per-row left pads
+    # D 1280 (20 heads of 64), per-row left pads; pos as a 0-d device
+    # tensor (the CUDA graph's form) at the last slot (the kernels line's
+    # row) and at 111, a quarter of the cache (logged, its own bound)
     B, ctx, D, H = 12, 448, 1280, 20
-    pos = ctx - 1
     qe = (randn(B, 1, D, dtype=torch.float32) * dk ** -0.5).to(bf)
     kc, vc = randn(B, ctx, D), randn(B, ctx, D)
     pads = torch.randint(0, 64, (B,), generator=g, device="cuda",
                          dtype=torch.int32)
     keys = torch.arange(ctx, device="cuda")
-    vis = (keys[None] <= pos) & ((keys[None] >= pads[:, None])
-                                 | (keys[None] == pos))
     qs = qe.view(B, 1, H, dk).transpose(1, 2).contiguous()
     ks = kc.view(B, ctx, H, dk).transpose(1, 2).contiguous()
     vs = vc.view(B, ctx, H, dk).transpose(1, 2).contiguous()
     pads_mut = pads.clone()
     pads_mut[0] += 1                    # row 0 loses key pads[0]
-    # the output depends on keys pad..pos of each row (pos alone when
-    # pad > pos): count those K/V rows, q, pads and the f32 output
-    n_keys = int(vis.sum())
-    # tolerance: f32 output. The versions sum logits in another order
-    # (~1e-7 relative), which sends a few softmax weights p to the other
-    # bf16 neighbour; each such weight moves the output by ulp(p)*|v|
-    # <= 2**-7 * p * |v|. Measured 3.6e-5 at these inputs on an H100
-    # 80GB HBM3 (700 W power limit); the tolerance is about 3x that.
-    # |out| is ~0.05 typical; dropping one key moves it by ~1e-2.
-    record("attn_step", "notsofar_tpu/ops/pallas_kernels.py:224",
-           K.attn_step(qe, kc, vc, pos, pads, dk),
-           K.attn_step_plain(qe, kc, vc, pos, pads, dk), 1e-4,
-           K.attn_step_plain(qe, kc, vc, pos, pads_mut, dk),
-           lambda: K.attn_step(qe, kc, vc, pos, pads, dk),
-           lambda: K.attn_step_plain(qe, kc, vc, pos, pads, dk),
-           lambda: F.scaled_dot_product_attention(
-               qs, ks, vs, attn_mask=vis[:, None, None, :], scale=1.0),
-           nbytes=(2 * n_keys * D + B * D) * 2 + B * 4 + B * D * 4,
-           flops=4 * n_keys * D)
+    plan = K.attn_step_launch(B, ctx, D, dk, bf)
+    lib = K.build.load("attn_step")
+    # the same 12 rows for 32 layers, each with its own caches: a decode
+    # step's launches as one CUDA graph, timed per launch
+    layers = [tuple(randn(B, ctx, D) for _ in range(2)) for _ in range(32)]
+    for pos in (ctx - 1, 111):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        vis = (keys[None] <= pos) & ((keys[None] >= pads[:, None])
+                                     | (keys[None] == pos))
+        # the output depends on keys pad..pos of each row (pos alone when
+        # pad > pos): count those K/V rows, q, pads and the f32 output
+        n_keys = int(vis.sum())
+        # tolerance: f32 output. The versions sum logits in another order
+        # (~1e-7 relative), which sends a few softmax weights p to the
+        # other bf16 neighbour; each such weight moves the output by
+        # ulp(p)*|v| <= 2**-7 * p * |v|. Measured 3.6e-5 at these inputs
+        # (pos 447) on an H100 80GB HBM3 (700 W power limit); the tolerance
+        # is about 3x that. It holds for these inputs, not for every draw:
+        # on other seeded inputs the plain version's own flip put it 1.4e-4
+        # from a float64 witness, so the seed sweep below holds both
+        # versions to the flip model itself. |out| is ~0.05 typical;
+        # dropping one key moves it by ~1e-2.
+        got = record(
+            "attn_step", "notsofar_tpu/ops/pallas_kernels.py:224",
+            K.attn_step(qe, kc, vc, pos_t, pads, dk),
+            K.attn_step_plain(qe, kc, vc, pos, pads, dk), 1e-4,
+            K.attn_step_plain(qe, kc, vc, pos, pads_mut, dk),
+            lambda: K.attn_step(qe, kc, vc, pos_t, pads, dk),
+            lambda: K.attn_step_plain(qe, kc, vc, pos, pads, dk),
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=vis[:, None, None, :], scale=1.0),
+            nbytes=(2 * n_keys * D + B * D) * 2 + B * 4 + 4 + B * D * 4,
+            flops=4 * n_keys * D, label=f"attn_step pos {pos}",
+            row=pos == ctx - 1)
+        if pos == ctx - 1:
+            arow = got
+            if not torch.equal(K.attn_step(qe, kc, vc, pos, pads, dk),
+                               K.attn_step(qe, kc, vc, pos_t, pads, dk)):
+                raise AssertionError("attn_step: pos as a device tensor "
+                                     "differs from pos as an int")
+            log(f"kernel attn_step: launch {plan_line(plan)} keys; pos as "
+                "a device tensor equal to pos as an int")
+        else:
+            arow.update(pos111_ms=got["ms"], pos111_bound_ms=got["bound_ms"],
+                        pos111_plain_ms=got["plain_ms"],
+                        pos111_library_ms=got["library_ms"],
+                        pos111_max_abs_err=got["max_abs_err"])
+
+        def new_c(R, out, pos_t=pos_t):
+            return lib.attn_step(qe.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                 pads.data_ptr(), pos_t.data_ptr(),
+                                 out.data_ptr(), B, ctx, D, dk, 0, R, 1,
+                                 K._stream())
+
+        launch_sweep(f"attn_step pos {pos}",
+                     {f"R={R}": (lambda out, R=R: new_c(R, out))
+                      for R in range(1, 9)}, (B, 1, D), iters)
+        graph_ms = time_cuda_graph(
+            lambda: [K.attn_step(qe, k_, v_, pos_t, pads, dk)
+                     for k_, v_ in layers], iters) / 32
+        log(f"kernel attn_step pos {pos}: as 32 launches in one CUDA graph "
+            f"{graph_ms:.4f} ms per launch")
+        arow["graph_ms" if pos == ctx - 1 else "pos111_graph_ms"] = graph_ms
+    del layers
+    # what one launch costs under this timer whatever it does, and what
+    # the stream kernel takes over the gated shape's bytes (26.4 MB)
+    z = torch.empty(1, device="cuda")
+    k8, v8 = (torch.randint(-127, 128, (B, 860, D), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    stream_ms = time_cuda(lambda: K.xattn_stream(k8, v8), iters)
+    log(f"kernel attn_step: timer floor (one 1-element zero_) "
+        f"{time_cuda(z.zero_, iters):.4f} ms; xattn_stream over "
+        f"{2 * k8.numel() / 1e6:.1f} MB {stream_ms:.4f} ms")
+    del k8, v8
+    seed_sweep("attn_step", attn_step_draw, SWEEP_SEEDS)
 
     # attn_step_split: 2 streams x 5 beams, prompt Pp=256, generated G=256
     # at its last slot, random ancestry (each beam owns its newest slot)
@@ -458,11 +670,14 @@ def check_kernels(iters: int):
     seen = torch.zeros(Bs, Kb, n_gen, device="cuda").scatter_(
         1, anc[:, :, :n_gen].long(), 1.0)
     n_rows = n_prompt + int(seen.sum())
-    # tolerance: the same error model as attn_step. At these inputs no
-    # weight changed its bf16 rounding (measured 1.2e-7, f32 order only);
-    # one that did, at a typical weight p ~ 1.3e-3, would move the output
-    # by ~5e-6, so the tolerance admits about two such weights. A wrong
-    # ancestry entry on one slot moves it by ~1e-2.
+    # tolerance: the weight-flip model of these inputs (flip_tolerance,
+    # as attn_step_split_bias, the same function with a general bias): a
+    # weight p sent to its other bf16 neighbour moves the output by up to
+    # 2**-7 p |v|. Measured on an H100 80GB HBM3 (700 W power limit):
+    # 1.2e-7 at these inputs (f32 order only, no flip), 4.3e-5 on other
+    # seeded inputs (one flip); the seed sweep below holds the kernel and
+    # the plain version to a float64 witness. A wrong ancestry entry on one
+    # slot moves the output by ~1e-2.
     # library: one SDPA call over the keys pre-concatenated as
     # [prompt | K generated segments] per stream, the K beams as query
     # rows, with the boolean visibility mask of split_visibility_bias
@@ -477,7 +692,9 @@ def check_kernels(iters: int):
            K.attn_step_split(qe2, kp, vp, kg, vg, gslot, pads2, dk, Kb,
                              anc=anc),
            K.attn_step_split_plain(qe2, kp, vp, kg, vg, gslot, pads2, dk,
-                                   Kb, anc=anc), 1e-5,
+                                   Kb, anc=anc),
+           split_flip_tolerance(qe2, kp, vp, kg, vg, gslot, pads2, dk, Kb,
+                                anc),
            K.attn_step_split_plain(qe2, kp, vp, kg, vg, gslot, pads2, dk,
                                    Kb, anc=anc_mut),
            lambda: K.attn_step_split(qe2, kp, vp, kg, vg, gslot, pads2, dk,
@@ -510,6 +727,7 @@ def check_kernels(iters: int):
                      iters)
     log(f"kernel attn_step_split gslot as a device tensor: equal to the int "
         f"path, kernel {ms_t:.4f} ms")
+    seed_sweep("attn_step_split", attn_step_split_draw, SWEEP_SEEDS)
 
     # attn_step_split past the 8 beams of its first design (9 and 16) at
     # Whisper's 448-token context (Pp 224, G 224, the current token at the
@@ -534,7 +752,9 @@ def check_kernels(iters: int):
                K.attn_step_split(qx, kpx, vpx, kgx, vgx, gx, padx, dk, Kx,
                                  anc=ancx),
                K.attn_step_split_plain(qx, kpx, vpx, kgx, vgx, gx, padx, dk,
-                                       Kx, anc=ancx), 1e-5,
+                                       Kx, anc=ancx),
+               split_flip_tolerance(qx, kpx, vpx, kgx, vgx, gx, padx, dk,
+                                    Kx, ancx),
                K.attn_step_split_plain(qx, kpx, vpx, kgx, vgx, gx, padx, dk,
                                        Kx, anc=ancx_mut),
                lambda: K.attn_step_split(qx, kpx, vpx, kgx, vgx, gx, padx,
@@ -830,7 +1050,7 @@ def check_tool_kernels(iters: int, record, randn) -> None:
         ncol = Pp + Kb * G
         label = "attn_step_split_bias" + ("" if row else f" K={Kb}")
         vals = torch.cat([vp, vg], 1)
-        tol = split_bias_tolerance(qs, torch.cat([kp, kg], 1), vals, bias, dk)
+        tol = flip_tolerance(qs, torch.cat([kp, kg], 1), vals, bias, dk)
         out = K.attn_step_split_bias(qs, kp, vp, kg, vg, bias, dk)
         uniform = (torch.tensor(1.0 / ncol).to(bf).float()
                    * vals[1].float().sum(0))
@@ -972,6 +1192,262 @@ def check_reference():
                                  f"launches for {calls} decoder calls")
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+def check_graph_decode(max_new: int = 32) -> None:
+    """Phase 3b: the decode loops as CUDA graphs against the same loops run
+    eagerly (their internal graph=False), at full width: Whisper large-v3
+    with seeded random weights, bf16 and then the int8 decoder with int8
+    cross-attention K/V, one batch of 3 seeded mel windows through the
+    encoder, beam 5 and greedy, max_new_tokens steps. Tokens must be equal,
+    the scores within 1e-4 absolute, the kernel launches and int8 decoder
+    calls equal; eager and graphed ms per step are logged side by side."""
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.asr.beam import BeamDecoder
+    from notsofar_tpu_torch.asr.inference import load_whisper_model
+    from notsofar_tpu_torch.ops import kernels
+
+    mel = torch.from_numpy(np.random.RandomState(8).randn(3, 128, 3000)
+                           .astype(np.float32)).cuda()
+    for dtype in ("bfloat16", "int8"):
+        model, tok, _ = load_whisper_model("large-v3", None,
+                                           compute_dtype=dtype,
+                                           device="cuda")
+        with torch.no_grad():
+            xa = model.encode(mel)
+        opts = dec.DecodeOptions(max_new_tokens=max_new,
+                                 cross_kv_quant=model.quant_decoder)
+        for kind in ("beam5", "greedy"):
+            if kind == "beam5":
+                d = BeamDecoder(model, tok, opts, beam_size=5)
+                loop, K = d._beam_loop, 5
+            else:
+                d = dec.GreedyDecoder(model, tok, opts)
+                loop, K = d._decode_loop, 1
+            initial = d._initial_tokens(None)
+            prompt = torch.tensor(initial, device="cuda").repeat(3, 1)
+            runs = {}
+            for mode, graph in (("eager", False), ("graphed", None)):
+                kernels.reset_launches()
+                dec.reset_decoder_calls()
+                dec.reset_decode_steps()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tokens, stats = loop(xa, len(initial), prompt, graph=graph)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                steps = dict(dec.DECODE_STEPS)
+                n = steps["eager"] + steps["replayed"]
+                runs[mode] = dict(tokens=tokens, lp=stats[:, :K],
+                                  launches=dict(kernels.LAUNCHES),
+                                  calls=dict(dec.DECODER_CALLS),
+                                  steps=steps, wall=wall, n=n)
+            e, gr = runs["eager"], runs["graphed"]
+            diff = (e["lp"] - gr["lp"]).abs().max().item()
+            replay_ms = (gr["wall"] - gr["steps"]["capture_s"]) / gr["n"] \
+                * 1e3
+            log(f"graph {dtype} {kind}: {gr['n']} steps ({gr['steps']}), "
+                f"tokens equal {torch.equal(e['tokens'], gr['tokens'])}, "
+                f"sum_logprob max abs diff {diff:.3e} (tolerance 1e-4); "
+                f"ms per step eager {e['wall'] / e['n'] * 1e3:.2f}, graphed "
+                f"{gr['wall'] / gr['n'] * 1e3:.2f} with its capture "
+                f"({gr['steps']['capture_s']:.3f} s), {replay_ms:.2f} "
+                "without; launches equal "
+                f"{e['launches'] == gr['launches']}, int8 decoder calls "
+                f"{gr['calls']['xattn_int8']}")
+            if not torch.equal(e["tokens"], gr["tokens"]) or not diff <= 1e-4:
+                raise AssertionError(f"graph {dtype} {kind}: the graphed "
+                                     "decode differs from the eager loop")
+            if e["launches"] != gr["launches"] or e["calls"] != gr["calls"]:
+                raise AssertionError(f"graph {dtype} {kind}: launches "
+                                     f"{gr['launches']} / {gr['calls']}, "
+                                     f"eager {e['launches']} / {e['calls']}")
+            if not (gr["steps"]["captures"] == 1 and gr["steps"]["eager"]
+                    == 1 and gr["n"] == e["n"] > 1):
+                raise AssertionError(f"graph {dtype} {kind}: steps "
+                                     f"{gr['steps']}, eager {e['steps']}")
+        log(f"graph {dtype}: " + step_kernels(model, tok, xa))
+        if dtype == "bfloat16":
+            time_finished_interval(model, tok, xa)
+        del model, xa
+    # the int8 model is not the one phase 8 loads (that one comes from a
+    # saved checkpoint): free its device memory
+    import notsofar_tpu_torch.asr.inference as inf
+    inf._MODEL_CACHE.pop("None/large-v3/int8/cuda", None)
+    torch.cuda.empty_cache()
+
+
+FINISHED_EOT_SCALE = 4.0   # random weights alone rarely end a decode
+
+
+def time_finished_interval(model, tok, xa, max_new: int = 224) -> None:
+    """What the loops' finished.all() interval (asr.decoding.
+    FINISHED_CHECK_EVERY, a host sync each) costs and saves on the card:
+    with the model's EOT embedding row scaled by FINISHED_EOT_SCALE, so
+    that rows latch EOT at different steps, 3 windows decode greedy and at
+    beam 5 (max_new tokens, graphed) with the interval at 1, 2, 4, 8 and
+    back (8, 4, 2, 1). Tokens and stats must be equal at every interval;
+    the steps run and ms per decode call are logged. The row and the
+    interval are restored afterwards."""
+    from collections import defaultdict
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.asr.beam import BeamDecoder
+    emb = model.decoder.token_embedding.weight
+    row, default = emb[tok.eot].clone(), dec.FINISHED_CHECK_EVERY
+    opts = dec.DecodeOptions(max_new_tokens=max_new)
+    with torch.no_grad():
+        emb[tok.eot] *= FINISHED_EOT_SCALE
+    try:
+        for kind in ("greedy", "beam5"):
+            if kind == "beam5":
+                d = BeamDecoder(model, tok, opts, beam_size=5)
+                loop = d._beam_loop
+            else:
+                d = dec.GreedyDecoder(model, tok, opts)
+                loop = d._decode_loop
+            initial = d._initial_tokens(None)
+            prompt = torch.tensor(initial, device="cuda").repeat(3, 1)
+            ms, steps, first = defaultdict(list), {}, None
+            for n in (1, 2, 4, 8, 8, 4, 2, 1):
+                dec.FINISHED_CHECK_EVERY = n
+                dec.reset_decode_steps()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = loop(xa, len(initial), prompt)
+                torch.cuda.synchronize()
+                ms[n].append(round((time.perf_counter() - t0) * 1e3, 2))
+                steps[n] = dec.DECODE_STEPS["eager"] + \
+                    dec.DECODE_STEPS["replayed"]
+                first = first or out
+                if not all(torch.equal(a, b) for a, b in zip(out, first)):
+                    raise AssertionError(f"finished interval {kind}: the "
+                                         f"decode at interval {n} differs")
+            lengths = first[1][:, 1].tolist() if kind == "greedy" else None
+            log(f"finished interval {kind} (EOT row x {FINISHED_EOT_SCALE}, "
+                f"max_new {max_new}): tokens and stats equal at every "
+                f"interval; rows' lengths {lengths}; interval: steps, ms per "
+                "decode call (two runs) "
+                + "; ".join(f"{n}: {steps[n]}, {ms[n]}" for n in sorted(ms)))
+    finally:
+        with torch.no_grad():
+            emb[tok.eot].copy_(row)
+        dec.FINISHED_CHECK_EVERY = default
+
+
+def step_kernels(model, tok, xa) -> str:
+    """Where a graphed step's time goes: the kernels of one single-token
+    decoder call at the greedy shape (3 rows, the cache after a 4-token
+    prompt), run eagerly under torch.profiler: their count, the sum of
+    their device times, and the names that take the most."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B = xa.shape[0]
+    cross = model.precompute_cross_kv(xa)
+    if model.quant_decoder:
+        cross = model.quantize_cross_kv(cross)
+    caches = model.empty_kv_caches(B, cache_len=256)
+    toks = torch.full((B, 4), tok.sot, dtype=torch.long, device=xa.device)
+    pos = torch.tensor(4, device=xa.device)
+    with torch.no_grad():
+        model.decoder(toks, xa, 0, caches, cross_kvs=cross)
+        model.decoder(toks[:, :1], xa, pos, caches, cross_kvs=cross)
+        if xa.is_cuda:
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decoder(toks[:, :1], xa, pos, caches, cross_kvs=cross)
+            if xa.is_cuda:
+                torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            n += 1
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"one decoder step (3 rows, eager, torch.profiler): {n} device "
+            f"activities, {total / 1e3:.3f} ms of device time; the most: "
+            + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+
+# each phase's attn_step launches, [rows, cache length, pos, launches]
+# (chiprun_out/attn_step_traffic.json, the input of
+# notsofar_tpu_torch/tools/time_attn_step.py)
+ATTN_STEP_TRAFFIC: dict = {}
+
+
+@contextlib.contextmanager
+def attn_step_traffic(label: str):
+    """Record the attn_step launches of the decode loops run inside: a
+    GreedyDecoder._decode_loop call over B rows with a cache of ctx slots
+    and a P-token prompt runs n single-token steps at pos P .. P + n - 1,
+    each one launch per decoder layer (the loops count their steps in
+    DECODE_STEPS, replayed or eager). Yields the histogram {(B, ctx, pos):
+    launches}; afterwards logs it and writes every phase's to
+    chiprun_out/attn_step_traffic.json."""
+    from collections import Counter
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.models.whisper import WhisperModel
+    hist, last = Counter(), {}
+    loop, empty = dec.GreedyDecoder._decode_loop, WhisperModel.empty_kv_caches
+
+    def empty_kv_caches(self, *args, **kwargs):
+        caches = empty(self, *args, **kwargs)
+        last["ctx"] = caches[0][0].shape[1]
+        return caches
+
+    def decode_loop(self, xa, prompt_len, *args, **kwargs):
+        st = dec.DECODE_STEPS
+        n0 = st["eager"] + st["replayed"]
+        out = loop(self, xa, prompt_len, *args, **kwargs)
+        for pos in range(prompt_len, prompt_len + st["eager"]
+                         + st["replayed"] - n0):
+            hist[(xa.shape[0], last["ctx"], pos)] += \
+                self.model.dims.n_text_layer
+        return out
+
+    dec.GreedyDecoder._decode_loop = decode_loop
+    WhisperModel.empty_kv_caches = empty_kv_caches
+    try:
+        yield hist
+    finally:
+        dec.GreedyDecoder._decode_loop = loop
+        WhisperModel.empty_kv_caches = empty
+    ATTN_STEP_TRAFFIC[label] = [[*k, n] for k, n in sorted(hist.items())]
+    (OUT / "attn_step_traffic.json").write_text(json.dumps(ATTN_STEP_TRAFFIC))
+    by = {}
+    for i, name in ((0, "rows"), (1, "cache length")):
+        c = Counter()
+        for k, n in hist.items():
+            c[k[i]] += n
+        by[name] = dict(sorted(c.items()))
+    pos = np.repeat([k[2] for k in hist], [n for n in hist.values()])
+    quart = np.percentile(pos, [0, 25, 50, 75, 100]).tolist() if len(pos) \
+        else []
+    log(f"{label}: attn_step traffic {sum(hist.values())} launches; by "
+        f"{by}; pos quartiles (0, 25, 50, 75, 100%) {quart}")
+
+
+def check_traffic(label: str, traffic, counts: dict) -> None:
+    """The recorded attn_step traffic accounts for every counted launch."""
+    if sum(traffic.values()) != counts["attn_step"]:
+        raise AssertionError(f"{label}: attn_step traffic "
+                             f"{sum(traffic.values())} launches, counted "
+                             f"{counts['attn_step']}")
+
+
+def decode_steps_line(label: str, decode_s: float) -> str:
+    """The decode loops' step counts since the last reset (graph captures,
+    their seconds, replayed against eager steps) and decode ms per step."""
+    from notsofar_tpu_torch.asr import decoding as dec
+    st = dec.DECODE_STEPS
+    n = st["eager"] + st["replayed"]
+    return (f"{label}: decode steps {n} ({st['replayed']} replayed from "
+            f"CUDA graphs, {st['eager']} eager), {st['captures']} graph "
+            f"captures in {st['capture_s']:.3f} s, "
+            f"{decode_s / max(n, 1) * 1e3:.2f} ms per step")
 
 
 def same_partition(a, b) -> bool:
@@ -1169,6 +1645,7 @@ def run_asr(session, work: Path, beam_size, label, needs):
     after; every kernel in `needs` must have launched. Returns the
     counts and the segments dataframe."""
     import pandas as pd
+    from notsofar_tpu_torch.asr import decoding as dec
     from notsofar_tpu_torch.asr.inference import WhisperAsrCfg, asr_inference
     from notsofar_tpu_torch.ops import kernels
     from notsofar_tpu_torch.utils.profiling import StageTimer
@@ -1176,13 +1653,16 @@ def run_asr(session, work: Path, beam_size, label, needs):
     timer = StageTimer()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    dec.reset_decode_steps()
     t0 = time.perf_counter()
-    df = asr_inference(str(work / label), session, cfg,
-                       fetch_from_cache=False, timer=timer)
-    torch.cuda.synchronize()
+    with attn_step_traffic(f"asr {label}") as traffic:
+        df = asr_inference(str(work / label), session, cfg,
+                           fetch_from_cache=False, timer=timer)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     log(f"asr {label}: kernel launches {counts}")
+    check_traffic(f"asr {label}", traffic, counts)
     missing = [n for n in needs if counts[n] <= 0]
     if missing:
         raise AssertionError(f"asr {label}: never launched {missing}")
@@ -1190,6 +1670,7 @@ def run_asr(session, work: Path, beam_size, label, needs):
     log(f"asr {label}: {len(df)} segments, wall {wall:.2f} s, stages {stages}"
         f", max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(decode_steps_line(f"asr {label}", timer.stage_seconds["decode"]))
     cols = ["start_time", "end_time", "text", "word_timing", "meeting_id",
             "session_id", "wav_file_name"]
     if list(df.columns) != cols:
@@ -1746,18 +2227,22 @@ def run_pipeline(work: Path, seconds: float = PIPELINE_SECONDS):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     dec.reset_decoder_calls()
+    dec.reset_decode_steps()
     for k, f in patches.items():
         setattr(pipe, k, f)
     try:
         t0 = time.perf_counter()
-        wer = pipe.inference_pipeline(str(meetings), str(models), str(out),
-                                      cfg, pipe.FetchFromCacheCfg())
-        torch.cuda.synchronize()
+        with attn_step_traffic("pipeline") as traffic:
+            wer = pipe.inference_pipeline(str(meetings), str(models),
+                                          str(out), cfg,
+                                          pipe.FetchFromCacheCfg())
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         for k, f in saved.items():
             setattr(pipe, k, f)
     counts = dict(kernels.LAUNCHES)
+    check_traffic("pipeline", traffic, counts)
     calls = dec.DECODER_CALLS["xattn_int8"]
     plan = planned_chunks(list(tracked.values()), cfg.diarization, seconds)
     log(f"pipeline: kernel launches {counts}; int8 decoder calls reaching "
@@ -1767,6 +2252,7 @@ def run_pipeline(work: Path, seconds: float = PIPELINE_SECONDS):
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; WER "
         + ("none (no words)" if wer is None else
            str(wer[["tcp_wer", "tcorc_wer"]].to_dict("records"))))
+    log(decode_steps_line("pipeline (the ASR prepass's s)", stage_s["asr"]))
 
     sid = "multichannel/MTG_90008_plaza_0"
     files = [f"css_inference/{sid}/sep_stream{k}.wav" for k in range(3)] + [
@@ -1855,7 +2341,7 @@ def run_tool(name: str, iters: int):
     return lines, launched
 
 
-def run_tools() -> dict:
+def run_tools(stream_ms: float) -> dict:
     """Both tools at their default shapes. bench_xattn_variants: its
     numeric line must equal the plain versions' on the same layer (the
     tool's seeded inputs) within 2% (the line prints 3 digits; onedot's
@@ -1863,7 +2349,10 @@ def run_tools() -> dict:
     far apart), every chain's ms finite and positive, and each chain
     variant launched 32 x (iters + 1) times (+1 for the numeric line).
     bisect_attn_split: every row's ms finite and positive, kernel_only and
-    full launched iters + 1 times. Returns the phase's launch counts."""
+    full launched iters + 1 times. The stream chain, a CUDA graph of 32
+    xattn_stream launches and the chain's elementwise steps, is logged
+    against 32 x phase 2's xattn_stream time (`stream_ms`). Returns the
+    phase's launch counts."""
     from notsofar_tpu_torch.ops import kernels as K
     from notsofar_tpu_torch.tools import bench_xattn_variants as bx
     K.reset_launches()
@@ -1881,11 +2370,16 @@ def run_tools() -> dict:
     if not abs(rel - rel_plain) <= 0.02 * rel_plain:
         raise AssertionError(f"bench_xattn_variants: rel maxdiff {rel}, "
                              f"plain {rel_plain}")
+    chain_ms = {}
     for line, name in zip(lines[2:5], ("stream", "current", "onedot")):
         m = re.fullmatch(rf"{name}\s*:\s+(\S+) ms .*", line)
         if not (m and math.isfinite(float(m.group(1)))
                 and float(m.group(1)) > 0):
             raise AssertionError(f"bench_xattn_variants: {line!r}")
+        chain_ms[name] = float(m.group(1))
+    log(f"tools bench_xattn_variants: stream chain {chain_ms['stream']} ms "
+        f"= {chain_ms['stream'] / (32 * stream_ms):.3f} x 32 x phase 2's "
+        f"xattn_stream {stream_ms:.4f} ms")
     chain = 32 * (n + 1)
     want = {"xattn_stream": chain, "xattn_int8": chain + 1,
             "xattn_onedot": chain + 1}
@@ -1914,12 +2408,13 @@ def main() -> int:
     from notsofar_tpu_torch.ops import build
 
     t_start = time.perf_counter()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.log").write_text("")
     log("phase 1 card")
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    OUT.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     logs = build.build_all()
     (OUT / "kernel_build.log").write_text(
@@ -1935,6 +2430,8 @@ def main() -> int:
 
     log("phase 3 reference")
     check_reference()
+    log("phase 3b graph, the decode loops graphed against eager")
+    check_graph_decode()
     check_diarization_reference()
     check_css_reference()
 
@@ -1955,7 +2452,8 @@ def main() -> int:
         log("phase 8 pipeline, inference_v1.yaml with int8 ASR")
         by_path["pipeline"] = run_pipeline(work)
     log("phase 9 tools, bench_xattn_variants and bisect_attn_split")
-    by_path["tools"] = run_tools()
+    by_path["tools"] = run_tools(
+        next(r["ms"] for r in rows if r["name"] == "xattn_stream"))
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

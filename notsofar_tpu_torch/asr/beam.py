@@ -1,10 +1,12 @@
 """Batched beam-search decoding for Whisper (beam_size=5 in the shipped
 config).
 
-Port of notsofar_tpu/asr/beam.py. One Python loop over decode steps;
-state is kept per (batch, beam): cumulative logprobs, finished latches,
-per-beam timestamp-rule state, and the token buffer, which is reordered
-with the same gather as the state (no host-side genealogy backtracking).
+Port of notsofar_tpu/asr/beam.py. A prefill, then one step function
+(GreedyDecoder._run_steps: step 0 eagerly, the later steps one CUDA graph
+replayed on the card); state is kept per (batch, beam) in tensors updated
+in place: cumulative logprobs, finished latches, per-beam timestamp-rule
+state, and the token buffer, which is reordered with the same gather as
+the state (no host-side genealogy backtracking).
 
 The self-attention cache is split: a prompt segment [B, P, D] written
 once at prefill and shared by each stream's K beams, and a generated
@@ -55,9 +57,11 @@ class BeamDecoder(GreedyDecoder):
     @torch.no_grad()
     def _beam_loop(self, xa: torch.Tensor, prompt_len: int,
                    prompt_tokens: torch.Tensor,
-                   pad_lens: Optional[torch.Tensor] = None):
+                   pad_lens: Optional[torch.Tensor] = None,
+                   graph: Optional[bool] = None):
         """xa: [B, 1500, D]; prompt_tokens: [B, P]. pad_lens: optional [B]
-        left-pad widths for per-row prompts (see GreedyDecoder). Returns
+        left-pad widths for per-row prompts (see GreedyDecoder). graph: see
+        GreedyDecoder._run_steps (None: a CUDA graph on the card). Returns
         (tokens [B, K, max_new], stats [B, 2K+1] = sum_lp || length ||
         no_speech_prob)."""
         model, tok = self.model, self.tok
@@ -75,7 +79,6 @@ class BeamDecoder(GreedyDecoder):
         sot_pos = self._sot_pos(prompt_len)
         pad_k = pad_lens.repeat_interleave(K) if pad_lens is not None \
             else None
-        anc = None
         if use_split:
             # the prompt is identical across a stream's K beams: prefill at
             # batch B into the shared prompt segment
@@ -85,8 +88,10 @@ class BeamDecoder(GreedyDecoder):
                 prompt_tokens, xa, 0, prompt_caches, cross_kvs, pad_lens)
             nsp = torch.softmax(logits[:, sot_pos], dim=-1)[:, tok.no_speech]
             cur_logits = logits[:, -1].repeat_interleave(K, dim=0)
-            caches = self._zeros_caches(BK, G)
             anc = torch.zeros((B, K, G), dtype=torch.int32, device=dev)
+            caches = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
+                      in zip(prompt_caches, self._zeros_caches(BK, G))]
+            pos0 = P
         else:
             prompt_k = prompt_tokens.repeat_interleave(K, dim=0)
             caches = self._zeros_caches(
@@ -95,21 +100,25 @@ class BeamDecoder(GreedyDecoder):
                                               cross_kvs, pad_k)
             nsp = torch.softmax(logits[::K, sot_pos],
                                 dim=-1)[:, tok.no_speech]
-            cur_logits = logits[:, -1]
-            prompt_caches = None
+            cur_logits = logits[:, -1].contiguous()
+            pos0 = prompt_len
 
+        # the loop's state: every tensor the steps update in place
         st = self._init_state(BK)
         tokens = torch.full((BK, max_new), self._eot, dtype=torch.long,
                             device=dev)
         sum_lp = torch.where(torch.arange(K, device=dev) == 0, 0.0,
                              NEG_INF).repeat(B)
+        step_t = torch.zeros((), dtype=torch.long, device=dev)
         eot_only = torch.full((V,), NEG_INF, device=dev)
         eot_only[self._eot] = 0.0
-        beam_ids = torch.arange(K, dtype=torch.int32, device=dev)
+        # anc[:, :, step] = j: each beam owns the slot it writes
+        own_slot = torch.arange(K, dtype=torch.int32, device=dev)[
+            None, :, None].expand(B, K, 1).contiguous()
         row0 = torch.arange(B, device=dev)[:, None] * K
-        step = 0
-        while step < max_new and not bool(st["finished"].all()):
-            lg = self._filter(cur_logits, st, step)
+
+        def step(first: bool) -> None:
+            lg = self._filter(cur_logits, st, 0 if first else 1)
             lp = torch.log_softmax(lg, dim=-1)                  # [BK, V]
             # finished beams: only eot, contributing zero logprob
             lp = torch.where(st["finished"][:, None], eot_only[None, :], lp)
@@ -121,36 +130,36 @@ class BeamDecoder(GreedyDecoder):
             if use_split:
                 # no cache gather: reordering is an ancestry update, and
                 # the new token's K/V is written at the logical row itself
-                anc = torch.gather(anc, 1, src_beam[..., None].expand(
-                    B, K, anc.shape[2])).contiguous()
-                anc[:, :, step] = beam_ids
+                anc.copy_(torch.gather(anc, 1, src_beam[..., None].expand(
+                    B, K, anc.shape[2])))
+                anc.index_copy_(2, step_t.reshape(1), own_slot)
             else:
-                caches = [(ck[gather], cv[gather]) for ck, cv in caches]
-            tokens = tokens[gather]
-            tokens[:, step] = next_tok
+                for ck, cv in caches:
+                    ck.copy_(ck[gather])
+                    cv.copy_(cv[gather])
+            tokens.copy_(tokens[gather])
+            tokens.index_copy_(1, step_t.reshape(1), next_tok[:, None])
             finished = st["finished"][gather]
             is_eot = (next_tok == self._eot) | finished
             new_finished = finished | (next_tok == self._eot)
             is_ts = (next_tok >= self._ts_begin) & ~new_finished
-            st = dict(
+            new = dict(
                 length=st["length"][gather] + (~is_eot).long(),
                 finished=new_finished,
                 prev_was_ts=is_ts,
                 prev_prev_was_ts=st["prev_was_ts"][gather],
                 last_ts=torch.where(is_ts, next_tok, st["last_ts"][gather]),
                 any_ts=st["any_ts"][gather] | is_ts)
-            sum_lp = top_lp.reshape(BK)
-            if use_split:
-                split = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
-                         in zip(prompt_caches, caches)]
-                new_logits, _, _ = self._decoder(
-                    next_tok[:, None], xa, P + step, split, cross_kvs, pad_k)
-            else:
-                new_logits, caches, _ = self._decoder(
-                    next_tok[:, None], xa, prompt_len + step, caches,
-                    cross_kvs, pad_k)
-            cur_logits = new_logits[:, 0]
-            step += 1
+            for k, v in new.items():
+                st[k].copy_(v)
+            sum_lp.copy_(top_lp.reshape(BK))
+            new_logits, _, _ = self._decoder(
+                next_tok[:, None], xa, pos0 + step_t, caches, cross_kvs,
+                pad_k)
+            cur_logits.copy_(new_logits[:, 0])
+            step_t.add_(1)
+
+        self._run_steps(step, max_new, st["finished"], graph)
         stats = torch.cat([sum_lp.reshape(B, K),
                            st["length"].reshape(B, K).float(),
                            nsp[:, None]], dim=1)

@@ -2,11 +2,16 @@
 filters, and word timestamps from a teacher-forced alignment pass.
 
 Port of notsofar_tpu/asr/decoding.py. The JAX package runs each decode as
-one jitted ``lax.while_loop``; here it is a Python loop over steps on
-device tensors, with the KV caches updated in place. The loop checks
-``finished.all()`` before every step (one host sync per step); rows that
-finished emit EOT and add 0 log-probability, so the step count is the
-only thing the check saves.
+one jitted ``lax.while_loop``; here a decode is a prefill, then one step
+function whose state (caches, token buffer, filter state, scores, the
+step counter and cache position) lives in tensors it updates in place.
+Step 0 runs eagerly (its logit filters differ); on the card the later
+steps are one CUDA graph, captured once per decode call and replayed step
+after step (utils/cuda_graph.py); on the CPU the same function runs
+eagerly. The loop checks ``finished.all()`` every FINISHED_CHECK_EVERY
+steps (a host sync), never past max_new_tokens; rows that finished emit
+EOT and add 0 log-probability, so extra steps change nothing and the
+check only saves steps.
 
 Logit filters (pure functions of a small per-row state):
 
@@ -38,8 +43,16 @@ import torch
 
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import WhisperModel, uses_xattn_int8
+from notsofar_tpu_torch.ops import kernels
+from notsofar_tpu_torch.utils.cuda_graph import StepGraph, capture_stream
 
 NEG_INF = -1e30
+
+# decode steps between two checks of finished.all() (each a host sync): of
+# 1, 2, 4 and 8, 1 was the fastest on an H100 (chip_smoke.py phase 3b, rows
+# ending at different steps): the sync between two replays is lost in a
+# step's noise, and each step run past the last EOT costs a whole step
+FINISHED_CHECK_EVERY = 1
 
 
 @torch.no_grad()
@@ -101,6 +114,17 @@ DECODER_CALLS: Dict[str, int] = {"xattn_int8": 0}
 
 def reset_decoder_calls() -> None:
     DECODER_CALLS["xattn_int8"] = 0
+
+
+# decode steps run eagerly and replayed from CUDA graphs, graph captures
+# and the seconds they took, in this process
+DECODE_STEPS: Dict[str, float] = {"eager": 0, "replayed": 0, "captures": 0,
+                                  "capture_s": 0.0}
+
+
+def reset_decode_steps() -> None:
+    for k in DECODE_STEPS:
+        DECODE_STEPS[k] = 0
 
 
 def gumbel_noise(shape, generator: torch.Generator,
@@ -222,6 +246,49 @@ class GreedyDecoder:
         return self.model.decoder(tokens, xa, pos_offset, caches,
                                   cross_kvs=cross_kvs, pad_lens=pad_lens)
 
+    def _run_steps(self, step, max_new: int, finished: torch.Tensor,
+                   graph: Optional[bool],
+                   generators: Sequence[torch.Generator] = ()) -> None:
+        """Decode steps 0 .. max_new - 1 through ``step(first)``, which
+        updates the loop's state in place and advances its step counter;
+        stop early once ``finished`` is all true, checked before every
+        FINISHED_CHECK_EVERY-th step. Step 0 runs eagerly. With ``graph``
+        (default: on a card) the later steps are one CUDA graph of
+        ``step(False)``, captured at the first of them and replayed;
+        without, they run eagerly (the CPU path, and the card's comparison
+        of the two)."""
+        if max_new <= 0:
+            return
+        if graph is None:
+            graph = finished.is_cuda
+        if graph:
+            # the warm-up on the capture stream: every kernel library is
+            # loaded and its attributes set before the capture
+            cur, side = torch.cuda.current_stream(), capture_stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                step(True)
+            cur.wait_stream(side)
+        else:
+            step(True)
+        DECODE_STEPS["eager"] += 1
+        captured = None
+        for i in range(1, max_new):
+            if i % FINISHED_CHECK_EVERY == 0 and bool(finished.all()):
+                break
+            if not graph:
+                step(False)
+                DECODE_STEPS["eager"] += 1
+                continue
+            if captured is None:
+                captured = StepGraph(lambda: step(False),
+                                     (kernels.LAUNCHES, DECODER_CALLS),
+                                     generators)
+                DECODE_STEPS["captures"] += 1
+                DECODE_STEPS["capture_s"] += captured.capture_s
+            captured.replay()
+            DECODE_STEPS["replayed"] += 1
+
     def _sot_pos(self, prompt_len: int) -> int:
         """Index of <|startoftranscript|> in a prompt that ends with the
         sot sequence (where whisper reads the no-speech probability)."""
@@ -235,7 +302,8 @@ class GreedyDecoder:
                      temperature: float = 0.0,
                      pad_lens: Optional[torch.Tensor] = None,
                      row_generators: Optional[Sequence[torch.Generator]]
-                     = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     = None, graph: Optional[bool] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xa: [B, 1500, D]; prompt_tokens: [B, prompt_len].
 
         temperature > 0 samples with the gumbel trick (whisper's fallback
@@ -244,7 +312,8 @@ class GreedyDecoder:
         draws as a B=1 decode with that generator would); temperature 0 is
         greedy argmax. pad_lens: optional [B] int32 — per-row prompts
         RIGHT-ALIGNED in the prompt_len bucket with pad_lens[b] masked
-        left-pad slots. Returns (tokens [B, max_new] int64, stats [B, 3] =
+        left-pad slots. graph: see _run_steps (None: a CUDA graph on the
+        card). Returns (tokens [B, max_new] int64, stats [B, 3] =
         sum_logprob || length || no_speech_prob)."""
         model, tok = self.model, self.tok
         dev = xa.device
@@ -260,21 +329,24 @@ class GreedyDecoder:
                                           cross_kvs, pad_lens)
         no_speech_prob = torch.softmax(
             logits[:, self._sot_pos(prompt_len)], dim=-1)[:, tok.no_speech]
-        cur_logits = logits[:, -1]
 
         # never run the cache past n_text_ctx
         max_new = min(self.opt.max_new_tokens,
                       model.dims.n_text_ctx - prompt_len)
+        # the loop's state: every tensor the steps update in place
+        cur_logits = logits[:, -1].contiguous()
         tokens_buf = torch.full((B, max_new), self._eot, dtype=torch.long,
                                 device=dev)
         st = self._init_state(B)
         sum_lp = torch.zeros(B, dtype=torch.float32, device=dev)
+        step_t = torch.zeros((), dtype=torch.long, device=dev)
         sample = temperature > 0 and (generator is not None
                                       or row_generators is not None)
-        step = 0
-        # early exit once every row latched EOT (one host sync per step)
-        while step < max_new and not bool(st["finished"].all()):
-            lg = self._filter(cur_logits, st, step)
+        gens = (list(row_generators) if row_generators is not None
+                else [generator]) if sample else []
+
+        def step(first: bool) -> None:
+            lg = self._filter(cur_logits, st, 0 if first else 1)
             if sample:
                 if row_generators is not None:
                     g = torch.stack([gumbel_noise(lg.shape[-1], gen, dev)
@@ -291,21 +363,23 @@ class GreedyDecoder:
             finished = st["finished"]
             next_tok = next_tok.masked_fill(finished, self._eot)
             is_eot = next_tok == self._eot
-            sum_lp = sum_lp + tok_lp.masked_fill(finished, 0.0)
-            st["length"] = st["length"] + (~(finished | is_eot)).long()
+            sum_lp.add_(tok_lp.masked_fill(finished, 0.0))
+            st["length"].add_((~(finished | is_eot)).long())
             new_finished = finished | is_eot
             is_ts = (next_tok >= self._ts_begin) & ~new_finished
-            st["last_ts"] = torch.where(is_ts, next_tok, st["last_ts"])
-            st["any_ts"] = st["any_ts"] | is_ts
-            st["prev_prev_was_ts"] = st["prev_was_ts"]
-            st["prev_was_ts"] = is_ts
-            st["finished"] = new_finished
-            tokens_buf[:, step] = next_tok
-            new_logits, caches, _ = self._decoder(
-                next_tok[:, None], xa, prompt_len + step, caches, cross_kvs,
-                pad_lens)
-            cur_logits = new_logits[:, 0]
-            step += 1
+            st["last_ts"].copy_(torch.where(is_ts, next_tok, st["last_ts"]))
+            st["any_ts"].logical_or_(is_ts)
+            st["prev_prev_was_ts"].copy_(st["prev_was_ts"])
+            st["prev_was_ts"].copy_(is_ts)
+            st["finished"].copy_(new_finished)
+            tokens_buf.index_copy_(1, step_t.reshape(1), next_tok[:, None])
+            new_logits, _, _ = self._decoder(
+                next_tok[:, None], xa, prompt_len + step_t, caches,
+                cross_kvs, pad_lens)
+            cur_logits.copy_(new_logits[:, 0])
+            step_t.add_(1)
+
+        self._run_steps(step, max_new, st["finished"], graph, gens)
         stats = torch.stack([sum_lp, st["length"].float(), no_speech_prob],
                             dim=1)
         return tokens_buf, stats

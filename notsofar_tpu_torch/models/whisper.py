@@ -24,7 +24,7 @@ xattn_int8 kernel reads.
 import math
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +161,16 @@ def _lin(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return layer(x.to(_dtype(layer)))
 
 
+class CacheSlot(NamedTuple):
+    """A decode step's self-attention cache slot held on the device, so
+    that a CUDA graph of the step serves every step as the slot advances:
+    ``index`` [1] int64 for the cache write, ``slot`` 0-d int32 for the
+    kernels. TextDecoder makes it once per step from a tensor pos_offset;
+    in a split beam cache it counts from the generated segment's start."""
+    index: torch.Tensor
+    slot: torch.Tensor
+
+
 def _kernel_geometry(n_state: int, d_k: int) -> bool:
     """The head geometry the decode-step kernels cover (every Whisper
     checkpoint has dk=64)."""
@@ -184,8 +194,9 @@ class MHA(nn.Module):
                 precomputed_kv=None, pad_lens=None):
         """x: [B, T, D] queries. xa: cross-attention memory [B, S, D] or
         None for self-attention. kv_cache: optional (k, v) [B, ctx, D]
-        caches written at cache_index, or the split beam cache
-        (kp, vp, kg, vg[, anc]). Caches are updated IN PLACE (the JAX
+        caches written at cache_index (an int, or a CacheSlot for a
+        single-token step), or the split beam cache (kp, vp, kg, vg[,
+        anc]). Caches are updated IN PLACE (the JAX
         model's dynamic_update_slice on its loop carry) and returned.
         precomputed_kv: optional (k, v) [Bm, S, D] cross-attention memory
         already projected (see WhisperModel.precompute_cross_kv), or its
@@ -219,9 +230,14 @@ class MHA(nn.Module):
             Bs = kp.shape[0]
             B = q.shape[0]
             beams = B // Bs
-            gslot = cache_index - kp.shape[1]
-            kg[:, gslot] = k[:, 0].to(kg.dtype)
-            vg[:, gslot] = v[:, 0].to(vg.dtype)
+            if isinstance(cache_index, CacheSlot):
+                kg.index_copy_(1, cache_index.index, k.to(kg.dtype))
+                vg.index_copy_(1, cache_index.index, v.to(vg.dtype))
+                gslot = cache_index.slot
+            else:
+                gslot = cache_index - kp.shape[1]
+                kg[:, gslot] = k[:, 0].to(kg.dtype)
+                vg[:, gslot] = v[:, 0].to(vg.dtype)
             pads = (torch.zeros(Bs, dtype=torch.int32, device=q.device)
                     if pad_lens is None
                     else pad_lens.reshape(Bs, beams)[:, 0].contiguous())
@@ -234,8 +250,14 @@ class MHA(nn.Module):
         if kv_cache is not None:
             ck, cv = kv_cache
             T = x.shape[1]
-            ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
-            cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+            if isinstance(cache_index, CacheSlot):
+                ck.index_copy_(1, cache_index.index, k.to(ck.dtype))
+                cv.index_copy_(1, cache_index.index, v.to(cv.dtype))
+                pos = cache_index.slot
+            else:
+                ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
+                cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+                pos = cache_index
             new_cache = (ck, cv)
             if T == 1 and _kernel_geometry(self.n_state, d_k):
                 # incremental decode step: the fused kernel builds the
@@ -245,7 +267,7 @@ class MHA(nn.Module):
                 pads = (torch.zeros(B, dtype=torch.int32, device=q.device)
                         if pad_lens is None else pad_lens)
                 q_eff = (q * (d_k ** -0.5)).to(ck.dtype)
-                out = attn_step(q_eff, ck, cv, cache_index, pads, d_k)
+                out = attn_step(q_eff, ck, cv, pos, pads, d_k)
                 out = _lin(self.out, out.reshape(B, 1, self.n_state))
                 return out, None, new_cache
             k, v = ck.to(k.dtype), cv.to(v.dtype)
@@ -400,11 +422,14 @@ class TextDecoder(nn.Module):
             for _ in range(d.n_text_layer))
         self.ln = LayerNorm(d.n_text_state, eps=LN_EPS)
 
-    def forward(self, tokens, xa, pos_offset: int = 0, kv_caches=None,
+    def forward(self, tokens, xa, pos_offset=0, kv_caches=None,
                 return_cross_attn: bool = False, cross_kvs=None,
                 pad_lens=None):
         """tokens: [B, T] int64; xa: [B, 1500, D] encoder output (only read
-        when cross_kvs is None).
+        when cross_kvs is None). pos_offset: the position of the first
+        token, an int or, for a single-token step (T = 1), a 0-d int64
+        tensor on the model's device (a CUDA graph of the step reads it
+        there; no host sync).
 
         kv_caches: None or per-layer caches — (k, v) [B, ctx, D] unified
         caches (decode mode: T new tokens written at cache slot
@@ -420,6 +445,9 @@ class TextDecoder(nn.Module):
         d = self.dims
         dev = tokens.device
         T = tokens.shape[1]
+        on_device = isinstance(pos_offset, torch.Tensor)
+        if on_device and T != 1:
+            raise ValueError("a pos_offset tensor serves single-token steps")
         if self.quant:
             # int8 rows times their scale, in f32: the int8 decoder's
             # residual stream is f32 (as in flax, f32 + bf16 positions)
@@ -428,7 +456,9 @@ class TextDecoder(nn.Module):
         else:
             emb = self.token_embedding(tokens)
         if pad_lens is None:
-            x = emb + self.positional_embedding[pos_offset:pos_offset + T]
+            x = emb + (self.positional_embedding.index_select(
+                0, pos_offset.reshape(1)) if on_device else
+                self.positional_embedding[pos_offset:pos_offset + T])
         else:
             pos_idx = torch.clamp(pos_offset + torch.arange(T, device=dev)
                                   [None, :] - pad_lens[:, None], 0,
@@ -465,12 +495,20 @@ class TextDecoder(nn.Module):
                 mask = torch.where(keypad & ~self_key, -float("inf"),
                                    mask[None, None])
 
+        cache_index = pos_offset
+        if on_device and kv_caches is not None:
+            # the slot in the cache (a split cache's generated segment
+            # starts after the prompt), made once for every layer
+            rel = pos_offset - kv_caches[0][0].shape[1] \
+                if len(kv_caches[0]) in (4, 5) else pos_offset
+            cache_index = CacheSlot(rel.reshape(1).long(),
+                                    rel.to(torch.int32))
         new_caches: List = []
         cross_ws: List = []
         for i, block in enumerate(self.blocks):
             cache = kv_caches[i] if kv_caches is not None else None
             x, cw, nc = block(
-                x, xa, mask, cache, pos_offset,
+                x, xa, mask, cache, cache_index,
                 cross_kv=cross_kvs[i] if cross_kvs is not None else None,
                 pad_lens=pad_lens)
             new_caches.append(nc)

@@ -31,8 +31,8 @@ _I = ctypes.c_int
 # C signatures (all return the launch's cudaGetLastError())
 _ARGTYPES = {
     "encoder_mha": ("encoder_mha", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "attn_step": ("attn_step", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _P]),
+    "attn_step": ("attn_step", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _P]),
     "attn_step_split": ("attn_step_split", [_P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _I, _I, _I, _I, _I, _I, _I,
                                             _I, _I, _P]),

@@ -122,10 +122,11 @@ def encoder_mha(qh: torch.Tensor, kh: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attn_step_plain(q_eff: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, pos: int,
+                    v_cache: torch.Tensor, pos: Slot,
                     pad_lens: torch.Tensor, dk: int) -> torch.Tensor:
     """q_eff [B, 1, D] (dk**-0.5 folded, cache dtype); caches [B, ctx, D];
-    key s visible iff s <= pos and (s >= pad or s == pos). -> [B, 1, D]
+    key s visible iff s <= pos and (s >= pad or s == pos); pos an int or a
+    0-d integer tensor (compared on the device, no sync). -> [B, 1, D]
     f32."""
     B, _, D = q_eff.shape
     ctx = k_cache.shape[1]
@@ -142,38 +143,94 @@ def attn_step_plain(q_eff: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhs,bshd->bhd", p, vh).reshape(B, 1, D)
 
 
-def attn_step(q_eff: torch.Tensor, k_cache: torch.Tensor,
-              v_cache: torch.Tensor, pos: int, pad_lens: torch.Tensor,
-              dk: int) -> torch.Tensor:
-    """Fused single-token KV-cache self-attention (decode step).
+ATTN_STEP_THREADS = 128      # threads per block of the CUDA kernel
+ATTN_STEP_CLUSTER = 4        # blocks per (head, row) pair (phase 2's sweep)
 
-    q_eff: [B, 1, D] with the full dk**-0.5 folded in, in the cache dtype;
-    k_cache/v_cache: [B, ctx, D] with the current token written at pos;
-    pos: cache slot of this token (uniform across rows); pad_lens: [B]
-    int32 masked left-pad widths. Returns [B, 1, D] f32."""
-    pos = int(pos)
-    if not _on_card("attn_step", q_eff, k_cache, v_cache, pad_lens):
-        return attn_step_plain(q_eff, k_cache, v_cache, pos, pad_lens, dk)
+
+def attn_step_smem(per: int, dk: int, esize: int, R: int) -> int:
+    """Bytes of shared memory of one block (csrc/attn_step.cu layout): the
+    value barrier, the share's value rows, its logits, the 4 warps'
+    partial outputs, the peers' partial outputs of its slice, stats."""
+    return (16 + per * dk * esize + _align(per * 4, 16) + 4 * dk * 4
+            + _align(R * -(-dk // R) * 4, 16) + 8 * R + 8)
+
+
+def attn_step_launch(B: int, ctx: int, D: int, dk: int,
+                     dtype: torch.dtype) -> dict:
+    """Grid, cluster size and shared memory of the CUDA kernel: a cluster
+    of R blocks along x per (head, row) pair, grid (R, H, B), from the
+    shapes alone (never from pos, so that a launch captured in a CUDA graph
+    serves every step). Block r holds up to `per` of the visible keys'
+    value rows; R = ATTN_STEP_CLUSTER (of R = 1-8, the fastest at the
+    greedy shape's last slot, chip_smoke.py phase 2)."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    R = ATTN_STEP_CLUSTER
+    per = _share_rows(ctx, R)
+    return dict(grid=(R, D // dk, B), threads=ATTN_STEP_THREADS, cluster=R,
+                per=per, smem=attn_step_smem(per, dk, esize, R))
+
+
+def _attn_step_plan(q_eff, k_cache, v_cache, pos: Slot, pad_lens,
+                    dk: int) -> dict:
+    """The wrapper's checks of what the CUDA kernel takes (shapes, dtypes,
+    pos, its shared memory), raising ValueError; returns the launch plan."""
+    if q_eff.dim() != 3 or k_cache.dim() != 3:
+        raise ValueError("attn_step: q [B, 1, D], caches [B, ctx, D]")
     B, T, D = q_eff.shape
     ctx = k_cache.shape[1]
     if T != 1 or k_cache.shape != (B, ctx, D) or v_cache.shape != k_cache.shape:
         raise ValueError("attn_step: q [B, 1, D], caches [B, ctx, D]")
-    if not 0 <= pos < ctx:
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int32 or \
+                pos.device != q_eff.device:
+            raise ValueError("attn_step: a pos tensor must be a 0-d int32 "
+                             "tensor on the caches' device")
+    elif not 0 <= pos < ctx:
         raise ValueError(f"attn_step: pos={pos} outside the cache [0, {ctx})")
-    if dk not in (64, 128) or D % dk:
-        raise ValueError(f"attn_step: dk={dk} with D={D}")
+    if dk not in (64, 128) or D % dk or not 0 < B <= 65535:
+        raise ValueError(f"attn_step: dk={dk} with D={D}, B={B}")
     dt = q_eff.dtype
     if dt not in (torch.bfloat16, torch.float32) or \
             k_cache.dtype != dt or v_cache.dtype != dt:
         raise ValueError("attn_step: q and caches share bf16 or f32")
     if pad_lens.dtype != torch.int32 or pad_lens.shape != (B,):
         raise ValueError("attn_step: pad_lens must be int32 [B]")
+    plan = attn_step_launch(B, ctx, D, dk, dt)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"attn_step: ctx={ctx} needs {plan['smem']} bytes "
+                         "of shared memory per block (227 KB)")
+    return plan
+
+
+def attn_step(q_eff: torch.Tensor, k_cache: torch.Tensor,
+              v_cache: torch.Tensor, pos: Slot, pad_lens: torch.Tensor,
+              dk: int) -> torch.Tensor:
+    """Fused single-token KV-cache self-attention (decode step).
+
+    q_eff: [B, 1, D] with the full dk**-0.5 folded in, in the cache dtype;
+    k_cache/v_cache: [B, ctx, D] with the current token written at pos;
+    pos: cache slot of this token (uniform across rows), an int or a 0-d
+    int32 tensor on the caches' device that the kernel reads there (0 <=
+    pos < ctx; a tensor is not checked on the host, and the kernel clamps
+    it); pad_lens: [B] int32 masked left-pad widths. Returns [B, 1, D]
+    f32."""
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
+    if not _on_card("attn_step", q_eff, k_cache, v_cache, pad_lens):
+        return attn_step_plain(q_eff, k_cache, v_cache, pos, pad_lens, dk)
+    plan = _attn_step_plan(q_eff, k_cache, v_cache, pos, pad_lens, dk)
+    if isinstance(pos, torch.Tensor):
+        slot, slot_ptr = 0, pos.data_ptr()
+    else:
+        slot, slot_ptr = pos, None
+    B, _, D = q_eff.shape
     out = torch.empty((B, 1, D), dtype=torch.float32, device=q_eff.device)
     lib = build.load("attn_step")
     rc = lib.attn_step(q_eff.data_ptr(), k_cache.data_ptr(),
-                       v_cache.data_ptr(), pad_lens.data_ptr(),
-                       out.data_ptr(), B, ctx, D, dk, pos,
-                       int(dt == torch.bfloat16), _stream())
+                       v_cache.data_ptr(), pad_lens.data_ptr(), slot_ptr,
+                       out.data_ptr(), B, k_cache.shape[1], D, dk, slot,
+                       plan["cluster"], int(q_eff.dtype == torch.bfloat16),
+                       _stream())
     LAUNCHES["attn_step"] += 1
     _check_rc("attn_step", rc)
     return out

@@ -12,9 +12,11 @@ defaults and seeded numpy inputs (q [B, 1, D] bf16; per layer int8 K and
 V [B, S, D] and f32 v-scales [B, D]). Each variant runs as a chain over
 the layers, x = bf16(x + o * 1e-6) from layer to layer. It prints the
 ``onedot vs current: rel maxdiff`` line, then for each chain the mean ms
-of one chain call (CUDA events, L2 flushed before each; the JAX tool
-prints the best of 5 host-clock calls), the int8 K/V GB/s and ms per
-layer, and the bytes bound of one layer on the card.
+of one chain call (on the card the chain is captured once in a CUDA graph
+and its replays are timed with CUDA events, L2 flushed before each, so
+the host's launch time stays out as in the JAX tool's jitted chain, of
+which it prints the best of 5 host-clock calls), the int8 K/V GB/s and ms
+per layer, and the bytes bound of one layer on the card.
 """
 import argparse
 import sys

@@ -9,7 +9,8 @@ same work.
 The counterpart of tools/bisect_attn_split.py at its shapes (B 8 streams,
 K 5 beams, Pp 256 prompt and G 192 generated slots, D 1280, dk 64, the
 current token at slot G // 2, no pads, no ancestry). Rows, each the mean
-ms of one call (CUDA events, L2 flushed before each):
+ms of one call (on the card a CUDA graph of the row's call, its replays
+timed with CUDA events, L2 flushed before each):
 - ``pack(bias)``: split_visibility_bias, the JAX tool's pack_only less
   its block-diagonal query pack, which the kernel body now does itself;
 - ``kernel_only``: attn_step_split_bias, the body on the blocks the

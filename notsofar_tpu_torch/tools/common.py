@@ -1,11 +1,14 @@
 """What the kernel tools and chip_smoke.py share: the ``--device`` and
-``--iters`` arguments, the card's line, the timer and the roofline bound."""
+``--iters`` arguments, the card's line, the timers and the roofline bound."""
 import argparse
 import subprocess
 import time
 from typing import Callable, Tuple
 
 import torch
+
+from notsofar_tpu_torch.ops import kernels
+from notsofar_tpu_torch.utils.cuda_graph import StepGraph
 
 
 def add_device_args(ap: argparse.ArgumentParser, iters: int) -> None:
@@ -36,8 +39,23 @@ def time_cuda(fn: Callable[[], object], iters: int) -> float:
     with a 256 MB write (evicts the 50 MB L2) and a short spin before it,
     so every call finds its inputs in device memory and the host has
     enqueued the call before the card reaches it."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
+    return _event_ms(fn, iters)
+
+
+def time_cuda_graph(fn: Callable[[], object], iters: int) -> float:
+    """Mean milliseconds of one replay of fn() captured in a CUDA graph,
+    timed as time_cuda times a call: a chain of launches without the
+    host's time between them, as the JAX tools' jitted chains run. One
+    eager call first (the warm-up the capture needs); the kernel launch
+    counters count it and every replay, as time_cuda's calls."""
+    fn()
+    torch.cuda.synchronize()
+    return _event_ms(StepGraph(fn, (kernels.LAUNCHES,)).replay, iters)
+
+
+def _event_ms(fn: Callable[[], object], iters: int) -> float:
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
     evs = []
     for _ in range(iters):
@@ -54,10 +72,10 @@ def time_cuda(fn: Callable[[], object], iters: int) -> float:
 
 
 def time_ms(fn: Callable[[], object], iters: int, dev: torch.device) -> float:
-    """Mean milliseconds of fn(): time_cuda on a card, the host clock
+    """Mean milliseconds of fn(): time_cuda_graph on a card, the host clock
     (after one warm-up call) on the CPU."""
     if dev.type == "cuda":
-        return time_cuda(fn, iters)
+        return time_cuda_graph(fn, iters)
     fn()
     t0 = time.perf_counter()
     for _ in range(iters):

@@ -142,6 +142,55 @@ def test_sampling_rows_draw_as_single_decodes(pair):  # noqa: F811
         assert batched["tokens"][r] == single["tokens"][0]
 
 
+@pytest.fixture(scope="module")
+def eot_prone_model():
+    """The kernel-dims port model with its EOT embedding row scaled by 6,
+    so that rows latch EOT within a few steps at different steps (random
+    weights alone rarely end a decode)."""
+    tm = tw.WhisperModel(tw.WhisperDims(*KDIMS_ARGS), device="cpu").init(
+        torch.Generator().manual_seed(3))
+    _, tt = mini_tokenizers()
+    with torch.no_grad():
+        tm.decoder.token_embedding.weight[tt.eot] *= 6.0
+    return tm
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled", "beam3"])
+def test_finished_check_interval_changes_nothing(eot_prone_model, kind,
+                                                  monkeypatch):
+    """Checking finished.all() every 8 steps (the loops' interval) instead
+    of before every step runs a few steps past the last row's EOT and
+    gives the same tokens and stats bit for bit: finished rows emit EOT and
+    add 0 log-probability."""
+    _, tt = mini_tokenizers()
+    xa = torch.from_numpy(_xa(9, 3))
+    opts = tdec.DecodeOptions(max_new_tokens=40)
+    prompts = [[5, 6], None, [40, 41, 42]]
+    if kind == "beam3":
+        dec = tbeam.BeamDecoder(eot_prone_model, tt, opts, beam_size=3,
+                                cache_dtype=torch.float32)
+    else:
+        dec = tdec.GreedyDecoder(eot_prone_model, tt, opts)
+    toks, pads, P = dec._pack_prompts(prompts)
+    runs = {}
+    for n in (1, 8):
+        monkeypatch.setattr(tdec, "FINISHED_CHECK_EVERY", n)
+        tdec.reset_decode_steps()
+        args = (xa, P, torch.from_numpy(toks))
+        if kind == "beam3":
+            out = dec._beam_loop(*args, pad_lens=torch.from_numpy(pads))
+        else:
+            gens = [ttr.fallback_generator(s, 2, xa.device)
+                    for s in (0, 3000, 6000)] if kind == "sampled" else None
+            out = dec._decode_loop(*args, None, 0.6 if gens else 0.0,
+                                   torch.from_numpy(pads), gens)
+        runs[n] = out, tdec.DECODE_STEPS["eager"]
+    (tok1, st1), steps1 = runs[1]
+    (tok8, st8), steps8 = runs[8]
+    assert steps1 < 40 and steps1 < steps8 <= 40 and steps8 % 8 == 0
+    assert torch.equal(tok1, tok8) and torch.equal(st1, st8)
+
+
 def test_detect_language_matches_jax(pair):  # noqa: F811
     jm, variables, tm = pair
     jt, tt = mini_tokenizers()

@@ -60,13 +60,20 @@ def test_encoder_mha_plain_matches_pallas(S, dk, seed, BH):
     assert err <= 2 ** -8 * np.abs(want).max(), err
 
 
-@pytest.mark.parametrize("dk,H,ctx,pos,pads", [
-    (64, 4, 64, 37, [0, 5, 12]),
-    (128, 2, 32, 10, [3, 0, 0]),
+@pytest.mark.parametrize("dk,H,ctx,pos,pads,pos_tensor", [
+    pytest.param(64, 4, 64, 37, [0, 5, 12], False, id="64-4-64-37-pads0"),
+    pytest.param(128, 2, 32, 10, [3, 0, 0], False, id="128-2-32-10-pads1"),
+    pytest.param(64, 4, 64, 37, [0, 5, 12], True,
+                 id="64-4-64-37-pads0-tensor"),
+    pytest.param(128, 2, 32, 10, [3, 0, 0], True,
+                 id="128-2-32-10-pads1-tensor"),
+    # a row whose pad passes pos sees key pos alone
+    pytest.param(64, 2, 48, 4, [0, 9, 4], True, id="64-2-48-4-pad-past-pos"),
 ])
-def test_attn_step_plain_matches_pallas(dk, H, ctx, pos, pads):
-    """f32 caches with per-row left pads; tolerance 1e-5 (f32 sums in
-    another order)."""
+def test_attn_step_plain_matches_pallas(dk, H, ctx, pos, pads, pos_tensor):
+    """f32 caches with per-row left pads, pos as an int or as a 0-d int32
+    tensor (the CUDA graph's form); tolerance 1e-5 (f32 sums in another
+    order)."""
     rng = np.random.RandomState(dk + pos)
     B, D = len(pads), H * dk
     pads = np.asarray(pads, np.int32)
@@ -76,9 +83,13 @@ def test_attn_step_plain_matches_pallas(dk, H, ctx, pos, pads):
     want = np.asarray(pk.attn_step(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
         jnp.asarray(pos, jnp.int32), jnp.asarray(pads), dk, interpret=True))
-    got = tk.attn_step(t(q), t(kc), t(vc), pos, t(pads), dk)
+    slot = torch.tensor(pos, dtype=torch.int32) if pos_tensor else pos
+    got = tk.attn_step(t(q), t(kc), t(vc), slot, t(pads), dk)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if pos_tensor:
+        assert torch.equal(got, tk.attn_step(t(q), t(kc), t(vc), pos,
+                                             t(pads), dk))
 
 
 @pytest.mark.parametrize("K,with_anc", [
@@ -534,6 +545,46 @@ def covers_once(shares, n) -> bool:
     return pos == n
 
 
+# large-v3 (D 1280, 20 heads of 64), D 1536 in heads of 64 and 128, the
+# tests' small widths
+@pytest.mark.parametrize("D,dk", [(1280, 64), (1536, 64), (1536, 128),
+                                  (128, 64), (256, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attn_step_plan_is_independent_of_pos_and_fits(D, dk, dtype):
+    """attn_step_launch takes no pos: its grid (R, H, B) is fixed by the
+    shapes, so one launch captured in a CUDA graph serves every step. For
+    every cache length to Whisper's 448 and every pos in it, with pads
+    before, at and past pos, the kernel's shares cover
+    the keys [min(pad, pos), pos] exactly once, which hold every visible
+    key, each share within the block's capacity; a block's shared memory
+    stays within SMEM_LIMIT (227 KB)."""
+    import inspect
+    assert "pos" not in inspect.signature(tk.attn_step_launch).parameters
+    for ctx in list(range(1, 65)) + [96, 128, 192, 256, 320, 384, 448]:
+        plan = tk.attn_step_launch(12, ctx, D, dk, dtype)
+        R = plan["cluster"]
+        assert 1 <= R <= 8 and plan["grid"] == (R, D // dk, 12)
+        assert plan["threads"] == tk.ATTN_STEP_THREADS
+        assert plan["smem"] <= tk.SMEM_LIMIT
+        for pos in range(ctx):
+            for pad in sorted({0, 1, pos // 2, pos, pos + 1, ctx}):
+                lo = min(pad, pos)
+                # the kernel's shares: the keys [lo, pos] cut as
+                # split_shares cuts them (csrc/attn_step.cu)
+                shares = [(lo + c0, n) for c0, n in
+                          tk.split_shares(pos - lo + 1, R)]
+                assert len(shares) == R
+                assert covers_once([(c0 - lo, n) for c0, n in shares],
+                                   pos - lo + 1)
+                assert max(n for _, n in shares) <= plan["per"]
+                keys = np.arange(ctx)
+                visible = (keys <= pos) & ((keys >= pad) | (keys == pos))
+                assert visible[lo:pos + 1].all() and visible.sum() == \
+                    pos - lo + 1
+    assert tk.attn_step_launch(12, 448, 1280, 64, torch.bfloat16)[
+        "grid"] == (4, 20, 12)   # 960 blocks at the greedy shape
+
+
 # the serving grids (beam 5: 9 rows x 20 heads; greedy: 48 x 20), one row,
 # and the tests' small grids
 @pytest.mark.parametrize("B,D", [(9, 1280), (48, 1280), (1, 128), (3, 256)])
@@ -688,18 +739,30 @@ def test_gpu_encoder_mha_kernel(cuda, S, dk, dtype, tol, BH):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dk", [64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-3)])
-def test_gpu_attn_step_kernel(cuda, dtype, tol):
-    g = torch.Generator(device=cuda).manual_seed(3)
-    B, ctx, D, dk, pos = 5, 96, 1280, 64, 70
+def test_gpu_attn_step_kernel(cuda, dtype, tol, dk):
+    """The cluster kernel against its plain version with pos as an int and
+    as a device tensor, at the first slot, below a row's pad (that row sees
+    key pos alone), in the middle and at the last slot; the two forms give
+    the same bits and each launches once."""
+    g = torch.Generator(device=cuda).manual_seed(3 + dk)
+    B, ctx, D = 5, 96, 1280
     q = torch.randn(B, 1, D, generator=g, device=cuda).mul(0.125).to(dtype)
     kc, vc = (torch.randn(B, ctx, D, generator=g, device=cuda).to(dtype)
               for _ in range(2))
     pads = torch.tensor([0, 3, 9, 40, 70], dtype=torch.int32, device=cuda)
-    out = tk.attn_step(q, kc, vc, pos, pads, dk)
-    ref = tk.attn_step_plain(q, kc, vc, pos, pads, dk)
-    assert (out - ref).abs().max().item() <= tol
+    for pos in (0, 30, 70, ctx - 1):
+        ref = tk.attn_step_plain(q, kc, vc, pos, pads, dk)
+        outs = []
+        for slot in (pos, torch.tensor(pos, dtype=torch.int32, device=cuda)):
+            before = tk.LAUNCHES["attn_step"]
+            outs.append(tk.attn_step(q, kc, vc, slot, pads, dk))
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES["attn_step"] == before + 1
+            assert (outs[-1] - ref).abs().max().item() <= tol, (pos, slot)
+        assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.gpu
@@ -955,6 +1018,13 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     kc = torch.randn(2, 16, 128, device=cuda).bfloat16()
     with pytest.raises(ValueError):                    # pos outside cache
         tk.attn_step(kc[:, :1], kc, kc, 16,
+                     torch.zeros(2, dtype=torch.int32, device=cuda), 64)
+    with pytest.raises(ValueError):                    # int64 pos tensor
+        tk.attn_step(kc[:, :1], kc, kc, torch.tensor(3, device=cuda),
+                     torch.zeros(2, dtype=torch.int32, device=cuda), 64)
+    with pytest.raises(ValueError):                    # pos on the host
+        tk.attn_step(kc[:, :1], kc, kc,
+                     torch.tensor(3, dtype=torch.int32),
                      torch.zeros(2, dtype=torch.int32, device=cuda), 64)
     x = torch.randn(2, 16, 80, device=cuda)
     with pytest.raises(ValueError):                    # C % 128 != 0

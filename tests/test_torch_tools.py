@@ -30,7 +30,8 @@ from jax.experimental.pallas import tpu as pltpu
 from notsofar_tpu.ops import pallas_kernels as pk
 from notsofar_tpu.utils import flops as jflops
 from notsofar_tpu_torch.ops import kernels as tk
-from notsofar_tpu_torch.tools import bench_xattn_variants, bisect_attn_split
+from notsofar_tpu_torch.tools import (bench_xattn_variants, bisect_attn_split,
+                                      time_attn_step)
 from notsofar_tpu_torch.utils import flops as tflops
 from tests.test_torch_kernels import (bf16_round, onedot_rms_tolerance,
                                       onedot_rounding_mutant, rms,
@@ -338,6 +339,17 @@ def test_tools_default_to_cuda_and_raise_without_a_card(main, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--iters", "1"])
+
+
+def test_time_attn_step_raises_without_a_card(tmp_path, monkeypatch):
+    """tools/time_attn_step.py times a checkout's kernel on the card only
+    (it has no plain path to time)."""
+    traffic = tmp_path / "traffic.json"
+    traffic.write_text('{"asr greedy": [[3, 256, 4, 32]]}')
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        time_attn_step.main(["--traffic", str(traffic), "--root",
+                             str(REPO)])
 
 
 # ---------------------------------------------------------------------------

@@ -128,11 +128,14 @@ def test_decoder_teacher_forced_matches_jax(pair):
                                    atol=1e-4, rtol=1e-4)
 
 
-def test_decoder_incremental_matches_jax_through_attn_step(pair):
+@pytest.mark.parametrize("pos_as", ["int", "tensor"])
+def test_decoder_incremental_matches_jax_through_attn_step(pair, pos_as):
     """Prefill 3 tokens, then T=1 cache steps (attn_step on both sides),
     with per-row pads and precomputed cross K/V; the port's in-place
     caches equal JAX's returned caches, and its step logits equal JAX's
-    and the port's own teacher-forced logits. Tolerance 1e-4 (f32)."""
+    and the port's own teacher-forced logits. pos_offset as an int, or as
+    a 0-d tensor (the CUDA graph's form, equal to the int form bit for
+    bit). Tolerance 1e-4 (f32)."""
     jm, variables, tm = pair
     rng = np.random.RandomState(6)
     xa = rng.randn(2, 64, 128).astype(np.float32) * 0.3
@@ -154,8 +157,17 @@ def test_decoder_incremental_matches_jax_through_attn_step(pair):
         jl, jc, _ = jm.decoder.apply(
             variables["decoder"], jnp.asarray(toks[:, s:s + 1], jnp.int32),
             jxa, s, jc, cross_kvs=jcross, pad_lens=jpads)
-        tl, tc, _ = tm.decoder(torch.from_numpy(toks[:, s:s + 1]), txa, s,
+        pos = torch.tensor(s) if pos_as == "tensor" else s
+        if pos_as == "tensor":
+            # the int form on copies of the caches gives the same bits
+            ic = [(k_.clone(), v_.clone()) for k_, v_ in tc]
+            il, _, _ = tm.decoder(torch.from_numpy(toks[:, s:s + 1]), txa, s,
+                                  ic, cross_kvs=tcross, pad_lens=tpads)
+        tl, tc, _ = tm.decoder(torch.from_numpy(toks[:, s:s + 1]), txa, pos,
                                tc, cross_kvs=tcross, pad_lens=tpads)
+        if pos_as == "tensor":
+            assert torch.equal(tl, il)
+            assert all(torch.equal(a, b) for a, b in zip(tc[0], ic[0]))
         j_out.append(np.asarray(jl[:, 0]))
         t_out.append(tl[:, 0].numpy())
     np.testing.assert_allclose(np.stack(t_out, 1), np.stack(j_out, 1),
@@ -166,6 +178,69 @@ def test_decoder_incremental_matches_jax_through_attn_step(pair):
     full, _, _ = tm.decoder(torch.from_numpy(toks), txa, 0, pad_lens=tpads)
     np.testing.assert_allclose(np.stack(t_out, 1), full[:, 2:].numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("pos_as", ["int", "tensor"])
+def test_decoder_split_cache_steps_match_jax(pair, pos_as):
+    """The beam path's split cache: a 3-token prompt prefilled at 2
+    streams, then T=1 steps of 2 beams a stream (attn_step_split with a
+    random ancestry, the beams folded into the cross-attention queries) on
+    both sides; pos_offset as an int or as a 0-d tensor (equal bit for
+    bit). Step logits and the generated caches within 1e-4 / 1e-5 (f32)."""
+    jm, variables, tm = pair
+    rng = np.random.RandomState(12)
+    B, K, P, G, steps = 2, 2, 3, 8, 4
+    xa = rng.randn(B, 64, 128).astype(np.float32) * 0.3
+    prompt = rng.randint(0, 1000, (B, P))
+    toks = rng.randint(0, 1000, (B * K, steps))
+    anc = rng.randint(0, K, (B, K, G)).astype(np.int32)
+    pads = np.asarray([0, 1], np.int32)
+    pad_k = np.repeat(pads, K)
+    jxa, txa = jnp.asarray(xa), torch.from_numpy(xa)
+    jcross = jm.precompute_cross_kv(variables["decoder"], jxa)
+    tcross = tm.precompute_cross_kv(txa)
+    _, jp, _ = jm.decoder.apply(
+        variables["decoder"], jnp.asarray(prompt, jnp.int32), jxa, 0,
+        jm.empty_kv_caches(B, cache_len=P), cross_kvs=jcross,
+        pad_lens=jnp.asarray(pads))
+    _, tp, _ = tm.decoder(torch.from_numpy(prompt), txa, 0,
+                          tm.empty_kv_caches(B, cache_len=P),
+                          cross_kvs=tcross, pad_lens=torch.from_numpy(pads))
+    D = KDIMS_ARGS[7]
+    jg = [(jnp.zeros((B * K, G, D)), jnp.zeros((B * K, G, D)))
+          for _ in tp]
+    tg = [(torch.zeros(B * K, G, D), torch.zeros(B * K, G, D)) for _ in tp]
+    tanc = torch.zeros(B, K, G, dtype=torch.int32)
+    for s in range(steps):
+        anc[:, :, s] = np.arange(K)
+        tanc.copy_(torch.from_numpy(anc))
+        jsplit = [(kp, vp, kg, vg, jnp.asarray(anc))
+                  for (kp, vp), (kg, vg) in zip(jp, jg)]
+        jl, jsplit, _ = jm.decoder.apply(
+            variables["decoder"], jnp.asarray(toks[:, s:s + 1], jnp.int32),
+            jxa, P + s, jsplit, cross_kvs=jcross,
+            pad_lens=jnp.asarray(pad_k))
+        jg = [(c[2], c[3]) for c in jsplit]
+        tsplit = [(kp, vp, kg, vg, tanc) for (kp, vp), (kg, vg)
+                  in zip(tp, tg)]
+        if pos_as == "tensor":
+            isplit = [(kp, vp, kg.clone(), vg.clone(), tanc)
+                      for kp, vp, kg, vg, _ in tsplit]
+            il, _, _ = tm.decoder(torch.from_numpy(toks[:, s:s + 1]), txa,
+                                  P + s, isplit, cross_kvs=tcross,
+                                  pad_lens=torch.from_numpy(pad_k))
+        pos = torch.tensor(P + s) if pos_as == "tensor" else P + s
+        tl, _, _ = tm.decoder(torch.from_numpy(toks[:, s:s + 1]), txa, pos,
+                              tsplit, cross_kvs=tcross,
+                              pad_lens=torch.from_numpy(pad_k))
+        if pos_as == "tensor":
+            assert torch.equal(tl, il)
+            assert torch.equal(tg[0][0], isplit[0][2])
+        np.testing.assert_allclose(tl[:, 0].numpy(), np.asarray(jl[:, 0]),
+                                   atol=1e-4, rtol=1e-4)
+    for (jk, jv), (tk_, tv) in zip(jg, tg):
+        np.testing.assert_allclose(tk_.numpy(), np.asarray(jk), atol=1e-5)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
 
 
 def test_openai_checkpoint_loader_matches_jax(tmp_path, pair):
