@@ -39,7 +39,17 @@ Phases (any failure raises and exits non-zero):
              seeded draws of their inputs, pos and gslot, to their plain
              versions and to a float64 witness within the bf16
              weight-flip model of those inputs (attn_step_split's gates
-             are that model).
+             are that model). The decode step's two kernels for work
+             the JAX package leaves to XLA fusion: xattn_step (3 windows
+             x Tq 1 and 5 against 1500 frames of bf16 memory; SDPA as
+             the library) and decode_gemv (QuantDense int8 1280 -> 1280,
+             5120 and 5120 -> 1280, the int8 and the bf16 logits 1280 ->
+             51 866, at 3, 15 and 48 rows; torch.matmul on pre-widened
+             bf16 weights as the library), each within its error model
+             and rejecting one memory row or weight changed, cluster
+             sizes logged; xattn_onedot's cluster sizes (R = 1: a block
+             per row, the first design's grid) and masked_scm's ring of
+             1-8 buffers in flight (1: the first design's schedule).
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
              and beam-3 decode tokens (f32, TF32 off), and the same for
@@ -52,8 +62,10 @@ Phases (any failure raises and exits non-zero):
              against the same loops run eagerly: Whisper large-v3 at full
              width with seeded random weights, bf16 then the int8 decoder,
              3 seeded mel windows, beam 5 and greedy, 32 new tokens:
-             tokens equal, scores within 1e-4, launch and int8 decoder
-             call counts equal; eager and graphed ms per step logged.
+             tokens equal, scores within 1e-4, launch and decoder call
+             counts equal; eager and graphed ms per step logged; one
+             decoder step's kernels under torch.profiler at 3 rows
+             (greedy) and 15 (beam 5), bf16 and int8.
              Then the bf16 model with its EOT row scaled (rows end at
              different steps) decodes greedy and beam 5 with the loops'
              finished.all() interval at 1, 2, 4 and 8: tokens and stats
@@ -63,7 +75,10 @@ Phases (any failure raises and exits non-zero):
              full width, bf16, beam 5, word timestamps,
              condition_on_previous_text, seeded random weights.
              Launch counts are reset before the call and read after it:
-             encoder_mha and attn_step_split must be > 0. The decode
+             encoder_mha and attn_step_split must be > 0, xattn_step
+             launch 32 times and decode_gemv once (the logits) per
+             decoder call counted under them, which must be at least the
+             decode steps. The decode
              steps (replayed from CUDA graphs and eager), the graph
              captures and their seconds, and ms per step are logged, and
              the attn_step launches as a histogram of (rows, cache
@@ -99,8 +114,9 @@ Phases (any failure raises and exits non-zero):
              saved under a models dir. The ASR frame reaches diarization
              with phase 6's seeded word track added. Every contract file
              must exist and the meeting gets a WER row; xattn_int8
-             launches = 32 x the decoder calls that reach it, as the
-             decoders count them; encoder_mha and attn_step_split launch;
+             launches = 32 x and decode_gemv = 257 x the decoder calls
+             that reach them, as the decoder counts them, each at least
+             the decode steps; encoder_mha and attn_step_split launch;
              depthwise_conv1d launches 9 times per planned TitaNet chunk.
              Decode steps and attn_step traffic logged as phase 4's. A
              seeded hypothesis is
@@ -120,7 +136,7 @@ Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 card against the CPU (masks in f32 and bf16, one short engine pass with
 the kernel against the CPU's plain path).
 
-The line before the last is {"kernels": [...]}, all nine kernels, with
+The line before the last is {"kernels": [...]}, all eleven kernels, with
 each kernel's launches summed over phases 4-9 and split by phase in
 "launches_by_path" (phase 9 as "tools"); the last line is {"ok": true,
 "device": {...}}. The run writes under chiprun_out/: the kernels' ptxas
@@ -426,6 +442,56 @@ def attn_step_split_draw(seed: int):
             keys, vals, bias, dk, f"gslot {gslot}")
 
 
+def step_tolerance(q, k, v, dk: int) -> float:
+    """xattn_step against its plain version: both round dtype(q s) and
+    dtype(k s) (s = dk**-0.25 in f32), the weights and the output, and sum
+    in other f32 orders. A logit moves by up to dk f32 roundings of sum_d
+    |q s| |k s| (delta) and so a weight by a factor exp(2 delta); one
+    weight's bf16 rounding may go the other way (2**-7 p_max |v|_max); S
+    f32 roundings of sum_s p |v|; the output's bf16 rounding (one ulp,
+    <= 2**-7 of sum_s p |v|). The largest over the outputs
+    (tests/test_torch_kernels.py holds each output to its own)."""
+    B, T, D = q.shape
+    S, H = k.shape[1], D // dk
+    sc = dk ** -0.25
+    qs, ks = ((x.float() * sc).to(x.dtype).double().reshape(B, -1, H, dk)
+              for x in (q, k))
+    lg = torch.einsum("bthd,bshd->bhts", qs, ks)
+    delta = dk * 2.0 ** -24 * torch.einsum("bthd,bshd->bhts", qs.abs(),
+                                           ks.abs()).amax(-1)
+    p = torch.softmax(lg, dim=-1)
+    va = v.double().abs().reshape(B, S, H, dk)
+    mag = torch.einsum("bhts,bshd->bthd", p, va)
+    move = torch.expm1(2 * delta).permute(0, 2, 1)[..., None] * mag
+    flip = 2.0 ** -7 * p.max().item() * va.max().item()
+    return (move + flip + (S * 2.0 ** -24 + 2.0 ** -7) * mag).max().item()
+
+
+def gemv_tolerance(x, w, dtype, scale, bias, logits: bool) -> float:
+    """decode_gemv against its plain version, both from x rounded to the
+    compute dtype: the f32 sums of K exact products differ by up to 2K
+    roundings of sum_k |x w| (delta); each later rounding to bf16 may go
+    the other way (<= 2**-7 of its value), carried through the scale and
+    bias (QuantDense's three rounding points). The largest over the
+    outputs (tests/test_torch_kernels.py holds each output to its own)."""
+    xr = x.to(dtype).double().reshape(-1, x.shape[-1])
+    wf = w.double()
+    acc = xr @ wf.T
+    delta = 2 * x.shape[-1] * 2.0 ** -24 * (xr.abs() @ wf.abs().T)
+    s = torch.ones_like(acc[0]) if scale is None else scale.double()
+    if logits:
+        tol = delta * s.abs() + 2.0 ** -23 * (acc * s).abs()
+    elif dtype == torch.float32:
+        b = 0 if bias is None else bias.double().abs()
+        tol = delta * s.abs() + 2.0 ** -22 * ((acc * s).abs() + b)
+    else:
+        e = 2.0 ** -7
+        d2 = (delta + e * acc.abs()) * s.abs() + e * (acc * s).abs()
+        b = 0 if bias is None else bias.double()
+        tol = d2 + e * ((acc * s + b).abs() + d2)
+    return tol.max().item()
+
+
 def rms(x: torch.Tensor) -> float:
     return x.double().pow(2).mean().sqrt().item()
 
@@ -445,22 +511,30 @@ def plan_line(plan: dict) -> str:
             f"memory a block, shares of up to {plan['per']}")
 
 
-def launch_sweep(label: str, launches: dict, out_shape, iters: int) -> None:
-    """Time a split-softmax kernel (csrc/split_softmax.cuh) through its C
-    function under each launch configuration, launches[name](out) -> rc,
-    on the row's inputs, and log the times: the measurement behind the
-    plans' choice of cluster size (for xattn_int8, R = 1 is the block-per-row
-    design).
-    A configuration whose block passes the shared memory a block may use
-    is logged as such. These launches count in no launch counter."""
-    times = {}
+def launch_sweep(label: str, launches: dict, out_shape, iters: int,
+                 graphed: bool = False) -> None:
+    """Time a kernel through its C function under each launch
+    configuration, launches[name](out) -> rc, on the row's inputs, and log
+    the times: the measurement behind the plans' choice of cluster size
+    (for xattn_int8, R = 1 is the block-per-row design). With graphed,
+    also as 32 launches in one CUDA graph, ms per launch (the decode
+    step's form: a replay leaves no host time between launches, but each
+    launch of a cluster grid has its own cost). A configuration whose
+    block passes the shared memory a block may use is logged as such.
+    These launches count in no launch counter."""
+    times, in_graph = {}, {}
     for name, launch in launches.items():
         out = torch.empty(out_shape, dtype=torch.float32, device="cuda")
         if launch(out) != 0:
             times[name] = "too large"
             continue
         times[name] = round(time_cuda(lambda: launch(out), iters), 4)
-    log(f"kernel {label}: ms by launch configuration {times}")
+        if graphed:
+            in_graph[name] = round(time_cuda_graph(
+                lambda: [launch(out) for _ in range(32)], iters) / 32, 4)
+    log(f"kernel {label}: ms by launch configuration {times}"
+        + (f"; as 32 launches in one CUDA graph, ms per launch {in_graph}"
+           if graphed else ""))
 
 
 def check_kernels(iters: int):
@@ -920,8 +994,167 @@ def check_kernels(iters: int):
            # weighted complex adds (4 FLOP each)
            flops=Bm * Fm * Tm * ne * (6 + 4 * Km),
            peak_flops=PEAK_F32_FLOPS)
+    # the ring of 32-frame buffers a warp keeps in flight: 1 is the first
+    # design's schedule (stage, then compute); the launches count nowhere
+    def scm_c(stages, out):
+        return K.build.load("masked_scm").masked_scm(
+            wta.data_ptr(), xs.data_ptr(), out.data_ptr(), Bm, Fm, Tm, Km, Mm,
+            stages, K._stream())
+
+    launch_sweep("masked_scm", {f"stages={n}": (lambda o, n=n: scm_c(n, o))
+                                for n in range(1, 9)},
+                 (Bm, Km, Fm, Mm, Mm, 2), iters)
+    log(f"kernel masked_scm: launch {K.masked_scm_launch(Bm, Fm, Km, Mm)}")
+    check_decode_step_kernels(iters, record, randn)
     check_tool_kernels(iters, record, randn)
     return rows
+
+
+def check_decode_step_kernels(iters: int, record, randn) -> None:
+    """Phase 2 for the decode step's two kernels for work the JAX package
+    leaves to XLA fusion, at large-v3's decode shapes, through
+    check_kernels' record and seeded randn: xattn_step (3 windows x Tq 1
+    and 5, S 1500, D 1280, bf16; the kernels line's row is Tq 1) and
+    decode_gemv in its three modes (QuantDense int8 1280 -> 1280, 5120 and
+    5120 -> 1280; the int8 and the bf16 logits 1280 -> 51 866) at 3, 15
+    and 48 rows (the row: QuantDense 1280 -> 1280 at 3 rows). Each is held
+    to its plain version within its error model and rejects the plain
+    version with one memory row or one weight changed; library: SDPA on
+    the bf16 memory, torch.matmul on pre-widened bf16 weights (calls the
+    port never makes). Cluster sizes R = 1-8 are logged (launch_sweep)."""
+    import torch.nn.functional as F
+    from notsofar_tpu_torch.ops import kernels as K
+
+    bf = torch.bfloat16
+    B, S, D, dk = 3, 1500, 1280, 64
+    H = D // dk
+    k, v = randn(B, S, D), randn(B, S, D)
+    kh, vh = (x.view(B, S, H, dk).transpose(1, 2).contiguous()
+              for x in (k, v))
+    xrow = None
+    for T in (1, 5):
+        # queries at twice unit scale: logits of a few units, so that one
+        # memory row matters
+        q = (randn(B, T, D, dtype=torch.float32) * 2).to(bf)
+        qh = q.view(B, T, H, dk).transpose(1, 2).contiguous()
+        sc = dk ** -0.25
+        top = int((((k[0, :, :dk].float() * sc).to(bf).float())
+                   @ (q[0, 0, :dk].float() * sc).to(bf).float()).argmax())
+        k_mut, v_mut = k.clone(), v.clone()
+        k_mut[0, top], v_mut[0, top] = -k[0, top], -v[0, top]
+        got = record(
+            "xattn_step", "notsofar_tpu/models/whisper.py:324",
+            K.xattn_step(q, k, v, dk), K.xattn_step_plain(q, k, v, dk),
+            step_tolerance(q, k, v, dk),
+            K.xattn_step_plain(q, k_mut, v_mut, dk),
+            lambda: K.xattn_step(q, k, v, dk),
+            lambda: K.xattn_step_plain(q, k, v, dk),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            nbytes=(2 * B * T * D + 2 * B * S * D) * 2,
+            flops=4 * B * T * S * D, label=f"xattn_step Tq {T}",
+            row=T == 1)
+        plan = K.xattn_step_launch(B, T, S, D, dk, bf)
+        log(f"kernel xattn_step Tq {T}: launch {plan_line(plan)} keys")
+
+        def step_c(R, out, q=q, T=T):
+            return K.build.load("xattn_step").xattn_step(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                T, S, D, dk, sc, R, 1, K._stream())
+
+        launch_sweep(f"xattn_step Tq {T}",
+                     {f"R={R}": (lambda out, R=R: step_c(R, out))
+                      for R in range(1, 9)}, (B, T, D), iters,
+                     graphed=T == 1)
+        if T == 1:
+            xrow = got
+        else:
+            xrow.update(beam5_ms=got["ms"], beam5_bound_ms=got["bound_ms"],
+                        beam5_plain_ms=got["plain_ms"],
+                        beam5_library_ms=got["library_ms"],
+                        beam5_max_abs_err=got["max_abs_err"])
+    del k, v, kh, vh
+
+    g = torch.Generator(device="cuda").manual_seed(99)
+    emb8 = torch.randint(-127, 128, (51866, D), generator=g, device="cuda",
+                         dtype=torch.int8)
+    emb_scale = (torch.rand(51866, generator=g, device="cuda") + 0.5) * 1e-3
+    emb16 = (randn(51866, D, dtype=torch.float32) * 0.02).to(bf)
+    shapes = {}
+    grow = None
+    for M in (3, 15, 48):
+        cases = []
+        for N, Kd in ((1280, 1280), (5120, 1280), (1280, 5120)):
+            w = torch.randint(-127, 128, (N, Kd), generator=g, device="cuda",
+                              dtype=torch.int8)
+            s_ = (torch.rand(N, generator=g, device="cuda") + 0.1) * 1e-3
+            b_ = (randn(N, dtype=torch.float32) * 0.1).to(bf)
+            x = randn(M, 1, Kd)
+            cases.append((f"dense {Kd}->{N}", x, w, bf, s_, b_, False))
+        # the int8 logits take the f32 LN output of the int8 decoder
+        cases.append(("int8 logits", randn(M, 1, D, dtype=torch.float32),
+                      emb8, bf, emb_scale, None, True))
+        cases.append(("bf16 logits", randn(M, 1, D), emb16, bf, None, None,
+                      True))
+        for name, x, w, dt, s_, b_, lg in cases:
+            N, Kd = w.shape
+            # the weight of row 0's largest |x| in its largest output
+            n = int(K.decode_gemv_plain(x[:1], w, dt, s_, b_, logits=lg)
+                    .float().abs().argmax())
+            kk = int(x[0, 0].to(dt).float().abs().argmax())
+            w_mut = w.clone()
+            w_mut[n, kk] = (-127 if w[n, kk] >= 0 else 127) \
+                if w.dtype == torch.int8 else w[n, kk] - (
+                    1.0 if w[n, kk] >= 0 else -1.0)
+            w16 = w.to(bf)
+            x16 = x.to(bf)
+            label = f"decode_gemv {name} {M} rows"
+            got = record(
+                "decode_gemv", "notsofar_tpu/models/whisper.py:86",
+                K.decode_gemv(x, w, dt, s_, b_, logits=lg),
+                K.decode_gemv_plain(x, w, dt, s_, b_, logits=lg),
+                gemv_tolerance(x, w, dt, s_, b_, lg),
+                K.decode_gemv_plain(x, w_mut, dt, s_, b_, logits=lg),
+                lambda: K.decode_gemv(x, w, dt, s_, b_, logits=lg),
+                lambda: K.decode_gemv_plain(x, w, dt, s_, b_, logits=lg),
+                lambda: torch.matmul(x16, w16.T),
+                nbytes=(x.numel() * x.element_size() + w.numel()
+                        * w.element_size() + (0 if s_ is None else N * 4)
+                        + (0 if b_ is None else N * 2)
+                        + M * N * (4 if lg else 2)),
+                flops=2 * M * N * Kd, label=label,
+                row=M == 3 and name == "dense 1280->1280")
+            if grow is None:
+                grow = got
+            shapes[f"{name} {M}"] = {key: got[key] for key in (
+                "ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")}
+            gplan = K.decode_gemv_launch(M, N, Kd, w.dtype, 1)
+            log(f"kernel {label}: launch grid {gplan['grid']}, clusters of "
+                f"{gplan['cluster']} blocks of {gplan['threads']} threads, "
+                f"{gplan['tiles']} tiles of 8 rows, {gplan['smem']} bytes of "
+                "shared memory a block")
+            if M in (3, 48) and name != "bf16 logits":
+                def gemv_c(R, out, x=x, w=w, s_=s_, b_=b_, lg=lg, dt=dt,
+                           gplan=gplan):
+                    return K.build.load("decode_gemv").decode_gemv(
+                        x.data_ptr(), w.data_ptr(),
+                        None if s_ is None else s_.data_ptr(),
+                        None if b_ is None else b_.data_ptr(),
+                        out.data_ptr(), M, w.shape[0], w.shape[1],
+                        gplan["tiles"], 1, R,
+                        int(x.dtype == torch.float32),
+                        int(w.dtype == torch.int8), int(dt == bf),
+                        int(b_ is not None and b_.dtype == torch.float32),
+                        int(lg), 0, None, 0.0, 1, K._stream())
+                nck = w.shape[1] // K._gemv_chunk(w.dtype)
+                launch_sweep(label, {f"R={R}": (lambda o, R=R: gemv_c(R, o))
+                                     for R in range(1, min(8, nck) + 1)},
+                             (M, 1, w.shape[0]), iters, graphed=M == 3)
+                if M == 3:
+                    log(f"kernel {label}: the library call as 32 launches "
+                        "in one CUDA graph, ms per launch "
+                        f"{time_cuda_graph(lambda: [torch.matmul(x16, w16.T) for _ in range(32)], iters) / 32:.4f}")
+            del w_mut, w16
+    grow["shapes"] = shapes
 
 
 def check_tool_kernels(iters: int, record, randn) -> None:
@@ -1014,6 +1247,19 @@ def check_tool_kernels(iters: int, record, randn) -> None:
     onedot["dequant_sdpa_ms"] = time_cuda(deq_sdpa, iters)
     log(f"kernel xattn_onedot: dequantize + SDPA (two calls, bf16 memory) "
         f"{onedot['dequant_sdpa_ms']:.4f} ms")
+    plan = K.xattn_onedot_launch(Bx, Sx, D, dk, s_valid)
+    log(f"kernel xattn_onedot: launch grid {plan['grid']}, clusters of "
+        f"{plan['cluster']} blocks of {plan['threads']} threads, "
+        f"{plan['smem']} bytes of shared memory a block")
+
+    def onedot_c(R, out):
+        return K.build.load("xattn_onedot").xattn_onedot(
+            q.data_ptr(), k8.data_ptr(), v8.data_ptr(), vs.data_ptr(),
+            out.data_ptr(), Bx, Sx, D, dk, s_valid, R, K._stream())
+
+    # R = 1: a block per row, the first design's grid
+    launch_sweep("xattn_onedot", {f"R={R}": (lambda o, R=R: onedot_c(R, o))
+                                  for R in range(1, 9)}, (Bx, 1, D), iters)
     del k8, v8, k_mut
 
     # attn_step_split_bias at bisect_attn_split's shape: 8 streams x 5
@@ -1266,10 +1512,17 @@ def check_graph_decode(max_new: int = 32) -> None:
                     == 1 and gr["n"] == e["n"] > 1):
                 raise AssertionError(f"graph {dtype} {kind}: steps "
                                      f"{gr['steps']}, eager {e['steps']}")
-        log(f"graph {dtype}: " + step_kernels(model, tok, xa))
+        for beams in (1, 5):
+            log(f"graph {dtype}: " + step_kernels(model, tok, xa, beams))
         if dtype == "bfloat16":
             time_finished_interval(model, tok, xa)
         del model, xa
+    ms = {f"{k[0].replace('torch.', '')} {k[1]} rows": round(v, 3)
+          for k, v in STEP_DEVICE_MS.items()}
+    log(f"graph: one decoder step's device ms {ms}; the int8 step below "
+        "the bf16 step at " + ", ".join(
+            f"{r} rows {STEP_DEVICE_MS[('torch.bfloat16/int8', r)] < STEP_DEVICE_MS[('torch.bfloat16', r)]}"
+            for r in (3, 15)))
     # the int8 model is not the one phase 8 loads (that one comes from a
     # saved checkpoint): free its device memory
     import notsofar_tpu_torch.asr.inference as inf
@@ -1334,42 +1587,62 @@ def time_finished_interval(model, tok, xa, max_new: int = 224) -> None:
         dec.FINISHED_CHECK_EVERY = default
 
 
-def step_kernels(model, tok, xa) -> str:
+def step_kernels(model, tok, xa, beams: int = 1) -> str:
     """Where a graphed step's time goes: the kernels of one single-token
-    decoder call at the greedy shape (3 rows, the cache after a 4-token
-    prompt), run eagerly under torch.profiler: their count, the sum of
-    their device times, and the names that take the most."""
+    decoder call, run eagerly under torch.profiler: their count, the sum of
+    their device times, and the names that take the most. beams 1: the
+    greedy shape (the windows' rows, a 256-slot cache after a 4-token
+    prompt); beams K: the beam shape (K rows a window, the 4-token prompt
+    in a split cache's shared segment, a 64-slot generated segment, the
+    beams folded into the cross-attention's queries)."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B = xa.shape[0]
+    D = model.dims.n_text_state
     cross = model.precompute_cross_kv(xa)
     if model.quant_decoder:
         cross = model.quantize_cross_kv(cross)
-    caches = model.empty_kv_caches(B, cache_len=256)
-    toks = torch.full((B, 4), tok.sot, dtype=torch.long, device=xa.device)
+    toks = torch.full((B * beams, 4), tok.sot, dtype=torch.long,
+                      device=xa.device)
     pos = torch.tensor(4, device=xa.device)
     with torch.no_grad():
-        model.decoder(toks, xa, 0, caches, cross_kvs=cross)
+        if beams == 1:
+            caches = model.empty_kv_caches(B, cache_len=256)
+            model.decoder(toks, xa, 0, caches, cross_kvs=cross)
+        else:
+            prompt = model.empty_kv_caches(B, cache_len=4)
+            model.decoder(toks[:B], xa, 0, prompt, cross_kvs=cross)
+            gen = model.empty_kv_caches(B * beams, cache_len=64)
+            anc = torch.zeros((B, beams, 64), dtype=torch.int32,
+                              device=xa.device)
+            caches = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
+                      in zip(prompt, gen)]
         model.decoder(toks[:, :1], xa, pos, caches, cross_kvs=cross)
-        if xa.is_cuda:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            model.decoder(toks[:, :1], xa, pos, caches, cross_kvs=cross)
-            if xa.is_cuda:
-                torch.cuda.synchronize()
-    by_name = defaultdict(float)
-    n = 0
+            model.decoder(toks[:, :1], xa, pos + 1, caches, cross_kvs=cross)
+            torch.cuda.synchronize()
+    by_name, count = defaultdict(float), defaultdict(int)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
-            n += 1
+            count[e.name] += 1
     total = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (f"one decoder step (3 rows, eager, torch.profiler): {n} device "
-            f"activities, {total / 1e3:.3f} ms of device time; the most: "
-            + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    STEP_DEVICE_MS[(str(model.dtype) + ("/int8" if model.quant_decoder
+                                        else ""), B * beams)] = total / 1e3
+    return (f"one decoder step ({B * beams} rows, {beams} beam(s), D {D}, "
+            f"eager, torch.profiler): {sum(count.values())} device "
+            f"activities, {total / 1e3:.3f} ms of device time; the most "
+            "(name: launches, ms): "
+            + "; ".join(f"{k[:60]}: {count[k]}, {v / 1e3:.3f}"
+                        for k, v in top))
+
+
+# phase 3b's profiled device ms of one decoder step by (dtype, rows)
+STEP_DEVICE_MS: dict = {}
 
 
 # each phase's attn_step launches, [rows, cache length, pos, launches]
@@ -1436,6 +1709,34 @@ def check_traffic(label: str, traffic, counts: dict) -> None:
         raise AssertionError(f"{label}: attn_step traffic "
                              f"{sum(traffic.values())} launches, counted "
                              f"{counts['attn_step']}")
+
+
+def check_decode_launches(label: str, counts: dict, quant: bool) -> None:
+    """Every decode step's cross-attention reached its kernel (xattn_step
+    for the float memory, xattn_int8 for the int8 one) and every step's
+    dense layers (int8) and logits reached decode_gemv: the decoder calls
+    counted under each kernel (models.whisper.DECODER_CALLS, by the rules
+    the model dispatches by) are at least the decode steps run, and the
+    kernels launched once a layer (cross-attention) and
+    TextDecoder.decode_gemv_per_call() times (decode_gemv) a counted
+    call."""
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.models.whisper import WHISPER_DIMS
+    n_layers = WHISPER_DIMS["large-v3"].n_text_layer
+    calls = dec.DECODER_CALLS
+    steps = dec.DECODE_STEPS["eager"] + dec.DECODE_STEPS["replayed"]
+    xattn = "xattn_int8" if quant else "xattn_step"
+    per_call = 8 * n_layers + 1 if quant else 1
+    log(f"{label}: {steps} decode steps; {xattn} launches "
+        f"{counts[xattn]} = {n_layers} x {calls[xattn]} decoder calls; "
+        f"decode_gemv launches {counts['decode_gemv']} = {per_call} x "
+        f"{calls['decode_gemv']} decoder calls")
+    for name, per in ((xattn, n_layers), ("decode_gemv", per_call)):
+        if not (counts[name] == per * calls[name] > 0
+                and calls[name] >= steps > 0):
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times for {calls[name]} decoder calls x "
+                                 f"{per} ({steps} decode steps)")
 
 
 def decode_steps_line(label: str, decode_s: float) -> str:
@@ -1654,6 +1955,7 @@ def run_asr(session, work: Path, beam_size, label, needs):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     dec.reset_decode_steps()
+    dec.reset_decoder_calls()
     t0 = time.perf_counter()
     with attn_step_traffic(f"asr {label}") as traffic:
         df = asr_inference(str(work / label), session, cfg,
@@ -1661,11 +1963,13 @@ def run_asr(session, work: Path, beam_size, label, needs):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
-    log(f"asr {label}: kernel launches {counts}")
+    log(f"asr {label}: kernel launches {counts}; decoder calls "
+        f"{dict(dec.DECODER_CALLS)}")
     check_traffic(f"asr {label}", traffic, counts)
     missing = [n for n in needs if counts[n] <= 0]
     if missing:
         raise AssertionError(f"asr {label}: never launched {missing}")
+    check_decode_launches(f"asr {label}", counts, quant=False)
     stages = {k: round(v, 3) for k, v in timer.stage_seconds.items()}
     log(f"asr {label}: {len(df)} segments, wall {wall:.2f} s, stages {stages}"
         f", max_memory_allocated "
@@ -2266,12 +2570,7 @@ def run_pipeline(work: Path, seconds: float = PIPELINE_SECONDS):
         raise AssertionError(f"pipeline: missing contract files {missing}")
     if wer is None:
         raise AssertionError("pipeline: no WER row for the meeting")
-    from notsofar_tpu_torch.models.whisper import WHISPER_DIMS
-    n_layers = WHISPER_DIMS[PIPELINE_WHISPER].n_text_layer
-    if not counts["xattn_int8"] == n_layers * calls > 0:
-        raise AssertionError(f"pipeline: xattn_int8 launched "
-                             f"{counts['xattn_int8']} times for {calls} "
-                             f"decoder calls x {n_layers} layers")
+    check_decode_launches("pipeline", counts, quant=True)
     never = [k for k in ("encoder_mha", "attn_step_split") if counts[k] <= 0]
     if never:
         raise AssertionError(f"pipeline: never launched {never}")

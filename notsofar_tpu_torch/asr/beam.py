@@ -84,8 +84,9 @@ class BeamDecoder(GreedyDecoder):
             # batch B into the shared prompt segment
             G = -(-max_new // 64) * 64
             prompt_caches = self._zeros_caches(B, P)
-            logits, prompt_caches, _ = self._decoder(
-                prompt_tokens, xa, 0, prompt_caches, cross_kvs, pad_lens)
+            logits, prompt_caches, _ = self.model.decoder(
+                prompt_tokens, xa, 0, prompt_caches, cross_kvs=cross_kvs,
+                pad_lens=pad_lens)
             nsp = torch.softmax(logits[:, sot_pos], dim=-1)[:, tok.no_speech]
             cur_logits = logits[:, -1].repeat_interleave(K, dim=0)
             anc = torch.zeros((B, K, G), dtype=torch.int32, device=dev)
@@ -96,8 +97,8 @@ class BeamDecoder(GreedyDecoder):
             prompt_k = prompt_tokens.repeat_interleave(K, dim=0)
             caches = self._zeros_caches(
                 BK, min(-(-(max_new + prompt_len) // 64) * 64, d.n_text_ctx))
-            logits, caches, _ = self._decoder(prompt_k, xa, 0, caches,
-                                              cross_kvs, pad_k)
+            logits, caches, _ = self.model.decoder(
+                prompt_k, xa, 0, caches, cross_kvs=cross_kvs, pad_lens=pad_k)
             nsp = torch.softmax(logits[::K, sot_pos],
                                 dim=-1)[:, tok.no_speech]
             cur_logits = logits[:, -1].contiguous()
@@ -153,9 +154,9 @@ class BeamDecoder(GreedyDecoder):
             for k, v in new.items():
                 st[k].copy_(v)
             sum_lp.copy_(top_lp.reshape(BK))
-            new_logits, _, _ = self._decoder(
-                next_tok[:, None], xa, pos0 + step_t, caches, cross_kvs,
-                pad_k)
+            new_logits, _, _ = self.model.decoder(
+                next_tok[:, None], xa, pos0 + step_t, caches,
+                cross_kvs=cross_kvs, pad_lens=pad_k)
             cur_logits.copy_(new_logits[:, 0])
             step_t.add_(1)
 

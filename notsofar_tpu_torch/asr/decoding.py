@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
-from notsofar_tpu_torch.models.whisper import WhisperModel, uses_xattn_int8
+from notsofar_tpu_torch.models.whisper import (  # noqa: F401 (re-exported)
+    DECODER_CALLS, WhisperModel, reset_decoder_calls)
 from notsofar_tpu_torch.ops import kernels
 from notsofar_tpu_torch.utils.cuda_graph import StepGraph, capture_stream
 
@@ -105,15 +106,6 @@ class DecodeOptions:
     # the xattn_int8 kernel at every decode step: a quarter of the f32
     # bytes, half of bf16's, so a dispatch can hold more rows
     cross_kv_quant: bool = False
-
-
-# decoder calls whose cross-attention reads int8 memory at a folded query
-# length the xattn_int8 kernel serves: each launches it once per layer
-DECODER_CALLS: Dict[str, int] = {"xattn_int8": 0}
-
-
-def reset_decoder_calls() -> None:
-    DECODER_CALLS["xattn_int8"] = 0
 
 
 # decode steps run eagerly and replayed from CUDA graphs, graph captures
@@ -238,14 +230,6 @@ class GreedyDecoder:
             cross_kvs = self.model.quantize_cross_kv(cross_kvs)
         return cross_kvs
 
-    def _decoder(self, tokens, xa, pos_offset, caches, cross_kvs, pad_lens):
-        """model.decoder, counting the calls whose cross-attention reaches
-        xattn_int8 (the rule MHA dispatches by)."""
-        if uses_xattn_int8(tokens.shape[0], tokens.shape[1], cross_kvs[0]):
-            DECODER_CALLS["xattn_int8"] += 1
-        return self.model.decoder(tokens, xa, pos_offset, caches,
-                                  cross_kvs=cross_kvs, pad_lens=pad_lens)
-
     def _run_steps(self, step, max_new: int, finished: torch.Tensor,
                    graph: Optional[bool],
                    generators: Sequence[torch.Generator] = ()) -> None:
@@ -325,8 +309,9 @@ class GreedyDecoder:
         cache_len = min(-(-budget // 64) * 64, model.dims.n_text_ctx)
         caches = model.empty_kv_caches(B, cache_len=cache_len)
         cross_kvs = self._cross_kvs(xa)
-        logits, caches, _ = self._decoder(prompt_tokens, xa, 0, caches,
-                                          cross_kvs, pad_lens)
+        logits, caches, _ = model.decoder(prompt_tokens, xa, 0, caches,
+                                          cross_kvs=cross_kvs,
+                                          pad_lens=pad_lens)
         no_speech_prob = torch.softmax(
             logits[:, self._sot_pos(prompt_len)], dim=-1)[:, tok.no_speech]
 
@@ -373,9 +358,9 @@ class GreedyDecoder:
             st["prev_was_ts"].copy_(is_ts)
             st["finished"].copy_(new_finished)
             tokens_buf.index_copy_(1, step_t.reshape(1), next_tok[:, None])
-            new_logits, _, _ = self._decoder(
+            new_logits, _, _ = model.decoder(
                 next_tok[:, None], xa, prompt_len + step_t, caches,
-                cross_kvs, pad_lens)
+                cross_kvs=cross_kvs, pad_lens=pad_lens)
             cur_logits.copy_(new_logits[:, 0])
             step_t.add_(1)
 

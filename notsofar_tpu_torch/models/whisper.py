@@ -12,7 +12,12 @@ weights rounded to the value dtype before the weights-times-values
 product. ``MHA`` keeps the reference's four kernel dispatch predicates
 exactly (split cache, T=1 cache step, encoder 512 <= T == S <= 2048, int8
 cross-attention memory at a folded query length <= 8), so the same calls
-reach the same kernels on both sides.
+reach the same kernels on both sides. Two more kernels serve the decode
+step where the reference relies on XLA fusing dtype conversions into its
+dots: ``xattn_step`` (the float cross-attention memory at a folded query
+length <= 8) and ``decode_gemv`` (QuantDense and the int8 or bf16 output
+logits at up to DECODE_GEMV_MAX_ROWS rows), each reading its operand
+once in the stored dtype.
 
 The int8 decoder (``quant_decoder=True``, the JAX package's serving
 configuration) stores every decoder matrix weight-only int8 with f32
@@ -31,8 +36,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from notsofar_tpu_torch.ops.kernels import (attn_step, attn_step_split,
-                                            encoder_mha, xattn_int8)
+from notsofar_tpu_torch.ops.kernels import (XATTN_STEP_MAX_TQ, attn_step,
+                                            attn_step_split, decode_gemv,
+                                            encoder_mha, uses_decode_gemv,
+                                            xattn_int8, xattn_step)
 from notsofar_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-5
@@ -46,6 +53,28 @@ def uses_xattn_int8(B: int, T: int, precomputed_kv) -> bool:
     into it (B // Bm of them), is at most XATTN_INT8_MAX_TQ."""
     return len(precomputed_kv) == 5 and \
         B // precomputed_kv[0].shape[0] * T <= XATTN_INT8_MAX_TQ
+
+
+def uses_xattn_step(B: int, T: int, precomputed_kv) -> bool:
+    """Whether cross-attention of B x T queries against the memory
+    `precomputed_kv` goes through the xattn_step kernel: the memory is the
+    float (k, v) pair and the folded query length is at most
+    XATTN_STEP_MAX_TQ (the decode steps; prefill keeps the matmul path)."""
+    return len(precomputed_kv) == 2 and \
+        B // precomputed_kv[0].shape[0] * T <= XATTN_STEP_MAX_TQ
+
+
+# TextDecoder.forward calls whose work reaches each kernel by the rules MHA,
+# QuantDense and the logits dispatch by: an xattn_int8 or xattn_step call
+# launches it once per layer, a decode_gemv call
+# TextDecoder.decode_gemv_per_call() times
+DECODER_CALLS: Dict[str, int] = {"xattn_int8": 0, "xattn_step": 0,
+                                 "decode_gemv": 0}
+
+
+def reset_decoder_calls() -> None:
+    for k in DECODER_CALLS:
+        DECODER_CALLS[k] = 0
 
 
 @dataclass(frozen=True)
@@ -95,29 +124,40 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000
 
 class QuantDense(nn.Module):
     """Weight-only int8 Dense (JAX QuantDense): an int8 weight [out, in]
-    (the openai Linear layout) with an f32 per-output-channel scale,
-    widened to the compute dtype per call. Each step rounds to the compute
-    dtype as flax does: y = x @ w8, then y * s, then + b. The scale is
-    never folded into the weight and the bias never enters the product:
-    either would move a bf16 rounding point. ``dtype`` is the compute
-    dtype (WhisperModel sets it)."""
+    (the openai Linear layout) with an f32 per-output-channel scale. Each
+    step rounds to the compute dtype as flax does: y = x @ w8, then y * s,
+    then + b. The scale is never folded into the weight and the bias never
+    enters the product: either would move a bf16 rounding point. ``dtype``
+    is the compute dtype (WhisperModel sets it); x is cast to it here. Up to
+    DECODE_GEMV_MAX_ROWS rows (decode steps) go through decode_gemv, which
+    reads the int8 weight once; more rows (prefill) widen it for a
+    matmul. ``out_dtype`` f32 returns the same rounded values stored as
+    f32 (for an output added to the int8 decoder's f32 residual stream)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
         super().__init__()
         self.dtype = torch.float32
+        self.out_dtype: Optional[torch.dtype] = None
         self.register_buffer("weight", torch.zeros(
             (out_features, in_features), dtype=torch.int8))
         self.register_buffer("scale", torch.ones(out_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias \
             else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, post=None) -> torch.Tensor:
+        """post: decode_gemv's optional last step, (s, p, rows per group);
+        decode steps only (DECODE_GEMV_MAX_ROWS rows)."""
         dt = self.dtype
+        if uses_decode_gemv(x.numel() // x.shape[-1], self.weight.dtype):
+            return decode_gemv(x, self.weight, dt, self.scale, self.bias,
+                               out_dtype=self.out_dtype, post=post)
+        if post is not None:
+            raise ValueError("QuantDense: post serves decode steps only")
         y = torch.matmul(x.to(dt), self.weight.to(dt).T) * self.scale.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
-        return y
+        return y if self.out_dtype is None else y.to(self.out_dtype)
 
 
 class QuantEmbedding(nn.Module):
@@ -134,14 +174,25 @@ class QuantEmbedding(nn.Module):
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm that promotes like flax's: an f32 input with bf16
     parameters (the int8 decoder's f32 residual stream) is normalized in
-    f32 with the parameters' values, and stays f32."""
+    f32 with the parameters' values, and stays f32. The promoted copies of
+    the parameters are made once and kept until the parameters change
+    (their version counters), not at every decode step."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         return F.layer_norm(x.to(dt), self.normalized_shape,
-                            self.weight.to(dt), self.bias.to(dt), self.eps)
+                            *self._params_as(dt), self.eps)
+
+    def _params_as(self, dt: torch.dtype):
+        key = (dt, self.weight.data_ptr(), self.weight._version,
+               self.bias.data_ptr(), self.bias._version)
+        cached = getattr(self, "_promoted", None)
+        if cached is None or cached[0] != key:
+            cached = (key, self.weight.to(dt), self.bias.to(dt))
+            self._promoted = cached
+        return cached[1:]
 
 
 def _dense(quant: bool, n_in: int, n_out: int, bias: bool = True):
@@ -157,8 +208,9 @@ def _dtype(layer: nn.Module) -> torch.dtype:
 
 def _lin(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Dense in the layer's compute dtype (flax Dense(dtype) casts its
-    input)."""
-    return layer(x.to(_dtype(layer)))
+    input; QuantDense casts its own, in decode_gemv's case on the card)."""
+    return layer(x) if isinstance(layer, QuantDense) else \
+        layer(x.to(layer.weight.dtype))
 
 
 class CacheSlot(NamedTuple):
@@ -206,10 +258,10 @@ class MHA(nn.Module):
         d_k = self.n_state // self.n_head
         H = self.n_head
         dtype = _dtype(self.query)
-        q = _lin(self.query, x)
         if precomputed_kv is not None:
-            out, w = self._attend_precomputed(q, precomputed_kv, mask)
+            out, w = self._attend_precomputed(x, precomputed_kv, mask)
             return _lin(self.out, out), w, None
+        q = _lin(self.query, x)
         src = x if xa is None else xa
         k = _lin(self.key, src)
         v = _lin(self.value, src)
@@ -299,38 +351,70 @@ class MHA(nn.Module):
         out = out.transpose(1, 2).reshape(B, T, self.n_state)
         return _lin(self.out, out), w, new_cache
 
-    def _attend_precomputed(self, q, precomputed_kv, mask):
-        """Cross-attention against an already-projected memory: (k, v)
-        [Bm, S, D], or the int8 5-tuple (k8, k_scale, v8, v_scale,
-        s_valid). When the query batch B is a multiple of Bm (beam search:
-        K beams share one window's memory) the beam axis folds into the
-        query-time axis, so the memory is read once per window.
+    def _q_scales(self, k_s: torch.Tensor, scale: float):
+        """(scale as a 1-element f32 tensor, k_s * scale) for the int8
+        decode steps: q * the first is q.float() * scale in one kernel; the
+        second is made once per cross-attention memory (kept while k_s is
+        this very tensor) instead of at every step. The same products as
+        the reference's, bit for bit."""
+        cached = getattr(self, "_q_scale_cache", None)
+        if cached is None or cached[0] is not k_s:
+            cached = (k_s, torch.full((1,), scale, dtype=torch.float32,
+                                      device=k_s.device), k_s * scale)
+            self._q_scale_cache = cached
+        return cached[1:]
+
+    def _attend_precomputed(self, x, precomputed_kv, mask):
+        """Cross-attention of the queries of x [B, T, D] against an
+        already-projected memory: (k, v) [Bm, S, D], or the int8 5-tuple
+        (k8, k_scale, v8, v_scale, s_valid). When the query batch B is a
+        multiple of Bm (beam search: K beams share one window's memory) the
+        beam axis folds into the query-time axis, so the memory is read once
+        per window.
         Returns (out [B, T, D] pre-out-projection, weights or None)."""
         d_k = self.n_state // self.n_head
         H = self.n_head
         dtype = _dtype(self.query)
-        B, T, _ = q.shape
+        B, T, _ = x.shape
         k = precomputed_kv[0]
         Bm, S = k.shape[:2]
         fold = Bm != B
         if fold:
             assert mask is None and B % Bm == 0
-            q = q.reshape(Bm, (B // Bm) * T, self.n_state)
-        Tq = q.shape[1]
+        Tq = (B // Bm) * T
         scale = d_k ** -0.25
+        if len(precomputed_kv) == 5 and uses_xattn_int8(B, T, precomputed_kv):
+            # decode steps: the k-scales and both scale factors fold into q
+            # in f32, ((q * s) * (k_s * s)) rounded to the dtype: in the
+            # query's decode_gemv where it serves the rows (the
+            # reference's fusion into the dot), else in two kernels; the
+            # kernel reads the int8 bytes (decode paths never consume
+            # these attention weights)
+            assert mask is None, "quantized cross-attention is unmasked"
+            k8, k_s, v8, v_s, s_valid = precomputed_kv
+            s1, ks_s = self._q_scales(k_s, scale)
+            if isinstance(self.query, QuantDense) and uses_decode_gemv(
+                    B * T, self.query.weight.dtype):
+                q_eff = self.query(x, post=(scale, ks_s.reshape(Bm, -1), Tq))
+            else:
+                q = _lin(self.query, x)
+                q_eff = torch.mul(q.reshape(Bm, Tq, self.n_state) * s1,
+                                  ks_s, out=torch.empty(
+                                      (Bm, Tq, self.n_state), dtype=dtype,
+                                      device=x.device))
+            out = xattn_int8(q_eff.reshape(Bm, Tq, self.n_state), k8, v8,
+                             v_s[:, 0].contiguous(), d_k, s_valid)
+            if fold:
+                out = out.reshape(B, T, self.n_state)
+            # f32: the out projection rounds it to the dtype on its way in,
+            # the reference's out.astype(dtype)
+            return out, None
+        q = _lin(self.query, x)
+        if fold:
+            q = q.reshape(Bm, Tq, self.n_state)
         if len(precomputed_kv) == 5:
             assert mask is None, "quantized cross-attention is unmasked"
             k8, k_s, v8, v_s, s_valid = precomputed_kv
-            if uses_xattn_int8(B, T, precomputed_kv):
-                # decode steps: the k-scales and both scale factors fold
-                # into q in f32; the kernel reads the int8 bytes (decode
-                # paths never consume these attention weights)
-                q_eff = ((q.float() * scale) * (k_s * scale)).to(dtype)
-                out = xattn_int8(q_eff.contiguous(), k8, v8,
-                                 v_s[:, 0].contiguous(), d_k, s_valid)
-                if fold:
-                    out = out.reshape(B, T, self.n_state)
-                return out.to(dtype), None
             # prefill: one dequantized pass with the padding masked
             k = (k8.float() * k_s).to(dtype)
             v = (v8.float() * v_s).to(dtype)
@@ -339,6 +423,15 @@ class MHA(nn.Module):
                 torch.tensor(-1e30, device=q.device),
                 torch.tensor(0.0, device=q.device))[None, None, None, :]
         else:
+            if uses_xattn_step(B, T, precomputed_kv):
+                # decode steps: the kernel reads the bf16 memory once,
+                # scaling and rounding k in registers (no weights returned:
+                # decode paths never consume them)
+                assert mask is None, "the decode cross-attention is unmasked"
+                out = xattn_step(q.contiguous(), k, precomputed_kv[1], d_k)
+                if fold:
+                    out = out.reshape(B, T, self.n_state)
+                return out, None
             v = precomputed_kv[1]
         qh = q.reshape(Bm, Tq, H, d_k).transpose(1, 2)
         kh = k.reshape(Bm, S, H, d_k).transpose(1, 2)
@@ -369,6 +462,13 @@ class ResidualBlock(nn.Module):
                                  nn.GELU(approximate="none"),
                                  _dense(quant, 4 * n_state, n_state))
         self.mlp_ln = LayerNorm(n_state, eps=LN_EPS)
+        if quant:
+            # the int8 decoder's residual stream is f32: the layers whose
+            # outputs are only added to it store their rounded outputs as
+            # f32 (the same values), so that each add reads one dtype
+            for layer in (self.attn.out, self.mlp[2]) + (
+                    (self.cross_attn.out,) if cross_attention else ()):
+                layer.out_dtype = torch.float32
 
     def forward(self, x, xa=None, mask=None, kv_cache=None, cache_index=None,
                 cross_kv=None, pad_lens=None):
@@ -448,6 +548,12 @@ class TextDecoder(nn.Module):
         on_device = isinstance(pos_offset, torch.Tensor)
         if on_device and T != 1:
             raise ValueError("a pos_offset tensor serves single-token steps")
+        B = tokens.shape[0]
+        if cross_kvs is not None:
+            DECODER_CALLS["xattn_int8"] += uses_xattn_int8(B, T, cross_kvs[0])
+            DECODER_CALLS["xattn_step"] += uses_xattn_step(B, T, cross_kvs[0])
+        DECODER_CALLS["decode_gemv"] += uses_decode_gemv(
+            B * T, self.token_embedding.weight.dtype)
         if self.quant:
             # int8 rows times their scale, in f32: the int8 decoder's
             # residual stream is f32 (as in flax, f32 + bf16 positions)
@@ -515,18 +621,27 @@ class TextDecoder(nn.Module):
             if return_cross_attn:
                 cross_ws.append(cw)
         x = self.ln(x)
+        emb = self.token_embedding
         if self.quant:
-            # bf16 x times the widened int8 rows, summed in f32, times the
-            # per-row scale (the JAX einsum's preferred_element_type=f32)
-            dt = self.ln.weight.dtype
-            emb8 = self.token_embedding
-            logits = torch.matmul(x.to(dt).float(),
-                                  emb8.weight.float().T) * emb8.scale
+            # bf16 x times the int8 rows, summed in f32, times the per-row
+            # scale (the JAX einsum's preferred_element_type=f32)
+            logits = decode_gemv(x, emb.weight, self.ln.weight.dtype,
+                                 emb.scale, logits=True) \
+                if uses_decode_gemv(B * T, emb.weight.dtype) else \
+                torch.matmul(x.to(self.ln.weight.dtype).float(),
+                             emb.weight.float().T) * emb.scale
+        elif uses_decode_gemv(B * T, emb.weight.dtype):
+            logits = decode_gemv(x, emb.weight, x.dtype, logits=True)
         else:
-            logits = torch.matmul(x.float(),
-                                  self.token_embedding.weight.float().T)
+            logits = torch.matmul(x.float(), emb.weight.float().T)
         return logits, (new_caches if kv_caches is not None else None), \
             cross_ws
+
+    def decode_gemv_per_call(self) -> int:
+        """decode_gemv launches of a forward call that DECODER_CALLS counts
+        under it: 8 QuantDense layers a block and the logits (int8), or the
+        logits alone (bf16)."""
+        return 8 * len(self.blocks) + 1 if self.quant else 1
 
 
 class WhisperModel(nn.Module):

@@ -22,12 +22,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d",
            "masked_scm", "xattn_int8", "xattn_stream", "xattn_onedot",
-           "attn_step_split_bias")
+           "attn_step_split_bias", "xattn_step", "decode_gemv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures (all return the launch's cudaGetLastError())
 _ARGTYPES = {
     "encoder_mha": ("encoder_mha", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -38,15 +39,20 @@ _ARGTYPES = {
                                             _I, _I, _P]),
     "depthwise_conv1d": ("depthwise_conv1d", [_P, _P, _P, _I, _I, _I, _I,
                                               _I, _P]),
-    "masked_scm": ("masked_scm", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "masked_scm": ("masked_scm", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "xattn_int8": ("xattn_int8", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _P]),
     "xattn_stream": ("xattn_stream", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "xattn_onedot": ("xattn_onedot", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _P]),
+                                      _I, _I, _P]),
     "attn_step_split_bias": ("attn_step_split_bias",
                              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P]),
+    "xattn_step": ("xattn_step", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _P]),
+    "decode_gemv": ("decode_gemv", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
+                                    _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

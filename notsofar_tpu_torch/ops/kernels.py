@@ -1,8 +1,10 @@
 """The port's kernels (the ASR path's attention kernels, the int8
 decoder's cross-attention, the TitaNet depthwise conv, MVDR's masked
-covariance, and the three variants that the kernel-decomposition tools
-time: xattn_stream, xattn_onedot, attn_step_split_bias): CUDA wrappers,
-plain versions and launch counters.
+covariance, the three variants that the kernel-decomposition tools time:
+xattn_stream, xattn_onedot, attn_step_split_bias; and two kernels for
+work the JAX package leaves to XLA fusion on the decode step: the float
+cross-attention xattn_step and the weight-only GEMV decode_gemv): CUDA
+wrappers, plain versions and launch counters.
 
 Each function here has three parts:
 
@@ -17,9 +19,10 @@ Each function here has three parts:
   weights rounded to the value dtype before the f32 p.v product). The CPU
   tests hold it to the JAX package; the card holds the kernel to it.
 * the kernel source, which names the TPU kernel it replaces
-  (notsofar_tpu/ops/pallas_kernels.py) and what bounds it on an H100.
+  (notsofar_tpu/ops/pallas_kernels.py), or the XLA-fused reference code,
+  and what bounds it on an H100.
 """
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -602,6 +605,22 @@ def masked_scm_plain(wta: torch.Tensor, stft_c: torch.Tensor) -> torch.Tensor:
     return scm + 1e-15 * eye
 
 
+MASKED_SCM_STAGES = 2        # buffers of 32 frames a warp keeps in flight
+MASKED_SCM_WARPS = 4         # frequencies a block
+
+
+def masked_scm_launch(B: int, F: int, K: int, M: int,
+                      stages: int = MASKED_SCM_STAGES) -> dict:
+    """Grid and shared memory of the CUDA kernel (csrc/masked_scm.cu): a
+    warp per (b, f) pair, 4 a block, grid (ceil(F / 4), B); each warp's
+    ring of `stages` buffers of 32 frames (x, then the K masks, each
+    16-byte aligned) behind the blocks' 8 mbarriers a warp."""
+    buf = _align(32 * M * 8, 16) + _align(32 * K * 4, 16)
+    return dict(grid=(-(-F // MASKED_SCM_WARPS), B),
+                threads=32 * MASKED_SCM_WARPS, stages=stages,
+                smem=MASKED_SCM_WARPS * (8 * 8 + stages * buf))
+
+
 def masked_scm(wta: torch.Tensor, stft_c: torch.Tensor) -> torch.Tensor:
     """Masked spatial covariance matrices for MVDR.
 
@@ -624,7 +643,7 @@ def masked_scm(wta: torch.Tensor, stft_c: torch.Tensor) -> torch.Tensor:
                       device=wta.device)
     lib = build.load("masked_scm")
     rc = lib.masked_scm(wta.data_ptr(), stft_c.data_ptr(), out.data_ptr(),
-                        B, F, T, K, M, _stream())
+                        B, F, T, K, M, MASKED_SCM_STAGES, _stream())
     LAUNCHES["masked_scm"] += 1
     _check_rc("masked_scm", rc)
     return out
@@ -819,6 +838,27 @@ def xattn_onedot_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     return prod.sum(dim=1, keepdim=True) * v_scale[:, None, :]
 
 
+ONEDOT_THREADS = 512         # threads per block of the CUDA kernel
+
+
+def xattn_onedot_launch(B: int, S: int, D: int, dk: int,
+                        s_valid: int) -> dict:
+    """Grid, cluster size, key shares and shared memory of the CUDA kernel
+    (csrc/xattn_onedot.cu): a cluster of R blocks along x per row, grid (R,
+    B), R from S (_cluster_size: 8 at the tool's 1504 keys); block r holds
+    every head's logits of its share of the s_valid keys ([H][SP], SP odd),
+    its key subsets' partial outputs, the peers' partial outputs of its
+    slice and the stats."""
+    H = D // dk
+    R = _cluster_size(S)
+    SP = -(-s_valid // R) | 1
+    ksub = ONEDOT_THREADS // (D // 8)
+    stats = _align(D + H * SP + ksub * D + R * -(-D // R), 2)
+    return dict(grid=(R, B), threads=ONEDOT_THREADS, cluster=R,
+                shares=split_shares(s_valid, R),
+                smem=4 * (stats + 2 * (R + 1) * H))
+
+
 def xattn_onedot(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                  v_scale: torch.Tensor, dk: int, s_valid: int) -> torch.Tensor:
     """The one-matmul variant of xattn_int8 that the kernel-decomposition
@@ -845,19 +885,317 @@ def xattn_onedot(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
             v8.dtype != torch.int8 or v_scale.dtype != torch.float32:
         raise ValueError("xattn_onedot: q bf16, k8/v8 int8, v_scale f32")
     if dk not in (64, 128) or D % dk or D > 4096 or \
-            not 0 < B <= 2 ** 31 - 1 or not 0 < s_valid <= S:
-        raise ValueError(f"xattn_onedot: dk={dk} with D={D} <= 4096, B={B}, "
-                         f"0 < s_valid={s_valid} <= S={S}")
-    H = D // dk
-    smem = (D + H * (S | 1) + 512 // (D // 8) * D) * 4
-    if smem > 232448:
-        raise ValueError(f"xattn_onedot: S={S} needs {smem} bytes of shared "
-                         "memory (227 KB per block)")
+            not 0 < B <= 65535 or not 0 < s_valid <= S:
+        raise ValueError(f"xattn_onedot: dk={dk} with D={D} <= 4096, B={B} "
+                         f"in [1, 65535], 0 < s_valid={s_valid} <= S={S}")
+    plan = xattn_onedot_launch(B, S, D, dk, s_valid)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"xattn_onedot: S={S} needs {plan['smem']} bytes of "
+                         "shared memory per block (227 KB)")
     out = torch.empty((B, 1, D), dtype=torch.float32, device=q.device)
     lib = build.load("xattn_onedot")
     rc = lib.xattn_onedot(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
                           v_scale.data_ptr(), out.data_ptr(), B, S, D, dk,
-                          s_valid, _stream())
+                          s_valid, plan["cluster"], _stream())
     LAUNCHES["xattn_onedot"] += 1
     _check_rc("xattn_onedot", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# xattn_step (the float branch of MHA._attend_precomputed,
+# notsofar_tpu/models/whisper.py:324-335, two XLA einsums there)
+# ---------------------------------------------------------------------------
+
+XATTN_STEP_MAX_TQ = 8        # folded query lengths the kernel serves
+XATTN_STEP_THREADS = 128     # threads per block of the CUDA kernel
+XATTN_STEP_CLUSTER = 4       # blocks per (head, window) (phase 2's sweep)
+
+
+def xattn_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dk: int) -> torch.Tensor:
+    """q [B, Tq, D], k/v [B, S, D], one dtype (bf16 or f32) -> [B, Tq, D]
+    in that dtype: per head, f32 logits of dtype(q * dk**-0.25) and
+    dtype(k * dk**-0.25), f32 softmax, weights rounded to the dtype, f32
+    p.v, the output rounded to the dtype (the model's matmul path)."""
+    B, Tq, D = q.shape
+    S = k.shape[1]
+    H = D // dk
+    scale = dk ** -0.25
+    qh = q.reshape(B, Tq, H, dk).transpose(1, 2)
+    kh = k.reshape(B, S, H, dk).transpose(1, 2)
+    vh = v.reshape(B, S, H, dk).transpose(1, 2)
+    logits = torch.matmul((qh * scale).float(),
+                          (kh * scale).float().transpose(-1, -2))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.matmul(w.to(q.dtype).float(), vh.to(q.dtype).float())
+    return out.transpose(1, 2).reshape(B, Tq, D).to(q.dtype)
+
+
+def xattn_step_smem(per: int, dk: int, esize: int, T: int, R: int) -> int:
+    """Bytes of shared memory of one block (csrc/xattn_step.cu layout):
+    mbarriers, the raw queries, key rows, value rows, logits, the [4
+    warps, T, dk] partial outputs, the peers' partial outputs of its
+    slice, stats."""
+    return (_align(8 * (1 + -(-per // 32)), 128) + T * dk * esize
+            + 2 * per * dk * esize + T * per * 4 + 4 * T * dk * 4
+            + _align(R * -(-T * dk // R) * 4, 16) + 8 * T * (R + 1))
+
+
+def xattn_step_launch(B: int, T: int, S: int, D: int, dk: int,
+                      dtype: torch.dtype) -> dict:
+    """Grid, cluster size, key shares and shared memory of the CUDA kernel
+    from the shapes alone: a cluster of R blocks along x per (head,
+    window) pair, grid (R, H, B), block r staging its share of the S keys'
+    key and value rows in shared memory. R = XATTN_STEP_CLUSTER (of R =
+    2-8, the fastest at 3 windows x Tq 1 and 5 against 1500 frames, phase
+    2), fewer where S gives fewer shares of 32 keys, more where a share
+    would not fit a block's shared memory."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    R = min(XATTN_STEP_CLUSTER, _cluster_size(S))
+    while True:
+        per = _share_rows(S, R)
+        smem = xattn_step_smem(per, dk, esize, T, R)
+        if smem <= SMEM_LIMIT or R == SPLIT_MAX_CLUSTER:
+            break
+        R += 1
+    return dict(grid=(R, D // dk, B), threads=XATTN_STEP_THREADS, cluster=R,
+                per=per, smem=smem, shares=split_shares(S, R))
+
+
+def _xattn_step_plan(q, k, v, dk: int) -> dict:
+    """The wrapper's checks of what the CUDA kernel takes (shapes, dtypes,
+    its shared memory), raising ValueError; returns the launch plan."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError("xattn_step: q [B, Tq, D], k/v [B, S, D]")
+    B, T, D = q.shape
+    S = k.shape[1]
+    if k.shape != (B, S, D) or v.shape != k.shape:
+        raise ValueError("xattn_step: q [B, Tq, D], k/v [B, S, D]")
+    dt = q.dtype
+    if dt not in (torch.bfloat16, torch.float32) or k.dtype != dt or \
+            v.dtype != dt:
+        raise ValueError("xattn_step: q, k and v share bf16 or f32")
+    if not 1 <= T <= XATTN_STEP_MAX_TQ or S == 0:
+        raise ValueError(f"xattn_step: Tq={T} must be in [1, "
+                         f"{XATTN_STEP_MAX_TQ}], S={S} nonzero")
+    if dk not in (64, 128) or D % dk or not 0 < B <= 65535:
+        raise ValueError(f"xattn_step: dk={dk} with D={D}, B={B}")
+    plan = xattn_step_launch(B, T, S, D, dk, dt)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"xattn_step: S={S} needs {plan['smem']} bytes of "
+                         "shared memory per block (227 KB)")
+    return plan
+
+
+def xattn_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               dk: int) -> torch.Tensor:
+    """Fused cross-attention of a decode step against the float memory.
+
+    q: [B, Tq, D] queries (the beams of a window folded into Tq <= 8),
+    unscaled; k/v: [B, S, D] the precomputed cross-attention memory, in
+    q's dtype (bf16 or f32). Returns [B, Tq, D] in that dtype, the
+    pre-out-projection attention output (no weights)."""
+    if not _on_card("xattn_step", q, k, v):
+        return xattn_step_plain(q, k, v, dk)
+    plan = _xattn_step_plan(q, k, v, dk)
+    B, T, D = q.shape
+    out = torch.empty_like(q)
+    lib = build.load("xattn_step")
+    rc = lib.xattn_step(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, T, k.shape[1], D, dk,
+                        dk ** -0.25, plan["cluster"],
+                        int(q.dtype == torch.bfloat16), _stream())
+    LAUNCHES["xattn_step"] += 1
+    _check_rc("xattn_step", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode_gemv (QuantDense and the logits, notsofar_tpu/models/whisper.py
+# :86-97 and :502-507, XLA dots there)
+# ---------------------------------------------------------------------------
+
+DECODE_GEMV_MAX_ROWS = 64    # rows of x the kernel serves (8 tiles of 8)
+DECODE_GEMV_THREADS = 128    # threads per block of the CUDA kernel
+DECODE_GEMV_CHANNELS = 64    # output channels of a block (4 warps x 16)
+DECODE_GEMV_FILL = 2 * 132   # blocks the cluster size aims at (2 an SM)
+DECODE_GEMV_SMEM_AIM = 64 * 1024   # a block's shared memory R aims under
+_GEMV_TILES = (1, 2, 4, 6, 8)   # tiles of 8 rows the kernel is built for
+
+
+# an optional last step of the dense mode: (s, p [G, N] f32, rows per
+# group), y -> dtype((y * s) * p[row // rows]) in f32
+Post = Tuple[float, torch.Tensor, int]
+
+
+def decode_gemv_plain(x: torch.Tensor, weight: torch.Tensor,
+                      dtype: torch.dtype, scale: Optional[torch.Tensor] = None,
+                      bias: Optional[torch.Tensor] = None,
+                      logits: bool = False,
+                      out_dtype: Optional[torch.dtype] = None,
+                      post: Optional[Post] = None) -> torch.Tensor:
+    """x [..., K] times weight [N, K] (int8 or bf16) -> [..., N].
+
+    Dense (QuantDense, flax's rounding points): acc = f32 sum of
+    dtype(x) * w, y = dtype(acc), then dtype(y * dtype(scale)), then
+    dtype(y + dtype(bias)); with post (s, p, rows), then dtype((y * s) *
+    p[row // rows]) in f32 (the int8 cross-attention's query folding:
+    ((q * s) * (k_scale * s)) rounded); returns dtype, or out_dtype (f32)
+    holding those values. Logits: the f32 sum of dtype(x) * w, times the
+    f32 scale where given; returns f32."""
+    acc = torch.matmul(x.to(dtype).float(), weight.float().T)
+    if logits:
+        return acc if scale is None else acc * scale
+    y = acc.to(dtype)
+    if scale is not None:
+        y = y * scale.to(dtype)
+    if bias is not None:
+        y = y + bias.to(dtype)
+    if post is not None:
+        s, p, rows = post
+        ps = p.repeat_interleave(rows, dim=0).reshape(y.shape)
+        y = ((y.float() * s) * ps).to(dtype)
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def _gemv_chunk(wdtype: torch.dtype) -> int:
+    """k of a 64-byte chunk of a weight row (csrc/decode_gemv.cu)."""
+    return 64 if wdtype == torch.int8 else 32
+
+
+def decode_gemv_smem(rows_pad: int, klen: int, wdtype: torch.dtype,
+                     planes: int, M: int, R: int) -> int:
+    """Bytes of shared memory of one block (csrc/decode_gemv.cu
+    smem_bytes): x's share of K as `planes` bf16 planes of rows_pad rows
+    (the row stride padded off the banks of the next row), the peers'
+    partial outputs of its slice, its channels' scale and bias."""
+    stride = _align(klen, 64) + (8 if wdtype == torch.int8 else 32)
+    nout = M * DECODE_GEMV_CHANNELS
+    return (planes * rows_pad * stride * 2 + _align(R * -(-nout // R) * 4, 16)
+            + 2 * DECODE_GEMV_CHANNELS * 4)
+
+
+def decode_gemv_launch(M: int, N: int, K: int, wdtype: torch.dtype,
+                       planes: int) -> dict:
+    """Grid, cluster size, K shares and shared memory of the CUDA kernel
+    for x [M, K] and weight [N, K]: ceil(N / 64) blocks of 64 channels
+    along y; a cluster of R blocks along x splits K's 64-byte chunks into
+    R shares, R the fewest that put DECODE_GEMV_FILL blocks on the card
+    (at most 8 and the chunk count), more where a block's x would take
+    more than DECODE_GEMV_SMEM_AIM bytes (3 blocks an SM; the 48-row
+    logits: R = 1-3 took 0.150, 0.098, 0.098 ms, chip_smoke.py phase 2);
+    tiles of 8 rows from the kernel's instances."""
+    nck = K // _gemv_chunk(wdtype)
+    tiles = -(-N // DECODE_GEMV_CHANNELS)
+    nt = next(t for t in _GEMV_TILES if 8 * t >= M)
+    R = max(1, min(SPLIT_MAX_CLUSTER, nck, -(-DECODE_GEMV_FILL // tiles)))
+
+    def smem(r):
+        return decode_gemv_smem(8 * nt, -(-nck // r) * _gemv_chunk(wdtype),
+                                wdtype, planes, M, r)
+
+    while smem(R) > DECODE_GEMV_SMEM_AIM and R < min(SPLIT_MAX_CLUSTER, nck):
+        R += 1
+    return dict(grid=(R, tiles), threads=DECODE_GEMV_THREADS, cluster=R,
+                tiles=nt, planes=planes, smem=smem(R),
+                shares=split_shares(nck, R))
+
+
+def uses_decode_gemv(rows: int, wdtype: torch.dtype) -> bool:
+    """Whether rows of activations times a weight stored as `wdtype` go
+    through decode_gemv: a decode step's few rows (at most
+    DECODE_GEMV_MAX_ROWS) against int8 or bf16 weights."""
+    return rows <= DECODE_GEMV_MAX_ROWS and wdtype in (torch.int8,
+                                                        torch.bfloat16)
+
+
+def _decode_gemv_plan(x, weight, dtype, scale, bias, logits,
+                      out_dtype=None, post: Optional[Post] = None) -> dict:
+    """The wrapper's checks of what the CUDA kernel takes (shapes, dtypes,
+    its shared memory), raising ValueError; returns the launch plan."""
+    if weight.dim() != 2 or x.dim() < 1 or x.shape[-1] != weight.shape[1]:
+        raise ValueError("decode_gemv: x [..., K], weight [N, K]")
+    N, K = weight.shape
+    M = x.numel() // K if K else 0
+    if not 1 <= M <= DECODE_GEMV_MAX_ROWS or K % 64 or \
+            not 0 < N <= 65535 * 64:
+        raise ValueError(f"decode_gemv: {M} rows must be in [1, "
+                         f"{DECODE_GEMV_MAX_ROWS}], K={K} a multiple of 64, "
+                         f"N={N} in [1, {65535 * 64}]")
+    if weight.dtype not in (torch.int8, torch.bfloat16) or \
+            x.dtype not in (torch.bfloat16, torch.float32) or \
+            dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("decode_gemv: weight int8 or bf16, x and the "
+                         "compute dtype bf16 or f32")
+    if scale is not None and (scale.dtype != torch.float32
+                              or scale.shape != (N,)):
+        raise ValueError("decode_gemv: scale must be f32 [N]")
+    if bias is not None and (logits or bias.shape != (N,) or bias.dtype
+                             not in (torch.bfloat16, torch.float32)):
+        raise ValueError("decode_gemv: bias bf16 or f32 [N], dense only")
+    if out_dtype not in (None, torch.float32) or \
+            (out_dtype is not None and logits):
+        raise ValueError("decode_gemv: out_dtype None or f32, dense only")
+    if post is not None:
+        _, p, rows = post
+        if logits or out_dtype is not None or rows < 1 or M % rows or \
+                p.dtype != torch.float32 or p.shape != (M // rows, N) or \
+                p.device != x.device or not p.is_contiguous():
+            raise ValueError("decode_gemv: post (s, p [rows / group, N] f32 "
+                             "contiguous, group) with dense, dtype output")
+    planes = 3 if x.dtype == dtype == torch.float32 else 1
+    plan = decode_gemv_launch(M, N, K, weight.dtype, planes)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"decode_gemv: {M} rows of K={K} need "
+                         f"{plan['smem']} bytes of shared memory per block "
+                         "(227 KB)")
+    return plan
+
+
+def decode_gemv(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
+                scale: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None,
+                logits: bool = False,
+                out_dtype: Optional[torch.dtype] = None,
+                post: Optional[Post] = None) -> torch.Tensor:
+    """A decode step's few rows times a weight matrix read once in its
+    stored type, never widened in device memory.
+
+    x: [..., K] bf16 or f32 (at most DECODE_GEMV_MAX_ROWS rows), rounded to
+    the compute dtype `dtype` (bf16 or f32) on the way in; weight: [N, K]
+    int8 or bf16, K % 64 == 0; scale: [N] f32 or None; bias: [N] bf16 or
+    f32 or None. Dense (QuantDense): returns [..., N] in `dtype`, the
+    product rounded, then scaled, then biased, each rounded, then the
+    optional post step (stored as f32 with out_dtype f32, for a caller that
+    adds it to an f32 stream). Logits: returns [..., N] f32, the f32
+    product times the scale where given (see decode_gemv_plain)."""
+    tensors = [x, weight] + [t for t in (scale, bias) if t is not None]
+    if post is not None:
+        tensors.append(post[1])
+    if not _on_card("decode_gemv", *tensors):
+        return decode_gemv_plain(x, weight, dtype, scale, bias, logits,
+                                 out_dtype, post)
+    plan = _decode_gemv_plan(x, weight, dtype, scale, bias, logits, out_dtype,
+                             post)
+    N, K = weight.shape
+    M = x.numel() // K
+    out = torch.empty((*x.shape[:-1], N),
+                      dtype=torch.float32 if logits else out_dtype or dtype,
+                      device=x.device)
+    lib = build.load("decode_gemv")
+    rc = lib.decode_gemv(
+        x.data_ptr(), weight.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
+        plan["tiles"], plan["planes"], plan["cluster"],
+        int(x.dtype == torch.float32), int(weight.dtype == torch.int8),
+        int(dtype == torch.bfloat16),
+        int(bias is not None and bias.dtype == torch.float32), int(logits),
+        int(out_dtype == torch.float32),
+        None if post is None else post[1].data_ptr(),
+        0.0 if post is None else post[0], 1 if post is None else post[2],
+        _stream())
+    LAUNCHES["decode_gemv"] += 1
+    _check_rc("decode_gemv", rc)
     return out

@@ -20,9 +20,14 @@ the sum over bins of the bin's launches times the ms per launch. Every row has p
 reads keys 0..pos), the traffic's cache dtype is bf16, and D, dk are
 large-v3's (1280, 64). The bound reads each visible key's K and V row and
 q once, writes the f32 output once, at 3.35 TB/s (the H100's HBM rate).
+The same traffic is also timed through the plain version
+(kernels.attn_step_plain) and one PyTorch call on the same work
+(scaled_dot_product_attention with the step's visibility as a boolean
+mask; a yardstick the port never calls), each in the same graphs.
 
 Prints one line per (rows, cache length) and, last, a JSON object with
-the ms and launches by phase. Runs only on a CUDA card.
+the ms (kernel, plain version, library) and launches by phase. Runs only
+on a CUDA card.
 """
 import argparse
 import json
@@ -63,7 +68,7 @@ def main(argv=None) -> int:
     bf = torch.bfloat16
     ms_by_phase = defaultdict(float)
     launches_by_phase = defaultdict(int)
-    bound_total = 0.0
+    bound_total = plain_total = library_total = 0.0
     for (B, ctx), bins in sorted(groups.items()):
         layers = [tuple(torch.randn((B, ctx, D), generator=g, device="cuda")
                         .to(bf) for _ in range(2)) for _ in range(LAYERS)]
@@ -77,6 +82,21 @@ def main(argv=None) -> int:
             per_launch = graph_ms(
                 lambda: [K.attn_step(q, k, v, pos, pads, DK)
                          for k, v in layers], args.reps) / LAYERS
+            plain = graph_ms(
+                lambda: [K.attn_step_plain(q, k, v, pos, pads, DK)
+                         for k, v in layers], args.reps) / LAYERS
+            mask = (torch.arange(ctx, device="cuda") <= pos)[None, None,
+                                                              None]
+            H = D // DK
+            heads = [tuple(t.view(B, ctx, H, DK).transpose(1, 2)
+                           for t in kv) for kv in layers]
+            qh = q.view(B, 1, H, DK).transpose(1, 2)
+            library = graph_ms(
+                lambda: [torch.nn.functional.scaled_dot_product_attention(
+                    qh, k, v, attn_mask=mask, scale=1.0) for k, v in heads],
+                args.reps) / LAYERS
+            plain_total += n_bin * plain
+            library_total += n_bin * library
             for (p, phase), n in cells.items():
                 ms_by_phase[phase] += n * per_launch
                 launches_by_phase[phase] += n
@@ -92,7 +112,8 @@ def main(argv=None) -> int:
     total = sum(ms_by_phase.values())
     print(json.dumps({
         "root": str(root), "launches": sum(launches_by_phase.values()),
-        "ms": total, "bound_ms": bound_total,
+        "ms": total, "bound_ms": bound_total, "plain_ms": plain_total,
+        "library_ms": library_total,
         "ms_by_phase": dict(ms_by_phase),
         "launches_by_phase": dict(launches_by_phase)}))
     return 0

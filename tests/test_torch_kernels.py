@@ -532,6 +532,13 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
         tk.attn_step_split_bias_plain(q1, k8[:, :32].bfloat16(),
                                       k8[:, :32].bfloat16(), k8.bfloat16(),
                                       k8.bfloat16(), bias, 64))
+    kf = k8[:, :32].bfloat16()
+    torch.testing.assert_close(tk.xattn_step(q1, kf, kf, 64),
+                               tk.xattn_step_plain(q1, kf, kf, 64))
+    w8, sc = k8[0, :, :128], torch.rand(32)          # [N 32, K 128] int8
+    torch.testing.assert_close(
+        tk.decode_gemv(q1, w8, torch.bfloat16, sc, logits=True),
+        tk.decode_gemv_plain(q1, w8, torch.bfloat16, sc, logits=True))
     assert all(n == 0 for n in tk.LAUNCHES.values())
 
 
@@ -699,6 +706,272 @@ def test_split_bias_wrapper_raises_exactly_where_the_plan_passes_smem(dtype):
 
 
 # ---------------------------------------------------------------------------
+# xattn_step and decode_gemv: the decode step's float cross-attention and
+# weight-only GEMV (XLA-fused in the JAX package, no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+def xattn_step_tolerance(q, k, v, dk, dtype, jax_scale=True) -> np.ndarray:
+    """Per-output bound on the float cross-attention of the JAX package
+    against the port's, on q [B, T, D], k/v [B, S, D] (f32 arrays holding
+    the dtype's values) -> [B, T, D]. Both round dtype(q * s) and dtype(k *
+    s) (s = dk**-0.25), p and the output, and sum in f32 in other orders.
+    In bf16 JAX meets the Python scale as a bf16 weak type (0.353515625)
+    where PyTorch multiplies by f32 s: the logits of the two roundings are
+    computed here in float64, and a logit moved by delta moves a weight by
+    a factor up to exp(2 max delta); beyond that, one weight's bf16
+    rounding may go the other way (2**-7 p_max |v|_max, once), S f32
+    roundings of sum_s p |v|, and the two roundings of the output (one
+    ulp, <= 2**-7 of sum_s p |v|). Without jax_scale (the kernel against
+    its plain version, both rounding with f32 s) a logit moves only by its
+    f32 order: dk roundings of sum_d |q s| |k s|."""
+    B, T, D = q.shape
+    H = D // dk
+    s = dk ** -0.25
+    qh = q.reshape(B, T, H, dk).astype(np.float32)
+    kh = k.reshape(B, -1, H, dk).astype(np.float32)
+    if dtype == "bf16" and jax_scale:
+        s_j = float(bf16_round(np.float32([s]))[0])
+        pairs = [tuple(bf16_round(x * np.float32(sc)) for x in (qh, kh))
+                 for sc in (s_j, s)]
+    else:
+        rnd = bf16_round if dtype == "bf16" else (lambda x: x)
+        pairs = [(rnd(qh * np.float32(s)), rnd(kh * np.float32(s)))] * 2
+    lgs = [np.einsum("bthd,bshd->bhts", a.astype(np.float64),
+                     b.astype(np.float64)) for a, b in pairs]
+    delta = np.abs(lgs[0] - lgs[1]).max(-1)                      # [B, H, T]
+    if not jax_scale or dtype == "f32":
+        delta = delta + dk * 2.0 ** -24 * np.einsum(
+            "bthd,bshd->bhts", np.abs(pairs[1][0]).astype(np.float64),
+            np.abs(pairs[1][1]).astype(np.float64)).max(-1)
+    p = np.exp(lgs[1] - lgs[1].max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    vh = np.abs(v.reshape(B, -1, H, dk).astype(np.float64))
+    mag = np.einsum("bhts,bshd->bthd", p, vh)
+    move = np.expm1(2 * delta).transpose(0, 2, 1)[..., None] * mag
+    flip = 2.0 ** -7 * p.max() * vh.max() if dtype == "bf16" else 0.0
+    out_ulp = 2.0 ** -7 * mag if dtype == "bf16" else 2.0 ** -23 * mag
+    return (move + flip + k.shape[1] * 2.0 ** -24 * mag
+            + out_ulp).reshape(B, T, D)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("Bm,K,T,D,dk,S", [
+    (2, 1, 1, 128, 64, 40),     # greedy: one query a window
+    (2, 3, 1, 128, 64, 40),     # beam 3 folded into the query axis
+    (1, 1, 8, 256, 128, 33),    # Tq 8, dk 128
+    (2, 5, 1, 128, 64, 1500)])  # beam 5 against Whisper's 1500 frames
+def test_xattn_step_plain_matches_jax_attend_precomputed(dtype, Bm, K, T, D,
+                                                         dk, S):
+    """xattn_step_plain on the folded queries against the JAX package's
+    MHA._attend_precomputed float branch on the same q, k, v (its beams
+    folded by the method itself), per output within
+    xattn_step_tolerance; in bf16 the output is bf16 on both sides."""
+    import jax
+    from notsofar_tpu.models import whisper as jw
+    rng = np.random.RandomState(S + K + T)
+    q = rng.randn(Bm * K, T, D).astype(np.float32)
+    k = rng.randn(Bm, S, D).astype(np.float32)
+    v = rng.randn(Bm, S, D).astype(np.float32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    if dtype == "bf16":
+        q, k, v = (bf16_round(x) for x in (q, k, v))
+    mha = jw.MHA(D, D // dk, dtype=jdt)
+    want, w = mha.apply({}, jnp.asarray(q, jdt),
+                        (jnp.asarray(k, jdt), jnp.asarray(v, jdt)), None,
+                        method=jw.MHA._attend_precomputed)
+    want = np.asarray(jax.device_get(want).astype(np.float32))
+    got = tk.xattn_step_plain(t(q).to(tdt).reshape(Bm, K * T, D),
+                              t(k).to(tdt), t(v).to(tdt), dk)
+    assert got.dtype == tdt and got.shape == (Bm, K * T, D)
+    got = got.float().reshape(Bm * K, T, D).numpy()
+    tol = xattn_step_tolerance(q.reshape(Bm, K * T, D), k, v, dk, dtype)
+    err = np.abs(got - want) - tol.reshape(Bm * K, T, D)
+    assert err.max() <= 0, (np.abs(got - want).max(), tol.max())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_decode_gemv_plain_matches_flax_quant_dense(dtype, use_bias):
+    """Dense mode against flax QuantDense on the same int8 kernel, scale
+    and bias, x in f32 (cast to the compute dtype by both): f32 within
+    1e-6 relative (sums in another order); bf16 -- x @ w8, * s and + b each
+    rounded to bf16 on both sides -- within one bf16 ulp (2**-8 relative to
+    the binade) of each output (a summation order may send the first
+    rounding the other way)."""
+    from notsofar_tpu.models import whisper as jw
+    rng = np.random.RandomState(12 + use_bias)
+    x = rng.randn(3, 5, 128).astype(np.float32)
+    k8 = rng.randint(-127, 128, (128, 40)).astype(np.int8)
+    sc = (rng.rand(40).astype(np.float32) + 0.1) * 0.01
+    bias = rng.randn(40).astype(np.float32) * 0.1
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    params = {"kernel": k8, "scale": sc}
+    if use_bias:
+        params["bias"] = bias
+    want = np.asarray(jw.QuantDense(40, use_bias=use_bias, dtype=jdt).apply(
+        {"params": params}, jnp.asarray(x)).astype(jnp.float32))
+    got = tk.decode_gemv_plain(t(x), t(k8.T.copy()), tdt, t(sc),
+                               t(bias) if use_bias else None)
+    assert got.dtype == tdt and got.shape == (3, 5, 40)
+    got = got.float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max())
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30)))
+                      - 7)
+        assert (np.abs(got - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("kind", ["int8_f32", "int8_bf16", "bf16"])
+def test_decode_gemv_plain_matches_the_jax_logits_einsums(kind):
+    """Logits mode against the JAX TextDecoder's two logits einsums
+    (notsofar_tpu/models/whisper.py): int8 -- x cast to the compute dtype
+    times the int8 embedding in that dtype, f32 accumulation, times the f32
+    row scale; bf16 -- bf16 x times the bf16 embedding, f32 accumulation.
+    f32 outputs within K f32 roundings of sum_k |x_k w_k| (times |scale|)
+    per logit: the products are exact in f32, only the order differs."""
+    rng = np.random.RandomState(31)
+    x = rng.randn(2, 3, 128).astype(np.float32)
+    if kind == "bf16":
+        x = bf16_round(x)
+        emb = bf16_round(rng.randn(200, 128).astype(np.float32) * 0.02)
+        want = np.asarray(jnp.einsum(
+            "btd,vd->btv", jnp.asarray(x, jnp.bfloat16),
+            jnp.asarray(emb, jnp.bfloat16),
+            preferred_element_type=jnp.float32))
+        got = tk.decode_gemv_plain(t(x).bfloat16(), t(emb).bfloat16(),
+                                   torch.bfloat16, logits=True)
+        scale = np.ones(200, np.float32)
+        xr, wr = x, emb
+    else:
+        jdt, tdt = ((jnp.float32, torch.float32) if kind == "int8_f32"
+                    else (jnp.bfloat16, torch.bfloat16))
+        emb = rng.randint(-127, 128, (200, 128)).astype(np.int8)
+        scale = (rng.rand(200).astype(np.float32) + 0.1) * 1e-3
+        want = np.asarray(jnp.einsum(
+            "btd,vd->btv", jnp.asarray(x).astype(jdt),
+            jnp.asarray(emb).astype(jdt),
+            preferred_element_type=jnp.float32) * scale[None, None, :])
+        got = tk.decode_gemv_plain(t(x), t(emb), tdt, t(scale), logits=True)
+        xr = x if kind == "int8_f32" else bf16_round(x)
+        wr = emb.astype(np.float32)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 200)
+    mag = np.abs(xr) @ np.abs(wr).T * scale
+    tol = 2 * 128 * 2.0 ** -24 * mag + 2.0 ** -24 * np.abs(want)
+    assert (np.abs(got.numpy() - want) <= tol).all()
+
+
+# the decode step's shapes at large-v3 (3, 15, 48 rows; 1280 -> 1280, 5120,
+# 51 866 and 5120 -> 1280), the small models' widths, a ragged N
+@pytest.mark.parametrize("M,N,K", [(3, 1280, 1280), (15, 5120, 1280),
+                                   (48, 1280, 5120), (48, 51866, 1280),
+                                   (64, 1864, 128), (1, 40, 64),
+                                   (5, 200, 512)])
+@pytest.mark.parametrize("wdtype,planes", [(torch.int8, 1),
+                                           (torch.bfloat16, 1),
+                                           (torch.int8, 3)])
+def test_decode_gemv_plan_covers_k_once_and_fits(M, N, K, wdtype, planes):
+    """decode_gemv_launch: R <= 8 shares of K's 64-byte chunks that cover
+    them exactly once (R at most the chunk count), ceil(N / 64) blocks of
+    64 channels along y, enough tiles of 8 rows for M, and a block's shared
+    memory within SMEM_LIMIT; R reaches DECODE_GEMV_FILL blocks where the
+    chunks allow."""
+    plan = tk.decode_gemv_launch(M, N, K, wdtype, planes)
+    nck = K // tk._gemv_chunk(wdtype)
+    R, tiles = plan["cluster"], -(-N // tk.DECODE_GEMV_CHANNELS)
+    assert 1 <= R <= min(8, nck) and plan["grid"] == (R, tiles)
+    assert covers_once(plan["shares"], nck) and len(plan["shares"]) == R
+    assert 8 * plan["tiles"] >= M and plan["tiles"] in (1, 2, 4, 6, 8)
+    assert plan["smem"] <= tk.SMEM_LIMIT
+    assert R * tiles >= tk.DECODE_GEMV_FILL or R == min(8, nck)
+
+
+def test_decode_gemv_wrapper_raises_what_the_kernel_does_not_take():
+    """The wrapper's checks (shapes only, before any launch): more rows
+    than DECODE_GEMV_MAX_ROWS, K not a multiple of 64, f32 weights, a bias
+    in logits mode, a scale of another length, f16 x; the serving shapes
+    pass."""
+    w8 = torch.empty(1280, 1280, dtype=torch.int8)
+    x = torch.empty(3, 1, 1280, dtype=torch.bfloat16)
+    sc = torch.empty(1280)
+    assert tk._decode_gemv_plan(x, w8, torch.bfloat16, sc, sc.bfloat16(),
+                                False) == tk.decode_gemv_launch(
+                                    3, 1280, 1280, torch.int8, 1)
+    assert tk.DECODE_GEMV_MAX_ROWS >= 64
+    bad = [(torch.empty(65, 1280, dtype=torch.bfloat16), w8, sc, None, False),
+           (x[..., :96], torch.empty(1280, 96, dtype=torch.int8), sc, None,
+            False),
+           (x, w8.float(), sc, None, False),
+           (x, w8, sc, sc, True),
+           (x, w8, sc[:100], None, False),
+           (x.half(), w8, sc, None, False)]
+    for xx, ww, ss, bb, lg in bad:
+        with pytest.raises(ValueError):
+            tk._decode_gemv_plan(xx, ww, torch.bfloat16, ss, bb, lg)
+
+
+@pytest.mark.parametrize("D,dk", [(1280, 64), (256, 128), (128, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_xattn_step_plan_covers_the_keys_once(D, dk, dtype):
+    """xattn_step_launch over T 1-8 and S 1-64 and to Whisper's 1500
+    frames: R <= 8 shares covering [0, S) once (empty shares allowed) each
+    within the block's capacity, grid (R, H, B) from the shapes, a block's
+    shared memory within SMEM_LIMIT; the wrapper raises past 8 queries."""
+    for T in range(1, 9):
+        for S in list(range(1, 65)) + [100, 448, 1500, 1504]:
+            plan = tk.xattn_step_launch(3, T, S, D, dk, dtype)
+            R = plan["cluster"]
+            assert 1 <= R <= 8 and plan["grid"] == (R, D // dk, 3)
+            assert covers_once(plan["shares"], S)
+            assert max(n for _, n in plan["shares"]) <= plan["per"]
+            assert plan["smem"] <= tk.SMEM_LIMIT
+    q = torch.empty(3, 9, D, dtype=dtype)
+    k = torch.empty(3, 1500, D, dtype=dtype)
+    with pytest.raises(ValueError):
+        tk._xattn_step_plan(q, k, k, dk)
+    with pytest.raises(ValueError):
+        tk._xattn_step_plan(q[:, :5], k, k.half(), dk)
+    R = tk._xattn_step_plan(q[:, :5], k, k, dk)["cluster"]
+    assert R == tk.XATTN_STEP_CLUSTER or (dtype == torch.float32 and
+                                          dk == 128 and R > 4)
+
+
+@pytest.mark.parametrize("B,S,D,dk", [(24, 1504, 1280, 64), (2, 96, 384, 64),
+                                      (3, 64, 256, 128), (1, 40, 4096, 128),
+                                      (140, 64, 256, 64)])
+def test_xattn_onedot_plan_covers_the_valid_keys_once(B, S, D, dk):
+    """xattn_onedot_launch for every s_valid of S: R <= 8 shares covering
+    [0, s_valid) once (empty shares allowed), the grid (R, B) fixed by the
+    shapes, every head's logits of a share within its odd row stride, and
+    a block's shared memory within SMEM_LIMIT."""
+    grid = None
+    for s_valid in range(1, S + 1):
+        plan = tk.xattn_onedot_launch(B, S, D, dk, s_valid)
+        R = plan["cluster"]
+        assert 1 <= R <= 8 and plan["grid"] == (R, B)
+        assert grid in (None, plan["grid"])
+        grid = plan["grid"]
+        assert covers_once(plan["shares"], s_valid)
+        assert plan["smem"] <= tk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("K,M", [(4, 7), (1, 1), (8, 8), (3, 4)])
+def test_masked_scm_plan_fits_the_ring(K, M):
+    """masked_scm_launch: a warp per (b, f), 4 a block, grid (ceil(F / 4),
+    B); every ring of 1-8 buffers of 32 frames fits a block's shared
+    memory, and the default ring is more than one buffer (the next frames
+    in flight while the lanes compute)."""
+    assert tk.MASKED_SCM_STAGES > 1
+    for stages in range(1, 9):
+        plan = tk.masked_scm_launch(32, 257, K, M, stages)
+        assert plan["grid"] == (65, 32) and plan["threads"] == 128
+        assert plan["smem"] <= tk.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -829,13 +1102,16 @@ def test_gpu_depthwise_conv1d_kernel(cuda, T, C, k, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,F,T,K,M", [(32, 257, 186, 4, 7), (3, 9, 40, 4, 7),
                                        (2, 5, 33, 3, 4), (1, 7, 1, 1, 1),
-                                       (2, 6, 70, 8, 8)])
+                                       (2, 6, 70, 8, 8), (2, 5, 300, 5, 3)])
 def test_gpu_masked_scm_kernel(cuda, B, F, T, K, M):
     """The CUDA kernel against its plain version (complex einsum), ragged
     frame tiles, odd F and the M = 8 second lane entry included. Both sum
     T products in f32 in other orders: within 2T f32 roundings of
     sum_t w |x_m| |x_n| (largest entry). Hermitian with a real diagonal;
-    an all-zero window gives exactly 1e-15 * I."""
+    an all-zero window gives exactly 1e-15 * I. The ring of buffers in
+    flight (1-8 of 32 frames, wrapping where T needs more) changes when the
+    bytes arrive, never the order of the sums: every count gives the same
+    bits."""
     g = torch.Generator(device=cuda).manual_seed(B + F + T + K + M)
     wta = torch.rand(B, F, T, K, generator=g, device=cuda)
     x = torch.complex(torch.randn(B, F, T, M, generator=g, device=cuda),
@@ -853,6 +1129,13 @@ def test_gpu_masked_scm_kernel(cuda, B, F, T, K, M):
     assert torch.equal(out, out.conj().transpose(-1, -2).resolve_conj())
     eye = torch.eye(M, dtype=torch.complex64, device=cuda) * 1e-15
     assert torch.equal(out[0, :, 0], eye.expand(K, M, M))
+    lib = tk.build.load("masked_scm")
+    for stages in range(1, 9):
+        other = torch.empty_like(out)
+        assert lib.masked_scm(wta.data_ptr(), x.data_ptr(), other.data_ptr(),
+                              B, F, T, K, M, stages, tk._stream()) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(other, out), stages
 
 
 @pytest.mark.gpu
@@ -932,17 +1215,23 @@ def test_gpu_xattn_stream_kernel(cuda, B, S, D):
     (24, 1504, 1280, 64, 1504, 0.004),   # the tool's shape
     (24, 1504, 1280, 64, 1504, 0.1),     # and its q scale (peaked weights)
     (2, 96, 384, 64, 77, 0.004), (3, 64, 256, 128, 33, 0.2),
-    (1, 40, 4096, 128, 40, 0.004)])
+    (1, 40, 4096, 128, 40, 0.004),
+    # the cluster's shares: s_valid not a multiple of R; s_valid < R
+    # (empty shares) with an odd head count (H 3); more rows than SMs
+    (5, 1504, 1280, 64, 1499, 0.004), (2, 256, 384, 128, 5, 0.2),
+    (140, 64, 256, 64, 61, 0.2)])
 def test_gpu_xattn_onedot_kernel(cuda, B, S, D, dk, s_valid, q_scale):
     """The CUDA kernel against its plain version within xattn_tolerance
     (flip 2**-6) and onedot_rms_tolerance; the plain version with the key
     of the largest logit negated is outside the max tolerance, and at
     unit-scale logits with the products unrounded, outside the RMS
-    tolerance."""
+    tolerance. Keys past s_valid hold garbage: they are not read."""
     rng = np.random.RandomState(B + S + D)
     q, k8, v8, vs = xattn_case(rng, B, 1, D, dk, S, s_valid, q_scale)
     qc = t(q).to(cuda, torch.bfloat16)
     k8c, v8c, vsc = (t(x).to(cuda) for x in (k8, v8, vs))
+    k8c[:, s_valid:] = 127
+    v8c[:, s_valid:] = -128
     before = tk.LAUNCHES["xattn_onedot"]
     out = tk.xattn_onedot(qc, k8c, v8c, vsc, dk, s_valid)
     torch.cuda.synchronize()
@@ -1006,6 +1295,149 @@ def test_gpu_attn_step_split_bias_kernel(cuda, B, K, Pp, G, D, dk, dtype,
         args[0], t(k_mut[:, :Pp]).to(cuda, dtype), args[2],
         t(k_mut[:, Pp:]).to(cuda, dtype), args[4], bias_c, dk)
     assert (out - mutant).abs().max().item() > tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,D,dk,S,dtype", [
+    (3, 1, 1280, 64, 1500, torch.bfloat16),   # greedy, 3 windows
+    (3, 5, 1280, 64, 1500, torch.bfloat16),   # beam 5 folded
+    (3, 5, 1280, 64, 1500, torch.float32),
+    (2, 8, 256, 128, 96, torch.bfloat16), (2, 3, 384, 64, 77, torch.float32),
+    # the shares: S not a multiple of R; S < R (empty shares); S = 1
+    (3, 2, 128, 64, 1499, torch.bfloat16), (2, 4, 256, 128, 5, torch.float32),
+    (1, 1, 128, 64, 1, torch.bfloat16), (1, 7, 128, 64, 33, torch.bfloat16)])
+def test_gpu_xattn_step_kernel(cuda, B, T, D, dk, S, dtype):
+    """The CUDA kernel against its plain version, per output within
+    xattn_step_tolerance without the JAX scale (both round dtype(q s) and
+    dtype(k s) with f32 s; f32 orders, one flipped weight, the output's
+    rounding); with the memory row (key and value) of the largest logit
+    of window 0, query 0, head 0 negated the plain version lands outside
+    it. Logits of a few units (q at 3x unit scale), so that one key
+    matters."""
+    rng = np.random.RandomState(B + T + S + D)
+    q = rng.randn(B, T, D).astype(np.float32) * 3
+    k = rng.randn(B, S, D).astype(np.float32)
+    v = rng.randn(B, S, D).astype(np.float32)
+    if dtype == torch.bfloat16:
+        q, k, v = (bf16_round(x) for x in (q, k, v))
+    qc, kc, vc = (t(x).to(cuda, dtype) for x in (q, k, v))
+    before = tk.LAUNCHES["xattn_step"]
+    out = tk.xattn_step(qc, kc, vc, dk)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["xattn_step"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, T, D)
+    ref = tk.xattn_step_plain(qc, kc, vc, dk)
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    tol = torch.from_numpy(xattn_step_tolerance(q, k, v, dk, name,
+                                                jax_scale=False)).to(cuda)
+    assert ((out.float() - ref.float()).abs() <= tol).all()
+    lg = q[0, 0, :dk].astype(np.float64) @ k[0, :, :dk].T.astype(np.float64)
+    k_mut, v_mut = k.copy(), v.copy()
+    k_mut[0, lg.argmax()] = -k_mut[0, lg.argmax()]
+    v_mut[0, lg.argmax()] = -v_mut[0, lg.argmax()]
+    mutant = tk.xattn_step_plain(qc, t(k_mut).to(cuda, dtype),
+                                 t(v_mut).to(cuda, dtype), dk)
+    assert ((out.float() - mutant.float()).abs() > tol).any()
+
+
+def gemv_tolerance(x, w, scale, bias, dtype, logits, post=None):
+    """Per-output bound on decode_gemv against its plain version on the
+    card (f32 torch tensors holding x rounded to the compute dtype, w, the
+    f32 scale, the bias): the f32 sums of K exact products differ by up to
+    2 K roundings of sum_k |x w| (delta); each later rounding to bf16 may go
+    the other way (<= 2**-7 of its value), carried through the scale and,
+    with post (s, p, rows), through s p and one more rounding."""
+    K = x.shape[-1]
+    mag = x.abs() @ w.abs().T
+    acc = x @ w.T
+    delta = 2 * K * 2.0 ** -24 * mag
+    s = torch.ones_like(acc[0]) if scale is None else scale
+    if logits:
+        return delta * s.abs() + 2.0 ** -23 * (acc * s).abs()
+    if dtype == torch.float32:
+        b = 0 if bias is None else bias
+        return delta * s.abs() + 2.0 ** -22 * ((acc * s).abs() + abs(b))
+    e = 2.0 ** -7
+    d1 = delta + e * acc.abs()
+    d2 = d1 * s.abs() + e * (acc * s).abs()
+    y = acc * s + (0 if bias is None else bias)
+    d3 = d2 + e * (y.abs() + d2) if bias is not None else d2 + e * d2
+    if post is None:
+        return d3
+    ps = post[0] * post[1].repeat_interleave(post[2], dim=0).abs()
+    return d3 * ps + e * ((y.abs() + d3) * ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,wdt,xdt,dt,mode", [
+    # QuantDense at large-v3: greedy 3 rows, beam 5 15 rows (f32 x, the
+    # int8 model's LN output), the pipeline's 48, the f32 parity model
+    (3, 1280, 1280, "int8", "bf16", "bf16", "dense+bias"),
+    (3, 1280, 5120, "int8", "f32", "bf16", "dense+bias+f32out"),
+    (15, 1280, 1280, "int8", "bf16", "bf16", "dense+bias+post"),
+    (10, 256, 128, "int8", "f32", "f32", "dense+bias+post"),
+    (15, 5120, 1280, "int8", "f32", "bf16", "dense+bias"),
+    (48, 1280, 5120, "int8", "bf16", "bf16", "dense+bias"),
+    (64, 1280, 1280, "int8", "f32", "f32", "dense+bias"),
+    (2, 40, 512, "int8", "bf16", "bf16", "dense"),
+    # logits: int8 (f32 LN output cast to bf16), bf16, the small f32 model
+    (3, 51866, 1280, "int8", "f32", "bf16", "logits+scale"),
+    (48, 51866, 1280, "int8", "f32", "bf16", "logits+scale"),
+    (3, 51866, 1280, "bf16", "bf16", "bf16", "logits"),
+    (5, 1864, 128, "int8", "f32", "f32", "logits+scale"),
+    (7, 200, 64, "bf16", "f32", "f32", "logits"),
+    (9, 130, 192, "bf16", "bf16", "f32", "dense+bias")])
+def test_gpu_decode_gemv_kernel(cuda, M, N, K, wdt, xdt, dt, mode):
+    """The CUDA kernel against its plain version per output within
+    gemv_tolerance; one weight of the row and column that matter most
+    changed moves the kernel's output outside it. Ragged N edges (51 866,
+    1864, 130, 200, 40), 1-8 row tiles, x rounded in the kernel (f32 x in
+    bf16 compute) or split into three bf16 planes (f32 x in f32 compute);
+    the rounded dense output stored as f32 (out_dtype) holds the same
+    values as the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
+    x = torch.randn(M, K, generator=g, device=cuda).to(dts[xdt])
+    if wdt == "int8":
+        w = torch.randint(-127, 128, (N, K), generator=g, device=cuda,
+                          dtype=torch.int8)
+    else:
+        w = (torch.randn(N, K, generator=g, device=cuda) * 0.05).bfloat16()
+    scale = (torch.rand(N, generator=g, device=cuda) + 0.1) * 1e-2 \
+        if "scale" in mode or "dense" in mode and wdt == "int8" else None
+    bias = (torch.randn(N, generator=g, device=cuda) * 0.1).to(dts[dt]) \
+        if "bias" in mode else None
+    logits = mode.startswith("logits")
+    out_dtype = torch.float32 if "f32out" in mode else None
+    # the int8 cross-attention's query folding at 5 rows a window
+    post = (64 ** -0.25, (torch.rand(M // 5, N, generator=g, device=cuda)
+                          + 0.1) * 1e-2, 5) if "post" in mode else None
+    before = tk.LAUNCHES["decode_gemv"]
+    out = tk.decode_gemv(x, w, dts[dt], scale, bias, logits=logits,
+                         out_dtype=out_dtype, post=post)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["decode_gemv"] == before + 1
+    assert out.shape == (M, N)
+    assert out.dtype == (torch.float32 if logits else out_dtype or dts[dt])
+    ref = tk.decode_gemv_plain(x, w, dts[dt], scale, bias, logits=logits,
+                               out_dtype=out_dtype, post=post)
+    if out_dtype is not None:
+        assert torch.equal(out.to(dts[dt]).float(), out)   # dtype's values
+    xr = x.to(dts[dt]).float()
+    tol = gemv_tolerance(xr, w.float(), scale,
+                         None if bias is None else bias.float(), dts[dt],
+                         logits, post)
+    assert ((out.float() - ref.float()).abs() <= tol).all()
+    # the weight of the largest |x| in row 0's column of the largest output
+    n = int((xr[0].abs() @ w.float().abs().T).argmax())
+    kk = int(xr[0].abs().argmax())
+    w_mut = w.clone()
+    w_mut[n, kk] = (-127 if w[n, kk] >= 0 else 127) if wdt == "int8" \
+        else w[n, kk] - (1.0 if w[n, kk] >= 0 else -1.0)
+    mutant = tk.decode_gemv_plain(x, w_mut, dts[dt], scale, bias,
+                                  logits=logits, out_dtype=out_dtype,
+                                  post=post)
+    assert ((out.float() - mutant.float()).abs() > tol).any()
 
 
 @pytest.mark.gpu
@@ -1077,3 +1509,27 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                    # int64 gslot tensor
         tk.attn_step_split(q40[:5], kp, kp, kg[:5], kg[:5],
                            torch.tensor(0, device=cuda), pads, 64, 5)
+    qx = torch.randn(3, 9, 1280, device=cuda).bfloat16()   # Tq > 8
+    kx = torch.randn(3, 64, 1280, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        tk.xattn_step(qx, kx, kx, 64)
+    with pytest.raises(ValueError):                    # mixed dtypes
+        tk.xattn_step(qx[:, :5], kx, kx.float(), 64)
+    with pytest.raises(ValueError):                    # f16
+        tk.xattn_step(qx[:, :5].half(), kx.half(), kx.half(), 64)
+    w8 = torch.zeros(1280, 1280, dtype=torch.int8, device=cuda)
+    sc = torch.ones(1280, device=cuda)
+    x1 = qx[:, 0].contiguous()
+    assert tk.decode_gemv(x1, w8, torch.bfloat16, sc).shape == (3, 1280)
+    with pytest.raises(ValueError):                    # 65 rows
+        tk.decode_gemv(torch.zeros(65, 1280, device=cuda), w8,
+                       torch.bfloat16, sc)
+    with pytest.raises(ValueError):                    # f32 weights
+        tk.decode_gemv(x1, w8.float(), torch.bfloat16, sc)
+    with pytest.raises(ValueError):                    # K % 64 != 0
+        tk.decode_gemv(x1[:, :1248].contiguous(), w8[:, :1248].contiguous(),
+                       torch.bfloat16, sc)
+    with pytest.raises(ValueError):                    # a bias on logits
+        tk.decode_gemv(x1, w8, torch.bfloat16, sc, sc, logits=True)
+    with pytest.raises(ValueError):                    # f64 scale
+        tk.decode_gemv(x1, w8, torch.bfloat16, sc.double())

@@ -450,6 +450,95 @@ def test_cross_kv_quant_parity(pair, dtype, tol):
     assert err <= tol, err
 
 
+def test_decode_kernel_gates():
+    """uses_xattn_step takes the float (k, v) memory at a folded query
+    length <= 8 (beams folded into it), never the int8 5-tuple;
+    uses_decode_gemv takes up to DECODE_GEMV_MAX_ROWS rows (>= 64: the
+    pipeline's 48-row int8 steps) against int8 or bf16 weights, never f32."""
+    from notsofar_tpu_torch.ops import kernels as tk
+    kv = (torch.empty(3, 1500, 128), torch.empty(3, 1500, 128))
+    kv8 = (torch.empty(3, 1504, 128, dtype=torch.int8),) + (None,) * 3 + \
+        (1500,)
+    assert tw.uses_xattn_step(3, 1, kv) and tw.uses_xattn_step(15, 1, kv)
+    assert tw.uses_xattn_step(3, 8, kv) and not tw.uses_xattn_step(3, 9, kv)
+    assert not tw.uses_xattn_step(27, 1, kv)          # 9 beams folded
+    assert not tw.uses_xattn_step(3, 1, kv8) and tw.uses_xattn_int8(3, 1, kv8)
+    assert tk.DECODE_GEMV_MAX_ROWS >= 64
+    for dt in (torch.int8, torch.bfloat16):
+        assert tk.uses_decode_gemv(48, dt)
+        assert tk.uses_decode_gemv(tk.DECODE_GEMV_MAX_ROWS, dt)
+        assert not tk.uses_decode_gemv(tk.DECODE_GEMV_MAX_ROWS + 1, dt)
+    assert not tk.uses_decode_gemv(3, torch.float32)
+
+
+def counting(monkeypatch, name):
+    """Count the calls of models.whisper's kernel wrapper `name` (the plain
+    path counts no LAUNCHES on the CPU)."""
+    calls = []
+    real = getattr(tw, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tw, name, wrapper)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_decode_step_calls_xattn_step_and_decode_gemv(pair, monkeypatch,
+                                                      kind):
+    """One single-token decode step of a small model on the CPU, after a
+    3-token prefill, counted at the wrappers: the float models call
+    xattn_step once a layer, the bf16 model decode_gemv once (the logits;
+    the f32 embedding stays a matmul), the int8 model decode_gemv 8 times
+    a layer plus once (QuantDense and the logits) and xattn_int8 for its
+    cross-attention. DECODER_CALLS counts the step under each kernel it
+    reaches and decode_gemv_per_call gives its launches; at large-v3 (32
+    layers) that is 257 (int8) and 1 (bf16). A 72-row prefill reaches
+    neither."""
+    _, variables, tm = pair
+    if kind == "int8":
+        _, _, m = int8_pair(variables, "bf16")
+    elif kind == "bf16":
+        m = tw.WhisperModel(tw.WhisperDims(*KDIMS_ARGS), dtype=torch.bfloat16,
+                            device="cpu")
+        m.load_state_dict(tm.state_dict())
+    else:
+        m = tm
+    L = m.dims.n_text_layer
+    rng = np.random.RandomState(4)
+    xa = torch.from_numpy(rng.randn(6, 1500, 128).astype(np.float32) * 0.3)
+    cross = m.precompute_cross_kv(xa)
+    if kind == "int8":
+        cross = m.quantize_cross_kv(cross)
+    toks = torch.from_numpy(rng.randint(0, 1000, (6, 12)))
+    caches = m.empty_kv_caches(6, cache_len=64)
+    step = counting(monkeypatch, "xattn_step")
+    gemv = counting(monkeypatch, "decode_gemv")
+    tw.reset_decoder_calls()
+    with torch.no_grad():
+        m.decoder(toks, xa, 0, caches, cross_kvs=cross)       # 72 rows
+        assert (len(step), len(gemv)) == (0, 0)
+        assert all(n == 0 for n in tw.DECODER_CALLS.values())
+        m.decoder(toks[:3, :3], xa[:3], 0, m.empty_kv_caches(3, cache_len=64),
+                  cross_kvs=[tuple(x[:3] if torch.is_tensor(x) else x
+                                   for x in c) for c in cross])
+        tw.reset_decoder_calls()
+        del step[:], gemv[:]
+        m.decoder(toks[:, 3:4], xa, torch.tensor(3), caches, cross_kvs=cross)
+    want = {"f32": (L, 0), "bf16": (L, 1), "int8": (0, 8 * L + 1)}[kind]
+    assert (len(step), len(gemv)) == want
+    assert tw.DECODER_CALLS == {"xattn_int8": int(kind == "int8"),
+                                "xattn_step": int(kind != "int8"),
+                                "decode_gemv": int(kind != "f32")}
+    if kind != "f32":
+        assert m.decoder.decode_gemv_per_call() == len(gemv)
+    with torch.device("meta"):
+        large = tw.WHISPER_DIMS["large-v3"]
+        assert tw.TextDecoder(large, quant=True).decode_gemv_per_call() == 257
+        assert tw.TextDecoder(large).decode_gemv_per_call() == 1
+
+
 def test_int8_load_path():
     """load_whisper_model(compute_dtype='int8') gives the int8 decoder:
     int8 kernels with f32 scales, an int8 embedding with f32 row scales,
