@@ -47,8 +47,19 @@ Phases (any failure raises and exits non-zero):
              51 866, at 3, 15 and 48 rows; torch.matmul on pre-widened
              bf16 weights as the library), each within its error model
              and rejecting one memory row or weight changed, cluster
-             sizes logged; xattn_onedot's cluster sizes (R = 1: a block
-             per row, the first design's grid) and masked_scm's ring of
+             sizes logged (also as 32 launches in one CUDA graph); then
+             decode_gemv's modes of the fused decode step
+             (check_fused_step_modes: the one q/k/v launch writing the
+             cache, the layer norm in the prologue of the query and fc1,
+             GELU and the residual add in the epilogues, bf16 dense
+             layers with nn.Dense's rounding) for the int8 and bf16
+             decoders at 3, 15 and 48 rows, each output within its own
+             tolerance, the one-weight mutant outside it, an RMS gate that
+             the plain version with one rounding point moved must exceed,
+             timed by events and in a graph beside torch.matmul on the
+             widened weights, the q/k/v launch's cluster size swept;
+             xattn_onedot's cluster sizes (R = 1: a block per row, the
+             first design's grid) and masked_scm's ring of
              1-8 buffers in flight (1: the first design's schedule).
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
@@ -65,7 +76,10 @@ Phases (any failure raises and exits non-zero):
              tokens equal, scores within 1e-4, launch and decoder call
              counts equal; eager and graphed ms per step logged; one
              decoder step's kernels under torch.profiler at 3 rows
-             (greedy) and 15 (beam 5), bf16 and int8.
+             (greedy) and 15 (beam 5), bf16 and int8, and the same step
+             replayed as a CUDA graph: ms per replay and the device's
+             busy share over 10 replays under torch.profiler
+             (tools/time_decode_step.py step_profile).
              Then the bf16 model with its EOT row scaled (rows end at
              different steps) decodes greedy and beam 5 with the loops'
              finished.all() interval at 1, 2, 4 and 8: tokens and stats
@@ -76,9 +90,11 @@ Phases (any failure raises and exits non-zero):
              condition_on_previous_text, seeded random weights.
              Launch counts are reset before the call and read after it:
              encoder_mha and attn_step_split must be > 0, xattn_step
-             launch 32 times and decode_gemv once (the logits) per
-             decoder call counted under them, which must be at least the
-             decode steps. The decode
+             launch 32 times per decoder call counted under it and
+             decode_gemv 193 times per fused step (6 a layer and the
+             logits) and 257 per call run layer by layer (prefill at up
+             to 64 rows), the fused steps counted at least the decode
+             steps. The decode
              steps (replayed from CUDA graphs and eager), the graph
              captures and their seconds, and ms per step are logged, and
              the attn_step launches as a histogram of (rows, cache
@@ -114,9 +130,10 @@ Phases (any failure raises and exits non-zero):
              saved under a models dir. The ASR frame reaches diarization
              with phase 6's seeded word track added. Every contract file
              must exist and the meeting gets a WER row; xattn_int8
-             launches = 32 x and decode_gemv = 257 x the decoder calls
-             that reach them, as the decoder counts them, each at least
-             the decode steps; encoder_mha and attn_step_split launch;
+             launches = 32 x and decode_gemv = 193 x (fused steps) + 257 x
+             (layer by layer) the decoder calls that reach them, as the
+             decoder counts them, each at least the decode steps;
+             encoder_mha and attn_step_split launch;
              depthwise_conv1d launches 9 times per planned TitaNet chunk.
              Decode steps and attn_step traffic logged as phase 4's. A
              seeded hypothesis is
@@ -467,29 +484,284 @@ def step_tolerance(q, k, v, dk: int) -> float:
     return (move + flip + (S * 2.0 ** -24 + 2.0 ** -7) * mag).max().item()
 
 
-def gemv_tolerance(x, w, dtype, scale, bias, logits: bool) -> float:
-    """decode_gemv against its plain version, both from x rounded to the
-    compute dtype: the f32 sums of K exact products differ by up to 2K
-    roundings of sum_k |x w| (delta); each later rounding to bf16 may go
-    the other way (<= 2**-7 of its value), carried through the scale and
-    bias (QuantDense's three rounding points). The largest over the
-    outputs (tests/test_torch_kernels.py holds each output to its own)."""
-    xr = x.to(dtype).double().reshape(-1, x.shape[-1])
+def gemv_tolerance_map(xr, w, dtype, scale, bias, logits: bool,
+                       post=None) -> torch.Tensor:
+    """decode_gemv against its plain version per output, both from x
+    rounded to the compute dtype (xr, [M, K]): the f32 sums of K exact
+    products differ by up to 2K roundings of sum_k |x w| (delta); each
+    later rounding to bf16 may go the other way (<= 2**-7 of its value),
+    carried through the scale and bias (QuantDense's three rounding
+    points) and post's s p and its rounding."""
+    xr = xr.double().reshape(-1, xr.shape[-1])
     wf = w.double()
     acc = xr @ wf.T
-    delta = 2 * x.shape[-1] * 2.0 ** -24 * (xr.abs() @ wf.abs().T)
+    delta = 2 * xr.shape[-1] * 2.0 ** -24 * (xr.abs() @ wf.abs().T)
     s = torch.ones_like(acc[0]) if scale is None else scale.double()
     if logits:
-        tol = delta * s.abs() + 2.0 ** -23 * (acc * s).abs()
-    elif dtype == torch.float32:
+        return delta * s.abs() + 2.0 ** -23 * (acc * s).abs()
+    if dtype == torch.float32:
         b = 0 if bias is None else bias.double().abs()
-        tol = delta * s.abs() + 2.0 ** -22 * ((acc * s).abs() + b)
-    else:
-        e = 2.0 ** -7
-        d2 = (delta + e * acc.abs()) * s.abs() + e * (acc * s).abs()
-        b = 0 if bias is None else bias.double()
-        tol = d2 + e * ((acc * s + b).abs() + d2)
-    return tol.max().item()
+        return delta * s.abs() + 2.0 ** -22 * ((acc * s).abs() + b)
+    e = 2.0 ** -7
+    d2 = (delta + e * acc.abs()) * s.abs() + e * (acc * s).abs()
+    b = 0 if bias is None else bias.double()
+    tol = d2 + e * ((acc * s + b).abs() + d2)
+    if post is not None:
+        ps = post[0] * post[1].double().repeat_interleave(post[2], dim=0)
+        tol = tol * ps.abs() + e * ((acc * s + b).abs() + tol) * ps.abs()
+    return tol
+
+
+def gemv_tolerance(x, w, dtype, scale, bias, logits: bool) -> float:
+    """The largest of gemv_tolerance_map over the outputs, x rounded to
+    the compute dtype first (tests/test_torch_kernels.py holds each output
+    to its own)."""
+    return gemv_tolerance_map(x.to(dtype).reshape(-1, x.shape[-1]), w,
+                              dtype, scale, bias, logits).max().item()
+
+
+LN_FLIPS = 4        # bf16 flips of x a row may take from the layer norm
+DIFF_SHARE = 2.0 ** -4  # outputs a fused mode may have off its plain version
+
+
+def fused_tolerance_map(tol, xr, w, dtype, scale, ref, ln: bool,
+                        gelu: bool, residual, post=None) -> torch.Tensor:
+    """gemv_tolerance_map widened by the fused modes' added rounding
+    points. The layer norm: the kernel's f32 statistics (per-share (mean,
+    M2) combined in rank order) and F.layer_norm's (Welford) differ in
+    order, so a normalized x moves by a few f32 ulps and its bf16 rounding
+    may go the other way: at most LN_FLIPS elements a row, each by one bf16
+    ulp, at most 2**-7 |x_k|, so 2**-7 |x_k| |w_nk| |s_n| on an output
+    (bounded by the row's and channel's maxima), carried
+    through the later roundings and post's s p; in f32 compute 8 f32 ulps
+    of sum_k |x_k w_nk|. GELU (slope < 1.13) adds one rounding of the
+    output; the residual add one rounding of the sum (a bf16 ulp, or an f32
+    ulp for the f32 stream)."""
+    e = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    xr = xr.double().reshape(-1, xr.shape[-1])
+    s = torch.ones_like(tol[0]) if scale is None else scale.double().abs()
+    if ln and dtype == torch.bfloat16:
+        flip = LN_FLIPS * 2.0 ** -7 * xr.abs().amax(-1, keepdim=True) * \
+            w.double().abs().amax(-1)[None, :] * s
+        if post is not None:
+            flip = flip * post[0] * post[1].double().repeat_interleave(
+                post[2], dim=0).abs()
+        tol = tol + flip * (1 + 4 * e)
+    elif ln:
+        tol = tol + 8 * 2.0 ** -24 * (xr.abs() @ w.double().abs().T) * s
+    ref = ref.double().reshape(tol.shape)
+    if gelu:
+        tol = 1.13 * tol + e * (ref.abs() + 1.13 * tol)
+    if residual is not None:
+        er = 2.0 ** -7 if residual.dtype == torch.bfloat16 else 2.0 ** -24
+        tol = tol + er * (ref.abs() + tol)
+    return tol
+
+
+def differing(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of elements where a and b differ at all."""
+    return (a.float() != b.float()).double().mean().item()
+
+
+def fused_cases(M: int, g: torch.Generator, dev="cuda") -> list:
+    """The fused decode step's decode_gemv modes at large-v3 width (D 1280)
+    and M rows, as ModelDimensions large-v3's int8 and bf16 decoders run
+    them (ResidualBlock.decode_step): seeded weights (int8 with f32 scales,
+    or bf16 without), bf16 biases and layer-norm parameters, the int8
+    decoder's f32 residual stream or the bf16 decoder's bf16 one (a mean
+    of 0.5, scale 2). Each case: name; kern() -> the output the gates read
+    (for q/k/v: q_eff and the k and v cache rows at the slot, [M, 3D]);
+    plain(), its plain version; mutant(), the plain version with the
+    weight of row 0's largest |x| in its largest output changed; moved(),
+    the plain version with one rounding point moved (the share gate must
+    reject it); tol_maps, fused_tolerance_map per segment, and tol, their
+    largest value; library(), torch.matmul on the widened weights; nbytes,
+    flops."""
+    import torch.nn.functional as F
+    from notsofar_tpu_torch.ops import kernels as K
+    bf, f32, D = torch.bfloat16, torch.float32, 1280
+
+    def rn(*shape, s=1.0, dt=f32):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dt)
+
+    def w8(n, k):
+        return torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def sc(n):
+        return (torch.rand(n, generator=g, device=dev) + 0.1) * 1e-3
+
+    def dense(kind, n, k, bias=True):
+        if kind == "int8":
+            return w8(n, k), sc(n), rn(n, s=0.1, dt=bf) if bias else None
+        return rn(n, k, s=k ** -0.5, dt=bf), None, \
+            rn(n, s=0.1, dt=bf) if bias else None
+
+    def flip_w(w, xr, ref=None):
+        """w with the weight of row 0's largest |x| in its largest output
+        changed (int8 to the other extreme, bf16 by 1); given the plain
+        output `ref`, its largest positive output of row 0 (where GELU's
+        slope is ~1)."""
+        n = int((xr[0].abs().float() @ w.float().abs().T).argmax()) \
+            if ref is None else int(ref.reshape(-1, w.shape[0])[0].float()
+                                    .argmax())
+        kk = int(xr[0].abs().argmax())
+        m = w.clone()
+        m[n, kk] = (-127 if w[n, kk] >= 0 else 127) \
+            if w.dtype == torch.int8 else w[n, kk] - (
+                1.0 if w[n, kk] >= 0 else -1.0)
+        return m
+
+    def ln_bf16_arith(x, ln):
+        """The layer norm in bf16 arithmetic: x, its mean, the centred
+        values, the variance, the normalized values and the affine each
+        rounded to bf16 (the kernel's f32 rounding points moved to bf16)."""
+        xb = x.to(bf)
+        d = xb - xb.mean(-1, keepdim=True)
+        var = (d * d).mean(-1, keepdim=True)
+        xh = d * torch.rsqrt(var + ln.eps)
+        return xh * ln.weight.to(bf) + ln.bias.to(bf)
+
+    cases = []
+    for kind in ("int8", "bf16"):
+        pdt = bf                          # both decoders' norm parameters
+        ln = K.GemvLN((1 + rn(D, s=0.1)).to(pdt), rn(D, s=0.1, dt=pdt),
+                      1e-5)
+        stream = rn(M, 1, D, s=2) + 0.5
+        if kind == "bf16":
+            stream = stream.to(bf)
+        xln = K.layer_norm_plain(stream, ln).to(bf).reshape(M, D)
+
+        # q/k/v: one launch, k and v into the caches at the slot
+        layers = [dense(kind, D, D, bias=i != 1) for i in range(3)]
+        ctx, pos = 256, 200
+        kc, vc = rn(M, ctx, D, dt=bf), rn(M, ctx, D, dt=bf)
+        slot = torch.tensor(pos, dtype=torch.int32, device=dev)
+        sq = 64 ** -0.5
+
+        def qkv_out(fn, lys=layers):
+            k1, v1 = kc.clone(), vc.clone()
+            q = fn(stream, ln, lys, bf, k1, v1, slot, sq)
+            return torch.cat([q.reshape(M, D), k1[:, pos], v1[:, pos]], -1)
+
+        def qkv_moved(x=stream, ln=ln):
+            # the layer norm's affine in bf16 arithmetic
+            def fn(x_, ln_, *a):
+                return K.decode_qkv_plain(ln_bf16_arith(x_, ln_), None, *a)
+            return qkv_out(fn)
+
+        kcat = torch.cat([w for w, _, _ in layers]).to(bf)
+        tols = [fused_tolerance_map(
+            gemv_tolerance_map(xln, w, bf, s_, b, False), xln, w, bf, s_,
+            torch.zeros(M, D, device=dev), True, False, None)
+            for w, s_, b in layers]
+        tols[0] = tols[0] * sq
+        wb = sum(w.numel() * w.element_size() for w, _, _ in layers)
+        kt, vt = kc.clone(), vc.clone()
+        cases.append(dict(
+            name=f"qkv {kind}", kern=lambda f=qkv_out: f(K.decode_qkv),
+            time=lambda ly=layers, x=stream, ln=ln, kt=kt, vt=vt:
+            K.decode_qkv(x, ln, ly, bf, kt, vt, slot, sq),
+            sweep=(stream, ln, layers, kt, vt, slot, sq),
+            plain=lambda f=qkv_out: f(K.decode_qkv_plain),
+            mutant=lambda f=qkv_out, ly=layers: f(
+                K.decode_qkv_plain,
+                [ly[0], (flip_w(ly[1][0], xln),) + ly[1][1:], ly[2]]),
+            moved=qkv_moved, tol=None, tol_maps=tols,
+            library=lambda x=xln.to(bf), w=kcat: torch.matmul(x, w.T),
+            nbytes=stream.numel() * stream.element_size() + wb + 3 * D * 6
+            + 2 * D * 2 + 3 * M * D * 2, flops=2 * M * 3 * D * D))
+
+        # the layer norm before a dense layer (the cross-attention's
+        # query; int8: with post, the int8 memory's query folding at
+        # M / 3 rows a window), fc1 with GELU, fc2 and the out projection
+        # with the residual add
+        w, s_, b = dense(kind, D, D)
+        post = (64 ** -0.25, (torch.rand(3, D, generator=g, device=dev)
+                              + 0.1) * 1e-2, M // 3) \
+            if kind == "int8" and M % 3 == 0 else None
+        cases.append(dict(
+            name=f"ln+query {kind}", x=stream, w=w, s=s_, b=b,
+            kw=dict(ln=ln, post=post), xr=xln,
+            moved=lambda w=w, s_=s_, b=b, post=post, ln=ln, x=stream:
+            K.decode_gemv_plain(ln_bf16_arith(x, ln), w, bf, s_, b,
+                                post=post)))
+        w1, s1, b1 = dense(kind, 4 * D, D)
+        cases.append(dict(
+            name=f"ln+fc1+gelu {kind}", x=stream, w=w1, s=s1, b=b1,
+            kw=dict(ln=ln, gelu=True), xr=xln,
+            moved=lambda w=w1, s_=s1, b=b1, x=stream, ln=ln:
+            K.decode_gemv_plain(ln_bf16_arith(x, ln), w, bf, s_, b,
+                                gelu=True)))
+        xg = rn(M, 1, D, dt=bf)
+
+        def gelu_moved(x=xg, w=w1, s_=s1, b=b1):
+            # the bias's rounding dropped before GELU
+            y = (x.float() @ w.float().T).to(bf)
+            if s_ is not None:
+                y = y * s_.to(bf)
+            return F.gelu(y.float() + b.float()).to(bf)
+        cases.append(dict(name=f"fc1+gelu {kind}", x=xg, w=w1, s=s1, b=b1,
+                          kw=dict(gelu=True), xr=xg.reshape(M, D),
+                          moved=gelu_moved))
+        h = rn(M, 1, 4 * D, dt=bf)
+        w2, s2, b2 = dense(kind, D, 4 * D)
+        res = stream
+
+        def res_moved(x=h, w=w2, s_=s2, b=b2, r=res):
+            if r.dtype == torch.float32:
+                # y's rounding dropped: the unrounded f32 y added
+                acc = x.float() @ w.float().T
+                y = acc.to(bf)
+                if s_ is not None:
+                    y = y * s_.to(bf)
+                return r + (y.float() + b.float())
+            # the bias added after the residual sum
+            y = K.decode_gemv_plain(x, w, bf, s_, None)
+            return (r + y) + b.to(bf)
+        cases.append(dict(name=f"fc2+residual {kind}", x=h, w=w2, s=s2,
+                          b=b2, kw=dict(residual=res),
+                          xr=h.reshape(M, 4 * D), moved=res_moved))
+        if kind == "bf16":
+            # a bf16 dense layer alone: flax nn.Dense's two rounding
+            # points; addmm's single rounding moved
+            x = rn(M, 1, D, dt=bf)
+            cases.append(dict(
+                name="dense bf16", x=x, w=w, s=None, b=b, kw={},
+                xr=x.reshape(M, D),
+                moved=lambda x=x, w=w, b=b: F.linear(x, w, b)))
+    for c in cases:
+        if "kern" in c:
+            continue
+        x, w, s_, b, kw = c["x"], c["w"], c["s"], c["b"], c["kw"]
+        c["kern"] = lambda x=x, w=w, s_=s_, b=b, kw=kw: K.decode_gemv(
+            x, w, bf, s_, b, **kw)
+        c["plain"] = lambda x=x, w=w, s_=s_, b=b, kw=kw: \
+            K.decode_gemv_plain(x, w, bf, s_, b, **kw)
+        lg = kw.get("logits", False)
+        ref = c["plain"]()
+        c["mutant"] = lambda x=x, w=w, s_=s_, b=b, kw=kw, xr=c["xr"], \
+            ref=ref if kw.get("gelu") else None: K.decode_gemv_plain(
+                x, flip_w(w, xr, ref), bf, s_, b, **kw)
+        c["tol_maps"] = [fused_tolerance_map(
+            gemv_tolerance_map(c["xr"], w, bf, s_, b, lg, kw.get("post")),
+            c["xr"], w, bf, s_, ref, "ln" in kw, kw.get("gelu", False),
+            kw.get("residual"), kw.get("post"))]
+        r = kw.get("residual")
+        x16, w16 = c["xr"].to(bf), w.to(bf)
+        c["library"] = lambda x16=x16, w16=w16: torch.matmul(x16, w16.T)
+        N, Kd = w.shape
+        c["nbytes"] = (x.numel() * x.element_size() + w.numel()
+                       * w.element_size() + (0 if s_ is None else N * 4)
+                       + (0 if b is None else N * 2)
+                       + (2 * Kd * 2 if "ln" in kw else 0)
+                       + (0 if r is None else r.numel() * r.element_size())
+                       + M * N * (4 if lg or (r is not None and r.dtype
+                                              == torch.float32) else 2))
+        c["flops"] = 2 * M * N * Kd
+    for c in cases:
+        c["tol"] = max(t.max().item() for t in c["tol_maps"])
+    return cases
 
 
 def rms(x: torch.Tensor) -> float:
@@ -512,7 +784,8 @@ def plan_line(plan: dict) -> str:
 
 
 def launch_sweep(label: str, launches: dict, out_shape, iters: int,
-                 graphed: bool = False) -> None:
+                 graphed: bool = False,
+                 out_dtype: torch.dtype = torch.float32) -> None:
     """Time a kernel through its C function under each launch
     configuration, launches[name](out) -> rc, on the row's inputs, and log
     the times: the measurement behind the plans' choice of cluster size
@@ -524,7 +797,7 @@ def launch_sweep(label: str, launches: dict, out_shape, iters: int,
     These launches count in no launch counter."""
     times, in_graph = {}, {}
     for name, launch in launches.items():
-        out = torch.empty(out_shape, dtype=torch.float32, device="cuda")
+        out = torch.empty(out_shape, dtype=out_dtype, device="cuda")
         if launch(out) != 0:
             times[name] = "too large"
             continue
@@ -550,10 +823,12 @@ def check_kernels(iters: int):
 
     def record(name, replaces, out, ref, tol, mutant, fn, plain, library,
                nbytes, flops, peak_flops=PEAK_BF16_FLOPS, label=None,
-               row=True, rms_tol=None, rms_mutants=None):
+               row=True, rms_tol=None, rms_mutants=None, tol_map=None):
         """Hold `out` to `ref` within `tol`, and `mutant` (the plain
         version on inputs with one key or tap changed) outside it, so the
-        tolerance is shown to catch a one-input error; with `rms_tol`,
+        tolerance is shown to catch a one-input error; with `tol_map` (a
+        tolerance per output, flattened like out), each output within its
+        own and the mutant outside its own somewhere; with `rms_tol`,
         hold the RMS of out - ref within it and each of `rms_mutants`
         (name -> plain version with a rounding point moved) outside it;
         then time. With `row`, the result becomes the kernel's row of the
@@ -563,6 +838,24 @@ def check_kernels(iters: int):
         torch.cuda.synchronize()
         err = (as_real(out) - as_real(ref)).abs().max().item()
         moved = (as_real(out) - as_real(mutant)).abs().max().item()
+        if tol_map is not None:
+            tm = tol_map.reshape(-1)
+            ratio = ((as_real(out) - as_real(ref)).abs().reshape(-1).double()
+                     / tm).max().item()
+            over = ((as_real(out) - as_real(mutant)).abs().reshape(-1)
+                    .double() > tm).sum().item()
+            log(f"kernel {label}: largest error over its own tolerance "
+                f"{ratio:.3e}; the one-weight mutant outside its own at "
+                f"{over} outputs")
+            if not (math.isfinite(ratio) and ratio <= 1):
+                raise AssertionError(f"{label}: an output is {ratio} times "
+                                     "its tolerance")
+            if not over:
+                raise AssertionError(f"{label}: the one-weight mutant stays "
+                                     "within every output's tolerance")
+            err_gate, moved_gate = 0.0, 1.0
+        else:
+            err_gate, moved_gate = err, moved
         if rms_tol is not None:
             err_rms = rms(out - ref)
             moved_rms = {k: rms(out - m) for k, m in rms_mutants.items()}
@@ -589,9 +882,9 @@ def check_kernels(iters: int):
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
             f"{b:.4f} ms by {by} ({nbytes / 1e6:.3f} MB, "
             f"{flops / 1e9:.4f} GFLOP)")
-        if not (math.isfinite(err) and err <= tol):
+        if not (math.isfinite(err) and err_gate <= tol):
             raise AssertionError(f"{label}: max_abs_err {err} > {tol}")
-        if not moved > tol:
+        if not moved_gate > tol:
             raise AssertionError(f"{label}: a one-input change moves the "
                                  f"output {moved}, within the tolerance {tol}")
         result = dict(name=name, route="cuda",
@@ -1064,7 +1357,7 @@ def check_decode_step_kernels(iters: int, record, randn) -> None:
         launch_sweep(f"xattn_step Tq {T}",
                      {f"R={R}": (lambda out, R=R: step_c(R, out))
                       for R in range(1, 9)}, (B, T, D), iters,
-                     graphed=T == 1)
+                     graphed=True, out_dtype=bf)
         if T == 1:
             xrow = got
         else:
@@ -1132,29 +1425,100 @@ def check_decode_step_kernels(iters: int, record, randn) -> None:
                 f"{gplan['cluster']} blocks of {gplan['threads']} threads, "
                 f"{gplan['tiles']} tiles of 8 rows, {gplan['smem']} bytes of "
                 "shared memory a block")
-            if M in (3, 48) and name != "bf16 logits":
+            if name != "bf16 logits":
                 def gemv_c(R, out, x=x, w=w, s_=s_, b_=b_, lg=lg, dt=dt,
-                           gplan=gplan):
-                    return K.build.load("decode_gemv").decode_gemv(
-                        x.data_ptr(), w.data_ptr(),
-                        None if s_ is None else s_.data_ptr(),
-                        None if b_ is None else b_.data_ptr(),
-                        out.data_ptr(), M, w.shape[0], w.shape[1],
-                        gplan["tiles"], 1, R,
-                        int(x.dtype == torch.float32),
-                        int(w.dtype == torch.int8), int(dt == bf),
-                        int(b_ is not None and b_.dtype == torch.float32),
-                        int(lg), 0, None, 0.0, 1, K._stream())
+                           M=M):
+                    plan = K.decode_gemv_launch(M, w.shape[0], w.shape[1],
+                                                w.dtype, 1, R=R)
+                    return K._launch_decode_gemv(
+                        x, [K._gemv_seg(w, s_, b_, out, w.shape[0],
+                                        logits=lg)], dt, w.dtype, None, plan)
                 nck = w.shape[1] // K._gemv_chunk(w.dtype)
                 launch_sweep(label, {f"R={R}": (lambda o, R=R: gemv_c(R, o))
                                      for R in range(1, min(8, nck) + 1)},
-                             (M, 1, w.shape[0]), iters, graphed=M == 3)
-                if M == 3:
-                    log(f"kernel {label}: the library call as 32 launches "
-                        "in one CUDA graph, ms per launch "
-                        f"{time_cuda_graph(lambda: [torch.matmul(x16, w16.T) for _ in range(32)], iters) / 32:.4f}")
+                             (M, 1, w.shape[0]), iters, graphed=True,
+                             out_dtype=torch.float32 if lg else dt)
+                log(f"kernel {label}: the library call as 32 launches "
+                    "in one CUDA graph, ms per launch "
+                    f"{time_cuda_graph(lambda: [torch.matmul(x16, w16.T) for _ in range(32)], iters) / 32:.4f}")
             del w_mut, w16
     grow["shapes"] = shapes
+    del emb8, emb16
+    grow["fused"] = check_fused_step_modes(iters, record)
+
+
+def check_fused_step_modes(iters: int, record) -> dict:
+    """Phase 2 for decode_gemv's modes of the fused decode step
+    (fused_cases, large-v3's int8 and bf16 decoders at 3, 15 and 48
+    rows): each output held to its plain version within its own
+    fused_tolerance_map value by check_kernels' record (the plain version
+    with one weight changed must leave it somewhere), and at most
+    DIFF_SHARE of the outputs off the plain version at all, a share that
+    the plain version with one rounding point moved must exceed; timed by
+    events and as 32 launches in one CUDA graph beside torch.matmul on the
+    widened weights (the same two ways). The q/k/v launch's cluster size
+    is swept as 32 launches in one graph (launch_sweep). Returns each
+    case's numbers by
+    "name rows"."""
+    from notsofar_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(4242)
+    out = {}
+    for M in (3, 15, 48):
+        for c in fused_cases(M, g):
+            label = f"decode_gemv {c['name']} {M} rows"
+            y, ref, moved = c["kern"](), c["plain"](), c["moved"]()
+            torch.cuda.synchronize()
+            # the share of outputs off their plain version: a flipped
+            # normalized x or another summation order touches a few, a
+            # rounding point moved touches many
+            share, mshare = differing(y, ref), differing(moved, ref)
+            log(f"kernel {label}: outputs off the plain version {share:.4f} "
+                f"(at most {DIFF_SHARE}); with a rounding point moved "
+                f"{mshare:.4f}")
+            if not share <= DIFF_SHARE:
+                raise AssertionError(f"{label}: {share} of the outputs off "
+                                     "the plain version")
+            if not mshare > DIFF_SHARE:
+                raise AssertionError(f"{label}: a rounding point moved "
+                                     f"changes only {mshare} of the outputs")
+            fn = c.get("time", c["kern"])
+            got = record(
+                "decode_gemv", "notsofar_tpu/models/whisper.py:86", y, ref,
+                c["tol"], c["mutant"](), fn, c["plain"], c["library"],
+                nbytes=c["nbytes"], flops=c["flops"], label=label, row=False,
+                tol_map=torch.cat(c["tol_maps"], -1))
+            graph_ms = time_cuda_graph(lambda: [fn() for _ in range(32)],
+                                       iters) / 32
+            lib = c["library"]
+            lib_graph = time_cuda_graph(lambda: [lib() for _ in range(32)],
+                                        iters) / 32
+            log(f"kernel {label}: as 32 launches in one CUDA graph "
+                f"{graph_ms:.4f} ms a launch, the library call "
+                f"{lib_graph:.4f}")
+            out[f"{c['name']} {M}"] = dict(
+                {k: got[k] for k in ("ms", "bound_ms", "plain_ms",
+                                     "library_ms", "max_abs_err")},
+                graph_ms=graph_ms, library_graph_ms=lib_graph)
+            if "sweep" in c and c["name"] == "qkv int8":
+                x, ln, layers, kt, vt, slot, sq = c["sweep"]
+                D = x.shape[-1]
+
+                def qkv_c(R, o, x=x, ln=ln, layers=layers, kt=kt,
+                          vt=vt, slot=slot, sq=sq, M=M, D=D):
+                    plan = K.decode_gemv_launch(M, [D] * 3, D, torch.int8,
+                                                1, ln=True, R=R)
+                    segs = [K._gemv_seg(*layers[0], o, D, mul=sq)] + [
+                        K._gemv_seg(*ly, cache, cache.shape[1] * D,
+                                    slot=slot)
+                        for ly, cache in zip(layers[1:], (kt, vt))]
+                    return K._launch_decode_gemv(x, segs, torch.bfloat16,
+                                                 torch.int8, ln, plan)
+                launch_sweep(
+                    f"decode_gemv qkv int8 {M} rows",
+                    {f"R={R}": (lambda o, R=R: qkv_c(R, o))
+                     for R in range(1, 9)},
+                    (M, 1, D), iters, graphed=True, out_dtype=torch.bfloat16)
+    return out
 
 
 def check_tool_kernels(iters: int, record, randn) -> None:
@@ -1513,13 +1877,17 @@ def check_graph_decode(max_new: int = 32) -> None:
                 raise AssertionError(f"graph {dtype} {kind}: steps "
                                      f"{gr['steps']}, eager {e['steps']}")
         for beams in (1, 5):
-            log(f"graph {dtype}: " + step_kernels(model, tok, xa, beams))
+            log(f"graph {dtype}: " + step_kernels(model, beams))
         if dtype == "bfloat16":
             time_finished_interval(model, tok, xa)
         del model, xa
     ms = {f"{k[0].replace('torch.', '')} {k[1]} rows": round(v, 3)
           for k, v in STEP_DEVICE_MS.items()}
-    log(f"graph: one decoder step's device ms {ms}; the int8 step below "
+    replay = {f"{k[0].replace('torch.', '')} {k[1]} rows":
+              (round(v["graph_ms"], 4), v["busy_share"] and
+               round(v["busy_share"], 4)) for k, v in STEP_GRAPH.items()}
+    log(f"graph: one decoder step's device ms {ms}; replayed as a graph "
+        f"(ms a step, device busy share) {replay}; the int8 step below "
         "the bf16 step at " + ", ".join(
             f"{r} rows {STEP_DEVICE_MS[('torch.bfloat16/int8', r)] < STEP_DEVICE_MS[('torch.bfloat16', r)]}"
             for r in (3, 15)))
@@ -1587,58 +1955,37 @@ def time_finished_interval(model, tok, xa, max_new: int = 224) -> None:
         dec.FINISHED_CHECK_EVERY = default
 
 
-def step_kernels(model, tok, xa, beams: int = 1) -> str:
-    """Where a graphed step's time goes: the kernels of one single-token
-    decoder call, run eagerly under torch.profiler: their count, the sum of
-    their device times, and the names that take the most. beams 1: the
-    greedy shape (the windows' rows, a 256-slot cache after a 4-token
-    prompt); beams K: the beam shape (K rows a window, the 4-token prompt
-    in a split cache's shared segment, a 64-slot generated segment, the
-    beams folded into the cross-attention's queries)."""
-    from collections import defaultdict
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    B = xa.shape[0]
-    D = model.dims.n_text_state
-    cross = model.precompute_cross_kv(xa)
-    if model.quant_decoder:
-        cross = model.quantize_cross_kv(cross)
-    toks = torch.full((B * beams, 4), tok.sot, dtype=torch.long,
-                      device=xa.device)
-    pos = torch.tensor(4, device=xa.device)
-    with torch.no_grad():
-        if beams == 1:
-            caches = model.empty_kv_caches(B, cache_len=256)
-            model.decoder(toks, xa, 0, caches, cross_kvs=cross)
-        else:
-            prompt = model.empty_kv_caches(B, cache_len=4)
-            model.decoder(toks[:B], xa, 0, prompt, cross_kvs=cross)
-            gen = model.empty_kv_caches(B * beams, cache_len=64)
-            anc = torch.zeros((B, beams, 64), dtype=torch.int32,
-                              device=xa.device)
-            caches = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
-                      in zip(prompt, gen)]
-        model.decoder(toks[:, :1], xa, pos, caches, cross_kvs=cross)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model.decoder(toks[:, :1], xa, pos + 1, caches, cross_kvs=cross)
-            torch.cuda.synchronize()
-    by_name, count = defaultdict(float), defaultdict(int)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
-            count[e.name] += 1
-    total = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    STEP_DEVICE_MS[(str(model.dtype) + ("/int8" if model.quant_decoder
-                                        else ""), B * beams)] = total / 1e3
-    return (f"one decoder step ({B * beams} rows, {beams} beam(s), D {D}, "
-            f"eager, torch.profiler): {sum(count.values())} device "
-            f"activities, {total / 1e3:.3f} ms of device time; the most "
-            "(name: launches, ms): "
-            + "; ".join(f"{k[:60]}: {count[k]}, {v / 1e3:.3f}"
-                        for k, v in top))
+def step_kernels(model, beams: int = 1) -> str:
+    """Where a graphed step's time goes (tools/time_decode_step.py
+    step_profile): the kernels of one single-token decoder call run
+    eagerly under torch.profiler, their count, the sum of their device
+    times and the names that take the most; the same call replayed as a
+    CUDA graph, ms per replay and the device's busy share over 10 replays
+    under torch.profiler. beams 1: the greedy shape (3 windows' rows, a
+    256-slot cache after a 4-token prompt); beams K: the beam shape (K
+    rows a window, the prompt in a split cache's shared segment, a 64-slot
+    generated segment, the beams folded into the cross-attention's
+    queries)."""
+    from notsofar_tpu_torch.tools.time_decode_step import step_profile
+    r = step_profile(model, beams)
+    key = (str(model.dtype) + ("/int8" if model.quant_decoder else ""),
+           r["rows"])
+    STEP_DEVICE_MS[key] = r["device_ms"]
+    STEP_GRAPH[key] = r
+    share = ("not seen: the profiler shows no kernel inside the replays "
+             "(the replay ms by events stands alone)"
+             if r["busy_share"] is None else f"{r['busy_share']:.4f}")
+    return (f"one decoder step ({r['rows']} rows, {beams} beam(s), eager, "
+            f"torch.profiler): {r['kernels']} device activities, "
+            f"{r['device_ms']:.3f} ms of device time; replayed as a CUDA "
+            f"graph {r['graph_ms']:.4f} ms a step, device busy share "
+            f"{share} ({r['graph_kernels_seen']} kernels in 10 replays); "
+            "the most (name: launches, ms): "
+            + "; ".join(f"{k}: {n}, {v:.3f}" for k, n, v in r["top"]))
+
+
+# phase 3b's one decoder step replayed as a graph, by (dtype, rows)
+STEP_GRAPH: dict = {}
 
 
 # phase 3b's profiled device ms of one decoder step by (dtype, rows)
@@ -1714,29 +2061,34 @@ def check_traffic(label: str, traffic, counts: dict) -> None:
 def check_decode_launches(label: str, counts: dict, quant: bool) -> None:
     """Every decode step's cross-attention reached its kernel (xattn_step
     for the float memory, xattn_int8 for the int8 one) and every step's
-    dense layers (int8) and logits reached decode_gemv: the decoder calls
+    dense layers and logits reached decode_gemv: the decoder calls
     counted under each kernel (models.whisper.DECODER_CALLS, by the rules
-    the model dispatches by) are at least the decode steps run, and the
-    kernels launched once a layer (cross-attention) and
-    TextDecoder.decode_gemv_per_call() times (decode_gemv) a counted
-    call."""
+    the model dispatches by) are at least the decode steps run (fused
+    steps for decode_gemv), and the kernels launched once a layer
+    (cross-attention) and TextDecoder.decode_gemv_per_call() times a
+    fused step plus decode_gemv_per_call(fused=False) times a call run
+    layer by layer (decode_gemv)."""
     from notsofar_tpu_torch.asr import decoding as dec
     from notsofar_tpu_torch.models.whisper import WHISPER_DIMS
     n_layers = WHISPER_DIMS["large-v3"].n_text_layer
     calls = dec.DECODER_CALLS
     steps = dec.DECODE_STEPS["eager"] + dec.DECODE_STEPS["replayed"]
     xattn = "xattn_int8" if quant else "xattn_step"
-    per_call = 8 * n_layers + 1 if quant else 1
+    per_fused, per_layer = 6 * n_layers + 1, 8 * n_layers + 1
+    gemv = per_fused * calls["decode_gemv"] + \
+        per_layer * calls["decode_gemv_layerwise"]
     log(f"{label}: {steps} decode steps; {xattn} launches "
         f"{counts[xattn]} = {n_layers} x {calls[xattn]} decoder calls; "
-        f"decode_gemv launches {counts['decode_gemv']} = {per_call} x "
-        f"{calls['decode_gemv']} decoder calls")
-    for name, per in ((xattn, n_layers), ("decode_gemv", per_call)):
-        if not (counts[name] == per * calls[name] > 0
-                and calls[name] >= steps > 0):
+        f"decode_gemv launches {counts['decode_gemv']} = {per_fused} x "
+        f"{calls['decode_gemv']} fused steps + {per_layer} x "
+        f"{calls['decode_gemv_layerwise']} calls layer by layer")
+    for name, want in ((xattn, n_layers * calls[xattn]),
+                       ("decode_gemv", gemv)):
+        if not (counts[name] == want > 0 and calls[name] >= steps > 0):
             raise AssertionError(f"{label}: {name} launched {counts[name]} "
-                                 f"times for {calls[name]} decoder calls x "
-                                 f"{per} ({steps} decode steps)")
+                                 f"times, {want} expected from the decoder "
+                                 f"calls {dict(calls)} ({steps} decode "
+                                 "steps)")
 
 
 def decode_steps_line(label: str, decode_s: float) -> str:

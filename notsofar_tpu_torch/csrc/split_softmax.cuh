@@ -250,40 +250,83 @@ __device__ __forceinline__ void sum_received(const float* recv, int nout,
 // the launch
 // ---------------------------------------------------------------------------
 
-// grid (R, gy, gz) in clusters of R blocks along x, `smem` bytes of
-// dynamic shared memory (opted in above 48 KB once per kernel and device,
-// and raised only when a larger launch arrives, not on every decode-step
-// launch)
-template <auto Kern, typename... Args>
-int launch_cluster(int R, int gy, int gz, int threads, size_t smem,
-                   cudaStream_t st, Args... args) {
+// programmatic dependent launch (PTX griddepcontrol, sm_90): wait until
+// the grids this one depends on have completed and their writes are
+// visible (a no-op in a launch without the attribute), and let the
+// dependent grid start once every block has signalled or exited
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// the opt-in to `smem` bytes of dynamic shared memory above 48 KB, once per
+// kernel and device, and raised only when a larger launch arrives (not on
+// every decode-step launch)
+template <auto Kern>
+cudaError_t opt_in_smem(size_t smem) {
   constexpr int MAX_DEVICES = 64;
   static size_t opted_in[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (smem > 48 * 1024 && smem > opted_in[dev]) {
     e = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return e;
     opted_in[dev] = smem;
   }
+  return cudaSuccess;
+}
+
+// grid (R, gy, gz) in clusters of R blocks along x, `smem` bytes of
+// dynamic shared memory; with pdl, also the programmatic-stream-
+// serialization attribute: the kernel may start before its predecessor on
+// the stream ends, and must itself wait (griddepcontrol.wait) before it
+// reads anything an earlier kernel writes
+template <auto Kern, typename... Args>
+int launch_cluster_attrs(bool pdl, int R, int gy, int gz, int threads,
+                         size_t smem, cudaStream_t st, Args... args) {
+  cudaError_t e = opt_in_smem<Kern>(smem);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(R, gy, gz);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = R;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   e = cudaLaunchKernelEx(&cfg, Kern, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// a cluster launch without programmatic dependence (every kernel that does
+// not wait on griddepcontrol)
+template <auto Kern, typename... Args>
+int launch_cluster(int R, int gy, int gz, int threads, size_t smem,
+                   cudaStream_t st, Args... args) {
+  return launch_cluster_attrs<Kern>(false, R, gy, gz, threads, smem, st,
+                                    args...);
+}
+
+// a cluster launch with programmatic dependence, for the kernels that wait
+// on griddepcontrol before their first read of an earlier kernel's output
+// (decode_gemv.cu, xattn_step.cu)
+template <auto Kern, typename... Args>
+int launch_cluster_pdl(int R, int gy, int gz, int threads, size_t smem,
+                       cudaStream_t st, Args... args) {
+  return launch_cluster_attrs<Kern>(true, R, gy, gz, threads, smem, st,
+                                    args...);
 }
 
 }  // namespace split

@@ -23,9 +23,15 @@
 // R <= 8 blocks along x, grid (R, H, B), from the shapes alone (a launch
 // captured in a CUDA graph serves every step). Block r owns the contiguous
 // share of keys [r * ceil(S / R), ...); its first instructions put the
-// raw queries, the share's key rows (one mbarrier per 32 rows) and its
-// value rows (one mbarrier) in flight into shared memory as 16-byte
-// cp.async copies. bf16 logits on the tensor cores: a warp takes 16 keys
+// share's key rows (one mbarrier per 32 rows) and its value rows (one
+// mbarrier) in flight into shared memory as 16-byte cp.async copies. The
+// kernel is launched with programmatic dependence (launch_cluster_pdl):
+// the memory is fixed for a whole decode call, so those copies are issued
+// before griddepcontrol.wait, while the query's GEMV may still run; the
+// raw queries (1 KB at most), which that GEMV writes, are loaded after the
+// wait with plain loads (an asynchronous copy's mbarrier arrival would
+// also wait for the key and value rows issued before it), and then the
+// next kernel may launch. bf16 logits on the tensor cores: a warp takes 16 keys
 // at a time as they land, scales and rounds each key element in registers
 // (k * dk**-0.25 -> bf16, the reference's rounding point, so no scaled
 // copy of the memory is ever written) and multiplies them with the scaled
@@ -167,8 +173,9 @@ xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float2* gstat = reinterpret_cast<float2*>(smem + L.gstat);
   auto bar = [&](int i) { return sp::smem_u32(bars + i); };   // 0: values
 
-  // the queries, the share's key rows and its value rows in flight before
-  // anything else; each key chunk's barrier also covers the queries
+  // the share's key rows and value rows in flight before anything else,
+  // before the wait on the query's kernel (no kernel of a decode call
+  // writes the memory); the queries after it
   if (tid == 0) {
     for (int i = 0; i <= nck; ++i) sp::mbar_init(bar(i), NTHREADS);
     sp::fence_mbar_init();
@@ -176,10 +183,6 @@ xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   sp::cluster_arrive();
   const size_t mem = ((size_t)b * S + sh.c0) * D + (size_t)h * DK;
-  if (len > 0)
-    sp::stage_rows<NTHREADS, false>(smem + L.qrows, RB, 0, TQ, [&](int t) {
-      return q + ((size_t)b * TQ + t) * D + h * DK;
-    });
   for (int c = 0; c < nck; ++c) {
     sp::stage_rows<NTHREADS, true>(ks, RB, c * sp::CH,
                                    min(len, (c + 1) * sp::CH), [&](int r) {
@@ -191,6 +194,15 @@ xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return v + mem + (size_t)r * D;
   });
   sp::cp_async_arrive(bar(0));
+  sp::pdl_wait();
+  for (int p = tid; p < TQ * PPR; p += NTHREADS) {
+    const int t = p / PPR, kp = p % PPR;
+    *reinterpret_cast<uint4*>(smem + L.qrows + t * RB + kp * 16) =
+        *reinterpret_cast<const uint4*>(q + ((size_t)b * TQ + t) * D +
+                                        h * DK + kp * (16 / sizeof(T)));
+  }
+  sp::pdl_launch_dependents();   // every load of the kernel issued
+  __syncthreads();
 
   if constexpr (TC) {
     if (len > 0) {
@@ -354,7 +366,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int D, float sc, int R, cudaStream_t st) {
   const int per = sp::share_rows(S, R);
   const size_t smem = layout(per, DK, (int)sizeof(T), TQ, R).bytes;
-  return sp::launch_cluster<xattn_step_kernel<T, DK, TQ>>(
+  return sp::launch_cluster_pdl<xattn_step_kernel<T, DK, TQ>>(
       R, D / DK, B, NTHREADS, smem, st, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), S, D, sc, per);
@@ -381,6 +393,7 @@ int launch_tq(int Tq, const void* q, const void* k, const void* v, void* out,
 // q [B, Tq, D], k and v [B, S, D], out [B, Tq, D], all bf16 when is_bf16,
 // else f32, contiguous and 16-byte aligned. 1 <= Tq <= 8, dk in {64, 128},
 // D % dk == 0, S >= 1; sc = dk**-0.25 as f32; R the cluster size (1..8).
+// The launch carries the programmatic-stream-serialization attribute.
 // Returns cudaGetLastError() of the launch.
 extern "C" int xattn_step(const void* q, const void* k, const void* v,
                           void* out, int B, int Tq, int S, int D, int dk,

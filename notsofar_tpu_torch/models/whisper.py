@@ -13,11 +13,17 @@ product. ``MHA`` keeps the reference's four kernel dispatch predicates
 exactly (split cache, T=1 cache step, encoder 512 <= T == S <= 2048, int8
 cross-attention memory at a folded query length <= 8), so the same calls
 reach the same kernels on both sides. Two more kernels serve the decode
-step where the reference relies on XLA fusing dtype conversions into its
-dots: ``xattn_step`` (the float cross-attention memory at a folded query
-length <= 8) and ``decode_gemv`` (QuantDense and the int8 or bf16 output
-logits at up to DECODE_GEMV_MAX_ROWS rows), each reading its operand
-once in the stored dtype.
+step where the reference relies on XLA fusing dtype conversions, layer
+norms, activations and adds into its dots: ``xattn_step`` (the float
+cross-attention memory at a folded query length <= 8) and
+``decode_gemv`` (every int8 or bf16 dense layer and the output logits at
+up to DECODE_GEMV_MAX_ROWS rows), each reading its operand once in the
+stored dtype. A single-token decode step (``TextDecoder.fused_step``)
+runs each block as ``ResidualBlock.decode_step``: six decode_gemv
+launches a layer (the layer norm in the prologue of the self-attention's
+one q/k/v launch, which writes k and v into the cache, of the
+cross-attention's query and of fc1; GELU and the three residual adds in
+the epilogues), the same rounding points as the layer-by-layer path.
 
 The int8 decoder (``quant_decoder=True``, the JAX package's serving
 configuration) stores every decoder matrix weight-only int8 with f32
@@ -36,8 +42,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from notsofar_tpu_torch.ops.kernels import (XATTN_STEP_MAX_TQ, attn_step,
-                                            attn_step_split, decode_gemv,
+from notsofar_tpu_torch.ops.kernels import (XATTN_STEP_MAX_TQ, GemvLN,
+                                            attn_step, attn_step_split,
+                                            decode_gemv, decode_qkv,
                                             encoder_mha, uses_decode_gemv,
                                             xattn_int8, xattn_step)
 from notsofar_tpu_torch.utils.device import resolve_device
@@ -65,11 +72,14 @@ def uses_xattn_step(B: int, T: int, precomputed_kv) -> bool:
 
 
 # TextDecoder.forward calls whose work reaches each kernel by the rules MHA,
-# QuantDense and the logits dispatch by: an xattn_int8 or xattn_step call
-# launches it once per layer, a decode_gemv call
-# TextDecoder.decode_gemv_per_call() times
+# the dense layers and the logits dispatch by: an xattn_int8 or xattn_step
+# call launches it once per layer; a decode_gemv call (a fused step,
+# TextDecoder.fused_step) TextDecoder.decode_gemv_per_call() times, a
+# decode_gemv_layerwise call (layer by layer, at most DECODE_GEMV_MAX_ROWS
+# rows) decode_gemv_per_call(fused=False) times
 DECODER_CALLS: Dict[str, int] = {"xattn_int8": 0, "xattn_step": 0,
-                                 "decode_gemv": 0}
+                                 "decode_gemv": 0,
+                                 "decode_gemv_layerwise": 0}
 
 
 def reset_decoder_calls() -> None:
@@ -208,9 +218,39 @@ def _dtype(layer: nn.Module) -> torch.dtype:
 
 def _lin(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Dense in the layer's compute dtype (flax Dense(dtype) casts its
-    input; QuantDense casts its own, in decode_gemv's case on the card)."""
-    return layer(x) if isinstance(layer, QuantDense) else \
-        layer(x.to(layer.weight.dtype))
+    input; QuantDense casts its own, in decode_gemv's case on the card). A
+    bf16 Linear at up to DECODE_GEMV_MAX_ROWS rows goes through decode_gemv
+    with flax nn.Dense's rounding points, dtype(acc) then dtype(y +
+    dtype(b)); more rows (prefill) keep addmm's single rounding."""
+    if isinstance(layer, QuantDense):
+        return layer(x)
+    if uses_decode_gemv(x.numel() // x.shape[-1], layer.weight.dtype):
+        return decode_gemv(x, layer.weight, layer.weight.dtype,
+                           bias=layer.bias)
+    return layer(x.to(layer.weight.dtype))
+
+
+def _dense_args(layer: nn.Module):
+    """(weight, scale or None, bias or None) of a QuantDense or Linear."""
+    return (layer.weight, layer.scale if isinstance(layer, QuantDense)
+            else None, layer.bias)
+
+
+def _gemv(layer: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """A dense layer of a fused decode step through decode_gemv, with the
+    same rounding points as _lin (QuantDense's three, a bf16 Linear's two);
+    kw: decode_gemv's ln, gelu, residual, post."""
+    if isinstance(layer, QuantDense) and "residual" not in kw:
+        kw["out_dtype"] = layer.out_dtype
+    return decode_gemv(x, layer.weight, _dtype(layer),
+                       *_dense_args(layer)[1:], **kw)
+
+
+def _norm(ln: nn.LayerNorm) -> GemvLN:
+    """A LayerNorm as decode_gemv's prologue (the raw parameters: the
+    kernel widens them; the plain version promotes them as
+    LayerNorm.forward does)."""
+    return GemvLN(ln.weight, ln.bias, ln.eps)
 
 
 class CacheSlot(NamedTuple):
@@ -351,18 +391,74 @@ class MHA(nn.Module):
         out = out.transpose(1, 2).reshape(B, T, self.n_state)
         return _lin(self.out, out), w, new_cache
 
-    def _q_scales(self, k_s: torch.Tensor, scale: float):
-        """(scale as a 1-element f32 tensor, k_s * scale) for the int8
-        decode steps: q * the first is q.float() * scale in one kernel; the
-        second is made once per cross-attention memory (kept while k_s is
-        this very tensor) instead of at every step. The same products as
-        the reference's, bit for bit."""
+    def _q_scales(self, k_s: torch.Tensor, v_s: torch.Tensor, scale: float):
+        """(scale as a 1-element f32 tensor, k_s * scale, v_s[:, 0]
+        contiguous) for the int8 decode steps: q * the first is q.float() *
+        scale in one kernel; the others are made once per cross-attention
+        memory (kept while k_s and v_s are these very tensors) instead of at
+        every step. The same products as the reference's, bit for bit."""
         cached = getattr(self, "_q_scale_cache", None)
-        if cached is None or cached[0] is not k_s:
-            cached = (k_s, torch.full((1,), scale, dtype=torch.float32,
-                                      device=k_s.device), k_s * scale)
+        if cached is None or cached[0] is not k_s or cached[1] is not v_s:
+            cached = (k_s, v_s, torch.full((1,), scale, dtype=torch.float32,
+                                           device=k_s.device), k_s * scale,
+                      v_s[:, 0].contiguous())
             self._q_scale_cache = cached
-        return cached[1:]
+        return cached[2:]
+
+    def step_self(self, x, ln: nn.LayerNorm, kv_cache, cache_index, pads):
+        """The self-attention of a fused single-token step: x [B, 1, D] the
+        raw residual stream, ln its layer norm. One decode_gemv launch
+        normalizes x and projects q, k and v, writes k and v into the cache
+        (unified (k, v), or the split beam cache's generated segment) at
+        the step's slot and returns q_eff; then attn_step or
+        attn_step_split with `pads` (TextDecoder.step_pads). Returns the
+        attention output [B, 1, D] before the out projection."""
+        d_k = self.n_state // self.n_head
+        B = x.shape[0]
+        if len(kv_cache) in (4, 5):
+            kp, vp, ck, cv = kv_cache[:4]
+            slot = cache_index.slot if isinstance(cache_index, CacheSlot) \
+                else cache_index - kp.shape[1]
+        else:
+            ck, cv = kv_cache
+            slot = cache_index.slot if isinstance(cache_index, CacheSlot) \
+                else cache_index
+        q_eff = decode_qkv(x, _norm(ln), [_dense_args(layer) for layer in
+                                          (self.query, self.key, self.value)],
+                           _dtype(self.query), ck, cv, slot, d_k ** -0.5)
+        if len(kv_cache) in (4, 5):
+            out = attn_step_split(q_eff, kp, vp, ck, cv, slot, pads, d_k,
+                                  B // kp.shape[0],
+                                  anc=kv_cache[4] if len(kv_cache) == 5
+                                  else None)
+        else:
+            out = attn_step(q_eff, ck, cv, slot, pads, d_k)
+        return out.reshape(B, 1, self.n_state)
+
+    def step_cross(self, x, ln: nn.LayerNorm, precomputed_kv):
+        """The cross-attention of a fused single-token step: x [B, 1, D] the
+        raw residual stream, ln its layer norm; the query's decode_gemv
+        normalizes x (and for the int8 memory folds the scales into q as
+        _attend_precomputed does), then xattn_int8 or xattn_step. Returns
+        the attention output [B, 1, D] before the out projection (f32 for
+        the int8 memory)."""
+        d_k = self.n_state // self.n_head
+        B = x.shape[0]
+        Bm = precomputed_kv[0].shape[0]
+        Tq = B // Bm
+        scale = d_k ** -0.25
+        if len(precomputed_kv) == 5:
+            k8, k_s, v8, v_s, s_valid = precomputed_kv
+            _, ks_s, vs0 = self._q_scales(k_s, v_s, scale)
+            q_eff = _gemv(self.query, x, ln=_norm(ln),
+                          post=(scale, ks_s.reshape(Bm, -1), Tq))
+            out = xattn_int8(q_eff.reshape(Bm, Tq, self.n_state), k8, v8,
+                             vs0, d_k, s_valid)
+        else:
+            q = _gemv(self.query, x, ln=_norm(ln))
+            out = xattn_step(q.reshape(Bm, Tq, self.n_state),
+                             precomputed_kv[0], precomputed_kv[1], d_k)
+        return out.reshape(B, 1, self.n_state)
 
     def _attend_precomputed(self, x, precomputed_kv, mask):
         """Cross-attention of the queries of x [B, T, D] against an
@@ -392,7 +488,7 @@ class MHA(nn.Module):
             # these attention weights)
             assert mask is None, "quantized cross-attention is unmasked"
             k8, k_s, v8, v_s, s_valid = precomputed_kv
-            s1, ks_s = self._q_scales(k_s, scale)
+            s1, ks_s, vs0 = self._q_scales(k_s, v_s, scale)
             if isinstance(self.query, QuantDense) and uses_decode_gemv(
                     B * T, self.query.weight.dtype):
                 q_eff = self.query(x, post=(scale, ks_s.reshape(Bm, -1), Tq))
@@ -403,7 +499,7 @@ class MHA(nn.Module):
                                       (Bm, Tq, self.n_state), dtype=dtype,
                                       device=x.device))
             out = xattn_int8(q_eff.reshape(Bm, Tq, self.n_state), k8, v8,
-                             v_s[:, 0].contiguous(), d_k, s_valid)
+                             vs0, d_k, s_valid)
             if fold:
                 out = out.reshape(B, T, self.n_state)
             # f32: the out projection rounds it to the dtype on its way in,
@@ -480,7 +576,22 @@ class ResidualBlock(nn.Module):
             a, cross_w, _ = self.cross_attn(self.cross_attn_ln(x), xa,
                                             precomputed_kv=cross_kv)
             x = x + a
-        return x + self.mlp(self.mlp_ln(x)), cross_w, new_cache
+        h = _lin(self.mlp[0], self.mlp_ln(x))
+        return x + _lin(self.mlp[2], self.mlp[1](h)), cross_w, new_cache
+
+    def decode_step(self, x, kv_cache, cache_index, cross_kv, pads):
+        """forward for a fused single-token decode step (TextDecoder.
+        fused_step): six decode_gemv launches and the two attention
+        kernels, with forward's rounding points -- the layer norms in the
+        GEMVs' prologues, GELU and the residual adds in their epilogues, k
+        and v written into the cache by the q/k/v launch. Returns the new
+        residual stream."""
+        a = self.attn.step_self(x, self.attn_ln, kv_cache, cache_index, pads)
+        x = _gemv(self.attn.out, a, residual=x)
+        a = self.cross_attn.step_cross(x, self.cross_attn_ln, cross_kv)
+        x = _gemv(self.cross_attn.out, a, residual=x)
+        h = _gemv(self.mlp[0], x, ln=_norm(self.mlp_ln), gelu=True)
+        return _gemv(self.mlp[2], h, residual=x)
 
 
 class AudioEncoder(nn.Module):
@@ -549,11 +660,13 @@ class TextDecoder(nn.Module):
         if on_device and T != 1:
             raise ValueError("a pos_offset tensor serves single-token steps")
         B = tokens.shape[0]
+        fused = self.fused_step(B, T, kv_caches, cross_kvs)
         if cross_kvs is not None:
             DECODER_CALLS["xattn_int8"] += uses_xattn_int8(B, T, cross_kvs[0])
             DECODER_CALLS["xattn_step"] += uses_xattn_step(B, T, cross_kvs[0])
-        DECODER_CALLS["decode_gemv"] += uses_decode_gemv(
-            B * T, self.token_embedding.weight.dtype)
+        gemv = uses_decode_gemv(B * T, self.token_embedding.weight.dtype)
+        DECODER_CALLS["decode_gemv"] += gemv and fused
+        DECODER_CALLS["decode_gemv_layerwise"] += gemv and not fused
         if self.quant:
             # int8 rows times their scale, in f32: the int8 decoder's
             # residual stream is f32 (as in flax, f32 + bf16 positions)
@@ -611,8 +724,16 @@ class TextDecoder(nn.Module):
                                     rel.to(torch.int32))
         new_caches: List = []
         cross_ws: List = []
+        pads = self.step_pads(B, kv_caches[0], pad_lens) if fused else None
         for i, block in enumerate(self.blocks):
             cache = kv_caches[i] if kv_caches is not None else None
+            if fused:
+                x = block.decode_step(x, cache, cache_index, cross_kvs[i],
+                                      pads)
+                new_caches.append(cache)
+                if return_cross_attn:
+                    cross_ws.append(None)
+                continue
             x, cw, nc = block(
                 x, xa, mask, cache, cache_index,
                 cross_kv=cross_kvs[i] if cross_kvs is not None else None,
@@ -620,28 +741,61 @@ class TextDecoder(nn.Module):
             new_caches.append(nc)
             if return_cross_attn:
                 cross_ws.append(cw)
+        # the final layer norm stays its own launch: in the logits'
+        # prologue every one of their 811 tiles would recompute the rows'
+        # statistics (chip_smoke.py phase 2: slower than the separate
+        # launch at 3 and 15 rows)
         x = self.ln(x)
         emb = self.token_embedding
         if self.quant:
             # bf16 x times the int8 rows, summed in f32, times the per-row
             # scale (the JAX einsum's preferred_element_type=f32)
             logits = decode_gemv(x, emb.weight, self.ln.weight.dtype,
-                                 emb.scale, logits=True) \
-                if uses_decode_gemv(B * T, emb.weight.dtype) else \
+                                 emb.scale, logits=True) if gemv else \
                 torch.matmul(x.to(self.ln.weight.dtype).float(),
                              emb.weight.float().T) * emb.scale
-        elif uses_decode_gemv(B * T, emb.weight.dtype):
+        elif gemv:
             logits = decode_gemv(x, emb.weight, x.dtype, logits=True)
         else:
             logits = torch.matmul(x.float(), emb.weight.float().T)
         return logits, (new_caches if kv_caches is not None else None), \
             cross_ws
 
-    def decode_gemv_per_call(self) -> int:
+    def fused_step(self, B: int, T: int, kv_caches, cross_kvs) -> bool:
+        """Whether a forward call of B rows x T tokens runs each block as
+        ResidualBlock.decode_step: a single-token step with caches and a
+        precomputed cross-attention memory that the step kernels serve
+        (xattn_int8 or xattn_step), the kernels' head geometry, and every
+        dense layer int8 or bf16 at up to DECODE_GEMV_MAX_ROWS rows."""
+        d = self.dims
+        return (T == 1 and kv_caches is not None and cross_kvs is not None
+                and _kernel_geometry(d.n_text_state,
+                                     d.n_text_state // d.n_text_head)
+                and uses_decode_gemv(B, self.token_embedding.weight.dtype)
+                and uses_decode_gemv(B, self.blocks[0].attn.query.weight.dtype)
+                and (uses_xattn_int8(B, 1, cross_kvs[0])
+                     or uses_xattn_step(B, 1, cross_kvs[0])))
+
+    @staticmethod
+    def step_pads(B: int, cache, pad_lens) -> torch.Tensor:
+        """The attention kernels' left-pad widths of a fused step, made once
+        for every layer: [B] for the unified cache, one per stream (of the
+        split cache's kp.shape[0]) for the split beam cache."""
+        rows = cache[0].shape[0] if len(cache) in (4, 5) else B
+        if pad_lens is None:
+            return torch.zeros(rows, dtype=torch.int32,
+                               device=cache[0].device)
+        if rows == B:
+            return pad_lens
+        return pad_lens.reshape(rows, B // rows)[:, 0].contiguous()
+
+    def decode_gemv_per_call(self, fused: bool = True) -> int:
         """decode_gemv launches of a forward call that DECODER_CALLS counts
-        under it: 8 QuantDense layers a block and the logits (int8), or the
-        logits alone (bf16)."""
-        return 8 * len(self.blocks) + 1 if self.quant else 1
+        under it: a fused step 6 a block (q/k/v, the out projection, the
+        cross-attention's query and out projection, fc1, fc2) and the
+        logits; a call layer by layer (decode_gemv_layerwise) 8 a block
+        and the logits."""
+        return (6 if fused else 8) * len(self.blocks) + 1
 
 
 class WhisperModel(nn.Module):

@@ -50,10 +50,19 @@ _ARGTYPES = {
                               _I, _I, _I, _I, _P]),
     "xattn_step": ("xattn_step", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _P]),
-    "decode_gemv": ("decode_gemv", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
-                                    _P]),
+    "decode_gemv": ("decode_gemv", [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _P]),
 }
+
+
+class GemvSeg(ctypes.Structure):
+    """csrc/decode_gemv.cu's GemvSeg: one weight of a decode_gemv launch
+    and its epilogue (pointers as ints, None for null)."""
+    _fields_ = [("w", _P), ("scale", _P), ("bias", _P), ("out", _P),
+                ("residual", _P), ("post", _P), ("slot", _P),
+                ("row_stride", ctypes.c_longlong), ("n", _I), ("b_f32", _I),
+                ("out_bf16", _I), ("logits", _I), ("gelu", _I),
+                ("post_rows", _I), ("mul", _F), ("post_s", _F)]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -22,9 +22,12 @@ Each function here has three parts:
   (notsofar_tpu/ops/pallas_kernels.py), or the XLA-fused reference code,
   and what bounds it on an H100.
 """
-from typing import Dict, Optional, Tuple, Union
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from notsofar_tpu_torch.ops import build
 
@@ -910,6 +913,7 @@ def xattn_onedot(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 XATTN_STEP_MAX_TQ = 8        # folded query lengths the kernel serves
 XATTN_STEP_THREADS = 128     # threads per block of the CUDA kernel
 XATTN_STEP_CLUSTER = 4       # blocks per (head, window) (phase 2's sweep)
+XATTN_STEP_CLUSTER_T1 = 8    # the same for one query a window
 
 
 def xattn_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -947,12 +951,14 @@ def xattn_step_launch(B: int, T: int, S: int, D: int, dk: int,
     """Grid, cluster size, key shares and shared memory of the CUDA kernel
     from the shapes alone: a cluster of R blocks along x per (head,
     window) pair, grid (R, H, B), block r staging its share of the S keys'
-    key and value rows in shared memory. R = XATTN_STEP_CLUSTER (of R =
-    2-8, the fastest at 3 windows x Tq 1 and 5 against 1500 frames, phase
-    2), fewer where S gives fewer shares of 32 keys, more where a share
-    would not fit a block's shared memory."""
+    key and value rows in shared memory. R = XATTN_STEP_CLUSTER_T1 for one
+    query a window, else XATTN_STEP_CLUSTER (of R = 2-8 as 32 launches in
+    one CUDA graph at 3 windows against 1500 frames, phase 2: R = 8 the
+    fastest at Tq 1, R = 4 at Tq 5), fewer where S gives fewer shares of
+    32 keys, more where a share would not fit a block's shared memory."""
     esize = 2 if dtype == torch.bfloat16 else 4
-    R = min(XATTN_STEP_CLUSTER, _cluster_size(S))
+    R = min(XATTN_STEP_CLUSTER_T1 if T == 1 else XATTN_STEP_CLUSTER,
+            _cluster_size(S))
     while True:
         per = _share_rows(S, R)
         smem = xattn_step_smem(per, dk, esize, T, R)
@@ -1012,16 +1018,19 @@ def xattn_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# decode_gemv (QuantDense and the logits, notsofar_tpu/models/whisper.py
-# :86-97 and :502-507, XLA dots there)
+# decode_gemv (every dense layer of the decode step and the logits, with the
+# layer norms, GELU, residual adds, query scale and cache writes around
+# them: notsofar_tpu/models/whisper.py :76-97, :346-368, :502-507, one XLA
+# program there)
 # ---------------------------------------------------------------------------
 
 DECODE_GEMV_MAX_ROWS = 64    # rows of x the kernel serves (8 tiles of 8)
 DECODE_GEMV_THREADS = 128    # threads per block of the CUDA kernel
 DECODE_GEMV_CHANNELS = 64    # output channels of a block (4 warps x 16)
 DECODE_GEMV_FILL = 2 * 132   # blocks the cluster size aims at (2 an SM)
-DECODE_GEMV_SMEM_AIM = 64 * 1024   # a block's shared memory R aims under
+DECODE_GEMV_SMEM_AIM = 96 * 1024   # a block's shared memory R aims under
 _GEMV_TILES = (1, 2, 4, 6, 8)   # tiles of 8 rows the kernel is built for
+_GEMV_LN_ITEMS = 32             # 8-element items of a stats chunk
 
 
 # an optional last step of the dense mode: (s, p [G, N] f32, rows per
@@ -1029,21 +1038,55 @@ _GEMV_TILES = (1, 2, 4, 6, 8)   # tiles of 8 rows the kernel is built for
 Post = Tuple[float, torch.Tensor, int]
 
 
+class GemvLN(NamedTuple):
+    """A layer norm that decode_gemv applies to x before the product:
+    weight and bias [K] (bf16 or f32, one dtype), eps; x is the raw
+    residual stream."""
+    weight: torch.Tensor
+    bias: torch.Tensor
+    eps: float
+
+
+# one weight of a grouped launch: (weight [N, K], scale [N] f32 or None,
+# bias [N] or None)
+Dense = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def layer_norm_plain(x: torch.Tensor, ln: GemvLN) -> torch.Tensor:
+    """models/whisper.py LayerNorm: F.layer_norm over the last axis in the
+    promoted dtype of x and the parameters (an f32 stream with bf16
+    parameters is normalized in f32 with the parameters' values)."""
+    dt = torch.promote_types(x.dtype, ln.weight.dtype)
+    w, b = ln.weight, ln.bias
+    if w.dtype != dt:
+        w, b = w.to(dt), b.to(dt)
+    return F.layer_norm(x.to(dt), (x.shape[-1],), w, b, ln.eps)
+
+
 def decode_gemv_plain(x: torch.Tensor, weight: torch.Tensor,
                       dtype: torch.dtype, scale: Optional[torch.Tensor] = None,
                       bias: Optional[torch.Tensor] = None,
                       logits: bool = False,
                       out_dtype: Optional[torch.dtype] = None,
-                      post: Optional[Post] = None) -> torch.Tensor:
-    """x [..., K] times weight [N, K] (int8 or bf16) -> [..., N].
+                      post: Optional[Post] = None,
+                      ln: Optional[GemvLN] = None, gelu: bool = False,
+                      residual: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """x [..., K] times weight [N, K] (int8 or bf16) -> [..., N]: the port's
+    unfused sequence of PyTorch ops, each rounding point where the model
+    puts it.
 
-    Dense (QuantDense, flax's rounding points): acc = f32 sum of
-    dtype(x) * w, y = dtype(acc), then dtype(y * dtype(scale)), then
-    dtype(y + dtype(bias)); with post (s, p, rows), then dtype((y * s) *
-    p[row // rows]) in f32 (the int8 cross-attention's query folding:
-    ((q * s) * (k_scale * s)) rounded); returns dtype, or out_dtype (f32)
-    holding those values. Logits: the f32 sum of dtype(x) * w, times the
-    f32 scale where given; returns f32."""
+    ln: x = layer_norm_plain(x, ln) first. Dense (QuantDense and flax
+    nn.Dense's rounding points): acc = f32 sum of dtype(x) * w, y =
+    dtype(acc), then dtype(y * dtype(scale)), then dtype(y + dtype(bias));
+    with post (s, p, rows), then dtype((y * s) * p[row // rows]) in f32
+    (the int8 cross-attention's query folding: ((q * s) * (k_scale * s))
+    rounded); gelu: then F.gelu (exact); residual: returns residual + y in
+    the residual's dtype; else returns dtype, or out_dtype (f32) holding
+    those values. Logits: the f32 sum of dtype(x) * w, times the f32 scale
+    where given; returns f32."""
+    if ln is not None:
+        x = layer_norm_plain(x, ln)
     acc = torch.matmul(x.to(dtype).float(), weight.float().T)
     if logits:
         return acc if scale is None else acc * scale
@@ -1056,7 +1099,31 @@ def decode_gemv_plain(x: torch.Tensor, weight: torch.Tensor,
         s, p, rows = post
         ps = p.repeat_interleave(rows, dim=0).reshape(y.shape)
         y = ((y.float() * s) * ps).to(dtype)
+    if gelu:
+        y = F.gelu(y)
+    if residual is not None:
+        return residual + y.to(residual.dtype)
     return y if out_dtype is None else y.to(out_dtype)
+
+
+def decode_qkv_plain(x: torch.Tensor, ln: Optional[GemvLN],
+                     layers: Sequence[Dense], dtype: torch.dtype,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, slot: Slot,
+                     q_scale: float) -> torch.Tensor:
+    """The self-attention's projections of a single-token step as the
+    model ran them unfused: h = layer_norm(x); q, k, v = the three dense
+    layers of h (decode_gemv_plain's dense mode); k and v written into the
+    caches [B, ctx, N] at `slot` (index_copy_ for a device slot), in the
+    caches' dtype; returns q_eff = (q * q_scale) in the caches' dtype
+    [B, 1, N] (what attn_step / attn_step_split take)."""
+    h = x if ln is None else layer_norm_plain(x, ln)
+    q, k, v = (decode_gemv_plain(h, w, dtype, s, b) for w, s, b in layers)
+    for cache, y in ((k_cache, k), (v_cache, v)):
+        if isinstance(slot, torch.Tensor):
+            cache.index_copy_(1, slot.reshape(1).long(), y.to(cache.dtype))
+        else:
+            cache[:, slot] = y[:, 0].to(cache.dtype)
+    return (q * q_scale).to(k_cache.dtype)
 
 
 def _gemv_chunk(wdtype: torch.dtype) -> int:
@@ -1064,39 +1131,66 @@ def _gemv_chunk(wdtype: torch.dtype) -> int:
     return 64 if wdtype == torch.int8 else 32
 
 
+def _gemv_ln_chunks(slen: int) -> int:
+    """csrc/decode_gemv.cu ln_chunks: stats chunks of a row of slen."""
+    return -(-(slen // 8) // _GEMV_LN_ITEMS)
+
+
 def decode_gemv_smem(rows_pad: int, klen: int, wdtype: torch.dtype,
-                     planes: int, M: int, R: int) -> int:
-    """Bytes of shared memory of one block (csrc/decode_gemv.cu
-    smem_bytes): x's share of K as `planes` bf16 planes of rows_pad rows
-    (the row stride padded off the banks of the next row), the peers'
-    partial outputs of its slice, its channels' scale and bias."""
+                     planes: int, M: int, R: int, ln: bool = False) -> int:
+    """Bytes of shared memory of one block (csrc/decode_gemv.cu layout):
+    x's share of K as `planes` bf16 planes of rows_pad rows (the row stride
+    padded off the banks of the next row), the peers' partial outputs of
+    its slice, its channels' scale and bias; with the layer norm, its share
+    of the norm's parameters (f32), the stats chunks, the peers' share
+    stats and each row's (mean, rstd)."""
     stride = _align(klen, 64) + (8 if wdtype == torch.int8 else 32)
     nout = M * DECODE_GEMV_CHANNELS
-    return (planes * rows_pad * stride * 2 + _align(R * -(-nout // R) * 4, 16)
-            + 2 * DECODE_GEMV_CHANNELS * 4)
+    b = (planes * rows_pad * stride * 2 + _align(R * -(-nout // R) * 4, 16)
+         + 2 * DECODE_GEMV_CHANNELS * 4)
+    if ln:
+        b += 2 * klen * 4 + M * _gemv_ln_chunks(klen) * 8 + R * M * 8 + M * 8
+    return b
 
 
-def decode_gemv_launch(M: int, N: int, K: int, wdtype: torch.dtype,
-                       planes: int) -> dict:
+def decode_gemv_launch(M: int, N: Union[int, Sequence[int]], K: int,
+                       wdtype: torch.dtype, planes: int, ln: bool = False,
+                       R: Optional[int] = None) -> dict:
     """Grid, cluster size, K shares and shared memory of the CUDA kernel
-    for x [M, K] and weight [N, K]: ceil(N / 64) blocks of 64 channels
-    along y; a cluster of R blocks along x splits K's 64-byte chunks into
-    R shares, R the fewest that put DECODE_GEMV_FILL blocks on the card
-    (at most 8 and the chunk count), more where a block's x would take
-    more than DECODE_GEMV_SMEM_AIM bytes (3 blocks an SM; the 48-row
-    logits: R = 1-3 took 0.150, 0.098, 0.098 ms, chip_smoke.py phase 2);
-    tiles of 8 rows from the kernel's instances."""
+    for x [M, K] and the weights [N_s, K] (N one width or the segments'
+    widths, laid out along y): ceil(N_s / 64) blocks of 64 channels per
+    segment along y; a cluster of R blocks along x splits K's 64-byte
+    chunks into R shares, R the fewest that put DECODE_GEMV_FILL blocks on
+    the card (at most 8 and the chunk count), more where a block's x would
+    take more than DECODE_GEMV_SMEM_AIM bytes; tiles of 8 rows from the
+    kernel's instances. (chip_smoke.py phase 2, 32 launches in a CUDA
+    graph at 3, 15 and 48 rows, on two cards: R = 8 for 1280 -> 1280 and
+    5120 -> 1280, 4-5 for 1280 -> 5120 and the q/k/v launch, 1 for the
+    logits at 3-15 rows and 2 at 48 were the fastest or within 10% of
+    it; an aim of 3 blocks an SM picked R = 7 for q/k/v, 1.7x slower.)
+    R may be given (phase 2's sweeps). Memoized: a decode step asks for
+    the same few plans at every launch."""
+    return _gemv_plan((N,) if isinstance(N, int) else tuple(N), M, K,
+                      wdtype, planes, ln, R)
+
+
+@functools.lru_cache(maxsize=512)
+def _gemv_plan(widths: Tuple[int, ...], M: int, K: int, wdtype: torch.dtype,
+               planes: int, ln: bool, R: Optional[int]) -> dict:
     nck = K // _gemv_chunk(wdtype)
-    tiles = -(-N // DECODE_GEMV_CHANNELS)
+    tiles = sum(-(-n // DECODE_GEMV_CHANNELS) for n in widths)
     nt = next(t for t in _GEMV_TILES if 8 * t >= M)
-    R = max(1, min(SPLIT_MAX_CLUSTER, nck, -(-DECODE_GEMV_FILL // tiles)))
 
     def smem(r):
         return decode_gemv_smem(8 * nt, -(-nck // r) * _gemv_chunk(wdtype),
-                                wdtype, planes, M, r)
+                                wdtype, planes, M, r, ln)
 
-    while smem(R) > DECODE_GEMV_SMEM_AIM and R < min(SPLIT_MAX_CLUSTER, nck):
-        R += 1
+    if R is None:
+        R = max(1, min(SPLIT_MAX_CLUSTER, nck,
+                       -(-DECODE_GEMV_FILL // tiles)))
+        while smem(R) > DECODE_GEMV_SMEM_AIM and \
+                R < min(SPLIT_MAX_CLUSTER, nck):
+            R += 1
     return dict(grid=(R, tiles), threads=DECODE_GEMV_THREADS, cluster=R,
                 tiles=nt, planes=planes, smem=smem(R),
                 shares=split_shares(nck, R))
@@ -1110,15 +1204,28 @@ def uses_decode_gemv(rows: int, wdtype: torch.dtype) -> bool:
                                                         torch.bfloat16)
 
 
+def _check_ln(ln: Optional[GemvLN], K: int, device) -> None:
+    if ln is not None and (
+            ln.weight.shape != (K,) or ln.bias.shape != (K,)
+            or ln.weight.dtype not in (torch.bfloat16, torch.float32)
+            or ln.bias.dtype != ln.weight.dtype
+            or ln.weight.device != device):
+        raise ValueError("decode_gemv: the layer norm's weight and bias "
+                         "[K], one dtype, bf16 or f32")
+
+
 def _decode_gemv_plan(x, weight, dtype, scale, bias, logits,
-                      out_dtype=None, post: Optional[Post] = None) -> dict:
+                      out_dtype=None, post: Optional[Post] = None,
+                      ln: Optional[GemvLN] = None, gelu: bool = False,
+                      residual: Optional[torch.Tensor] = None,
+                      widths: Optional[Sequence[int]] = None) -> dict:
     """The wrapper's checks of what the CUDA kernel takes (shapes, dtypes,
     its shared memory), raising ValueError; returns the launch plan."""
     if weight.dim() != 2 or x.dim() < 1 or x.shape[-1] != weight.shape[1]:
         raise ValueError("decode_gemv: x [..., K], weight [N, K]")
     N, K = weight.shape
     M = x.numel() // K if K else 0
-    if not 1 <= M <= DECODE_GEMV_MAX_ROWS or K % 64 or \
+    if not 1 <= M <= DECODE_GEMV_MAX_ROWS or K % 64 or K == 0 or \
             not 0 < N <= 65535 * 64:
         raise ValueError(f"decode_gemv: {M} rows must be in [1, "
                          f"{DECODE_GEMV_MAX_ROWS}], K={K} a multiple of 64, "
@@ -1135,8 +1242,9 @@ def _decode_gemv_plan(x, weight, dtype, scale, bias, logits,
                              not in (torch.bfloat16, torch.float32)):
         raise ValueError("decode_gemv: bias bf16 or f32 [N], dense only")
     if out_dtype not in (None, torch.float32) or \
-            (out_dtype is not None and logits):
-        raise ValueError("decode_gemv: out_dtype None or f32, dense only")
+            (out_dtype is not None and (logits or residual is not None)):
+        raise ValueError("decode_gemv: out_dtype None or f32, dense only, "
+                         "no residual")
     if post is not None:
         _, p, rows = post
         if logits or out_dtype is not None or rows < 1 or M % rows or \
@@ -1144,8 +1252,20 @@ def _decode_gemv_plan(x, weight, dtype, scale, bias, logits,
                 p.device != x.device or not p.is_contiguous():
             raise ValueError("decode_gemv: post (s, p [rows / group, N] f32 "
                              "contiguous, group) with dense, dtype output")
-    planes = 3 if x.dtype == dtype == torch.float32 else 1
-    plan = decode_gemv_launch(M, N, K, weight.dtype, planes)
+    if (gelu or residual is not None) and logits:
+        raise ValueError("decode_gemv: gelu and residual are dense only")
+    if residual is not None and (
+            residual.shape != (*x.shape[:-1], N)
+            or residual.dtype not in (torch.bfloat16, torch.float32)):
+        raise ValueError("decode_gemv: residual [..., N] bf16 or f32")
+    _check_ln(ln, K, x.device)
+    # the staged x: the layer norm's output in the promoted dtype; f32 in
+    # f32 compute takes three exact bf16 planes
+    xdt = x.dtype if ln is None else torch.promote_types(x.dtype,
+                                                         ln.weight.dtype)
+    planes = 3 if xdt == dtype == torch.float32 else 1
+    plan = decode_gemv_launch(M, widths or N, K, weight.dtype, planes,
+                              ln=ln is not None)
     if plan["smem"] > SMEM_LIMIT:
         raise ValueError(f"decode_gemv: {M} rows of K={K} need "
                          f"{plan['smem']} bytes of shared memory per block "
@@ -1153,49 +1273,138 @@ def _decode_gemv_plan(x, weight, dtype, scale, bias, logits,
     return plan
 
 
+def _gemv_seg(weight, scale, bias, out, row_stride: int, residual=None,
+              post: Optional[Post] = None, slot=None, logits=False,
+              gelu=False, mul: float = 0.0) -> build.GemvSeg:
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    return build.GemvSeg(
+        w=weight.data_ptr(), scale=ptr(scale), bias=ptr(bias),
+        out=out.data_ptr(), residual=ptr(residual),
+        post=None if post is None else post[1].data_ptr(), slot=ptr(slot),
+        row_stride=row_stride, n=weight.shape[0],
+        b_f32=int(bias is not None and bias.dtype == torch.float32),
+        out_bf16=int(out.dtype == torch.bfloat16), logits=int(logits),
+        gelu=int(gelu), post_rows=1 if post is None else post[2],
+        mul=mul, post_s=0.0 if post is None else post[0])
+
+
+def _launch_decode_gemv(x: torch.Tensor, segs, dtype: torch.dtype,
+                        wdtype: torch.dtype, ln: Optional[GemvLN],
+                        plan: dict) -> int:
+    """The C call of one launch (rc, not raised): x, the segments
+    (build.GemvSeg), the layer norm, the plan's tiles, planes and cluster
+    size; counts in no launch counter (phase 2's sweeps call it
+    directly)."""
+    K = x.shape[-1]
+    arr = (build.GemvSeg * len(segs))(*segs)
+    return build.load("decode_gemv").decode_gemv(
+        x.data_ptr(), x.numel() // K, K, len(segs), ctypes.addressof(arr),
+        None if ln is None else ln.weight.data_ptr(),
+        None if ln is None else ln.bias.data_ptr(),
+        0.0 if ln is None else ln.eps,
+        int(ln is not None and ln.weight.dtype == torch.float32),
+        int(ln is not None), plan["tiles"],
+        plan["planes"], plan["cluster"], int(x.dtype == torch.float32),
+        int(wdtype == torch.int8), int(dtype == torch.bfloat16), _stream())
+
+
 def decode_gemv(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
                 scale: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 logits: bool = False,
                 out_dtype: Optional[torch.dtype] = None,
-                post: Optional[Post] = None) -> torch.Tensor:
+                post: Optional[Post] = None,
+                ln: Optional[GemvLN] = None, gelu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A decode step's few rows times a weight matrix read once in its
-    stored type, never widened in device memory.
+    stored type, never widened in device memory, with the layer norm before
+    it and the activation or residual add after it in the same launch.
 
-    x: [..., K] bf16 or f32 (at most DECODE_GEMV_MAX_ROWS rows), rounded to
-    the compute dtype `dtype` (bf16 or f32) on the way in; weight: [N, K]
-    int8 or bf16, K % 64 == 0; scale: [N] f32 or None; bias: [N] bf16 or
-    f32 or None. Dense (QuantDense): returns [..., N] in `dtype`, the
-    product rounded, then scaled, then biased, each rounded, then the
-    optional post step (stored as f32 with out_dtype f32, for a caller that
-    adds it to an f32 stream). Logits: returns [..., N] f32, the f32
-    product times the scale where given (see decode_gemv_plain)."""
-    tensors = [x, weight] + [t for t in (scale, bias) if t is not None]
+    x: [..., K] bf16 or f32 (at most DECODE_GEMV_MAX_ROWS rows), the raw
+    residual stream when ln is given, rounded to the compute dtype `dtype`
+    (bf16 or f32) on the way in; weight: [N, K] int8 or bf16, K % 64 == 0;
+    scale: [N] f32 or None; bias: [N] bf16 or f32 or None. Dense: returns
+    [..., N] in `dtype`, the product rounded, then scaled, then biased,
+    each rounded, then the optional post step and GELU (stored as f32 with
+    out_dtype f32, for a caller that adds it to an f32 stream); with
+    residual [..., N], returns residual + that in the residual's dtype.
+    Logits: returns [..., N] f32, the f32 product times the scale where
+    given (see decode_gemv_plain)."""
+    tensors = [x, weight] + [t for t in (scale, bias, residual)
+                             if t is not None]
     if post is not None:
         tensors.append(post[1])
+    if ln is not None:
+        tensors += [ln.weight, ln.bias]
     if not _on_card("decode_gemv", *tensors):
         return decode_gemv_plain(x, weight, dtype, scale, bias, logits,
-                                 out_dtype, post)
+                                 out_dtype, post, ln, gelu, residual)
     plan = _decode_gemv_plan(x, weight, dtype, scale, bias, logits, out_dtype,
-                             post)
-    N, K = weight.shape
-    M = x.numel() // K
-    out = torch.empty((*x.shape[:-1], N),
-                      dtype=torch.float32 if logits else out_dtype or dtype,
-                      device=x.device)
-    lib = build.load("decode_gemv")
-    rc = lib.decode_gemv(
-        x.data_ptr(), weight.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
-        plan["tiles"], plan["planes"], plan["cluster"],
-        int(x.dtype == torch.float32), int(weight.dtype == torch.int8),
-        int(dtype == torch.bfloat16),
-        int(bias is not None and bias.dtype == torch.float32), int(logits),
-        int(out_dtype == torch.float32),
-        None if post is None else post[1].data_ptr(),
-        0.0 if post is None else post[0], 1 if post is None else post[2],
-        _stream())
+                             post, ln, gelu, residual)
+    N = weight.shape[0]
+    odt = torch.float32 if logits else (
+        residual.dtype if residual is not None else out_dtype or dtype)
+    out = torch.empty((*x.shape[:-1], N), dtype=odt, device=x.device)
+    seg = _gemv_seg(weight, scale, bias, out, N, residual, post,
+                    logits=logits, gelu=gelu)
+    rc = _launch_decode_gemv(x, [seg], dtype, weight.dtype, ln, plan)
     LAUNCHES["decode_gemv"] += 1
     _check_rc("decode_gemv", rc)
     return out
+
+
+def decode_qkv(x: torch.Tensor, ln: Optional[GemvLN],
+               layers: Sequence[Dense], dtype: torch.dtype,
+               k_cache: torch.Tensor, v_cache: torch.Tensor, slot: Slot,
+               q_scale: float) -> torch.Tensor:
+    """The self-attention's q, k and v of a single-token decode step as one
+    decode_gemv launch (three segments of the grid sharing x): x [B, 1, K]
+    the raw residual stream, ln its layer norm, layers the query, key and
+    value (weight, scale, bias) of one weight dtype; k and v are written
+    into the caches [B, ctx, N] at `slot` (a host int, or a 0-d int32
+    device tensor read by the kernel), in the caches' dtype; returns q_eff
+    = (q * q_scale) in the caches' dtype, [B, 1, N] (decode_qkv_plain)."""
+    tensors = [x, k_cache, v_cache] + [t for layer in layers for t in layer
+                                       if t is not None]
+    if ln is not None:
+        tensors += [ln.weight, ln.bias]
+    if isinstance(slot, torch.Tensor):
+        tensors.append(slot)
+    if not _on_card("decode_gemv", *tensors):
+        return decode_qkv_plain(x, ln, layers, dtype, k_cache, v_cache, slot,
+                                q_scale)
+    if len(layers) != 3 or x.dim() != 3 or x.shape[1] != 1:
+        raise ValueError("decode_qkv: x [B, 1, K] and three layers")
+    wq = layers[0][0]
+    B, N = x.shape[0], wq.shape[0]
+    ctx = k_cache.shape[1]
+    if any(w.shape != wq.shape or w.dtype != wq.dtype for w, _, _ in layers) \
+            or k_cache.shape != (B, ctx, N) or v_cache.shape != (B, ctx, N) \
+            or k_cache.dtype not in (torch.bfloat16, torch.float32) or \
+            v_cache.dtype != k_cache.dtype:
+        raise ValueError("decode_qkv: weights [N, K] of one dtype, caches "
+                         "[B, ctx, N] of one dtype, bf16 or f32")
+    if isinstance(slot, torch.Tensor):
+        if slot.dtype != torch.int32 or slot.numel() != 1:
+            raise ValueError("decode_qkv: a slot tensor is 0-d int32")
+    else:
+        if not 0 <= slot < ctx:
+            raise ValueError(f"decode_qkv: slot {slot} outside [0, {ctx})")
+        slot = torch.full((), slot, dtype=torch.int32, device=x.device)
+    plan = _decode_gemv_plan(x, wq, dtype, *layers[0][1:], False, ln=ln,
+                             widths=(N,) * 3)
+    for _, s, b in layers[1:]:
+        if s is not None and (s.dtype != torch.float32 or s.shape != (N,)) \
+                or b is not None and (b.shape != (N,) or b.dtype not in
+                                      (torch.bfloat16, torch.float32)):
+            raise ValueError("decode_qkv: scale f32 [N], bias bf16 or f32 "
+                             "[N]")
+    q_eff = torch.empty((B, 1, N), dtype=k_cache.dtype, device=x.device)
+    segs = [_gemv_seg(*layers[0], q_eff, N, mul=q_scale)]
+    segs += [_gemv_seg(*layer, cache, ctx * N, slot=slot)
+             for layer, cache in zip(layers[1:], (k_cache, v_cache))]
+    rc = _launch_decode_gemv(x, segs, dtype, wq.dtype, ln, plan)
+    LAUNCHES["decode_gemv"] += 1
+    _check_rc("decode_gemv", rc)
+    return q_eff

@@ -864,6 +864,156 @@ def test_decode_gemv_plain_matches_the_jax_logits_einsums(kind):
     assert (np.abs(got.numpy() - want) <= tol).all()
 
 
+def _ln_module(K, dtype, rng):
+    """The model's LayerNorm with seeded parameters in `dtype`."""
+    from notsofar_tpu_torch.models.whisper import LN_EPS, LayerNorm
+    ln = LayerNorm(K, eps=LN_EPS)
+    with torch.no_grad():
+        ln.weight.copy_(t(1 + 0.1 * rng.randn(K).astype(np.float32)))
+        ln.bias.copy_(t(0.1 * rng.randn(K).astype(np.float32)))
+    return ln.to(dtype)
+
+
+# the unfused sequences of a decode step that decode_gemv's fused modes
+# replace: int8 (QuantDense, bf16 compute, the f32 residual stream), bf16
+# (a bf16 Linear through decode_gemv, the bf16 stream), int8 in f32 compute
+@pytest.mark.parametrize("kind", ["int8", "bf16", "int8_f32"])
+@pytest.mark.parametrize("mode", ["ln", "ln+gelu", "residual", "ln+post"])
+def test_decode_gemv_fused_plain_equals_the_unfused_sequence(kind, mode):
+    """Each fused mode's plain version equals, bit for bit, the sequence of
+    PyTorch ops the model ran before it: the model's LayerNorm module, then
+    the dense layer (QuantDense with its out_dtype, or decode_gemv_plain's
+    dense mode for a bf16 Linear), then nn.GELU, or the residual stream plus
+    the layer's output; the int8 query's post step behind the layer norm
+    likewise."""
+    from notsofar_tpu_torch.models.whisper import QuantDense
+    rng = np.random.RandomState(len(mode) + len(kind))
+    M, K, N = 6, 128, 96
+    dt = torch.float32 if kind == "int8_f32" else torch.bfloat16
+    sdt = torch.bfloat16 if kind == "bf16" else torch.float32   # stream
+    x = t(rng.randn(M, 1, K).astype(np.float32) * 2 + 0.5).to(sdt)
+    ln = _ln_module(K, dt, rng)
+    gln = tk.GemvLN(ln.weight, ln.bias, ln.eps)
+    if kind == "bf16":
+        w = t(rng.randn(N, K).astype(np.float32) * 0.05).bfloat16()
+        s, b = None, t(rng.randn(N).astype(np.float32) * 0.1).bfloat16()
+
+        def dense(h, **kw):
+            return tk.decode_gemv_plain(h, w, dt, s, b, **kw)
+    else:
+        layer = QuantDense(K, N)
+        with torch.no_grad():
+            layer.weight.copy_(t(rng.randint(-127, 128, (N, K)).astype(
+                np.int8)))
+            layer.scale.copy_(t((rng.rand(N).astype(np.float32) + 0.1)
+                                * 1e-2))
+            layer.bias.copy_(t(rng.randn(N).astype(np.float32) * 0.1))
+        layer.bias.data = layer.bias.data.to(dt)
+        layer.dtype = dt
+        w, s, b = layer.weight, layer.scale, layer.bias
+
+        def dense(h, **kw):
+            return layer(h, **kw)
+    if mode == "ln":
+        want = dense(ln(x))
+        got = tk.decode_gemv_plain(x, w, dt, s, b, ln=gln)
+    elif mode == "ln+gelu":
+        want = torch.nn.GELU(approximate="none")(dense(ln(x)))
+        got = tk.decode_gemv_plain(x, w, dt, s, b, ln=gln, gelu=True)
+    elif mode == "residual":
+        h = t(rng.randn(M, 1, K).astype(np.float32)).to(dt)
+        if kind != "bf16":
+            layer.out_dtype = torch.float32 if kind == "int8" else None
+        r = t(rng.randn(M, 1, N).astype(np.float32) * 4).to(sdt)
+        want = r + dense(h)
+        got = tk.decode_gemv_plain(h, w, dt, s, b, residual=r)
+    else:
+        p = t((rng.rand(2, N).astype(np.float32) + 0.1) * 1e-2)
+        post = (64 ** -0.25, p, 3)
+        if kind == "bf16":
+            want = tk.decode_gemv_plain(ln(x), w, dt, s, b, post=post)
+        else:
+            want = layer(ln(x), post=post)
+        got = tk.decode_gemv_plain(x, w, dt, s, b, post=post, ln=gln)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16", "int8_f32"])
+@pytest.mark.parametrize("slot_kind", ["tensor", "int"])
+def test_decode_qkv_plain_equals_the_unfused_sequence(kind, slot_kind):
+    """decode_qkv_plain equals, bit for bit, the self-attention's unfused
+    projections of a single-token step: the model's LayerNorm, the three
+    dense layers (decode_gemv_plain's dense mode, QuantDense's rounding
+    points for int8 weights, nn.Dense's for bf16), k and v cast to the
+    cache dtype and written with index_copy_ at the slot (or assigned at a
+    host int), q scaled by d_k**-0.5 and cast to the cache dtype; the rest
+    of each cache unchanged."""
+    rng = np.random.RandomState(5 + len(kind))
+    B, K, ctx = 4, 128, 16
+    dt = torch.float32 if kind == "int8_f32" else torch.bfloat16
+    sdt = torch.bfloat16 if kind == "bf16" else torch.float32
+    x = t(rng.randn(B, 1, K).astype(np.float32) * 2).to(sdt)
+    ln = _ln_module(K, dt, rng)
+    layers = []
+    for i in range(3):
+        if kind == "bf16":
+            w = t(rng.randn(K, K).astype(np.float32) * 0.05).bfloat16()
+            sc = None
+        else:
+            w = t(rng.randint(-127, 128, (K, K)).astype(np.int8))
+            sc = t((rng.rand(K).astype(np.float32) + 0.1) * 1e-2)
+        b = None if i == 1 else t(rng.randn(K).astype(np.float32)).to(dt)
+        layers.append((w, sc, b))
+    kc = t(rng.randn(B, ctx, K).astype(np.float32)).to(dt)
+    vc = t(rng.randn(B, ctx, K).astype(np.float32)).to(dt)
+    pos = 11
+    slot = torch.tensor(pos, dtype=torch.int32) if slot_kind == "tensor" \
+        else pos
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = tk.decode_qkv_plain(x, tk.GemvLN(ln.weight, ln.bias, ln.eps),
+                              layers, dt, k1, v1, slot, 64 ** -0.5)
+    h = ln(x)
+    q, k, v = (tk.decode_gemv_plain(h, w, dt, sc, b) for w, sc, b in layers)
+    idx = torch.tensor([pos])
+    k2.index_copy_(1, idx, k.to(k2.dtype))
+    v2.index_copy_(1, idx, v.to(v2.dtype))
+    want = (q * (64 ** -0.5)).to(k2.dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    rest = torch.arange(ctx) != pos
+    assert torch.equal(k1[:, rest], kc[:, rest])
+
+
+def test_decode_gemv_plain_matches_flax_dense_bf16():
+    """The bf16 decoder's dense layers at decode rows (decode_gemv's dense
+    mode without a scale): dtype(acc) then dtype(y + dtype(b)), flax
+    nn.Dense(dtype=bf16)'s rounding points, on the same bf16-rounded
+    kernel, bias and x. Each output within one bf16 ulp of flax's (an f32
+    summation order may send the first rounding the other way) and at
+    least 99% bit-equal; addmm's single rounding (the matmul path) is
+    further off."""
+    import flax.linen as fnn
+    rng = np.random.RandomState(21)
+    x = bf16_round(rng.randn(6, 1, 256).astype(np.float32))
+    k = bf16_round(rng.randn(256, 96).astype(np.float32) * 0.06)
+    b = bf16_round(rng.randn(96).astype(np.float32))
+    want = np.asarray(fnn.Dense(96, dtype=jnp.bfloat16).apply(
+        {"params": {"kernel": k, "bias": b}}, jnp.asarray(x))
+        .astype(jnp.float32))
+    got = tk.decode_gemv_plain(t(x).bfloat16(), t(k.T.copy()).bfloat16(),
+                               torch.bfloat16, bias=t(b).bfloat16())
+    assert got.dtype == torch.bfloat16 and got.shape == (6, 1, 96)
+    got = got.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+    assert (got == want).mean() >= 0.99
+    addmm = torch.nn.functional.linear(t(x).bfloat16(),
+                                       t(k.T.copy()).bfloat16(),
+                                       t(b).bfloat16()).float().numpy()
+    assert (addmm == want).mean() < (got == want).mean()
+
+
 # the decode step's shapes at large-v3 (3, 15, 48 rows; 1280 -> 1280, 5120,
 # 51 866 and 5120 -> 1280), the small models' widths, a ragged N
 @pytest.mark.parametrize("M,N,K", [(3, 1280, 1280), (15, 5120, 1280),
@@ -873,20 +1023,29 @@ def test_decode_gemv_plain_matches_the_jax_logits_einsums(kind):
 @pytest.mark.parametrize("wdtype,planes", [(torch.int8, 1),
                                            (torch.bfloat16, 1),
                                            (torch.int8, 3)])
-def test_decode_gemv_plan_covers_k_once_and_fits(M, N, K, wdtype, planes):
+@pytest.mark.parametrize("ln,segments", [(False, 1), (True, 1), (True, 3)])
+def test_decode_gemv_plan_covers_k_once_and_fits(M, N, K, wdtype, planes, ln,
+                                                 segments):
     """decode_gemv_launch: R <= 8 shares of K's 64-byte chunks that cover
     them exactly once (R at most the chunk count), ceil(N / 64) blocks of
-    64 channels along y, enough tiles of 8 rows for M, and a block's shared
-    memory within SMEM_LIMIT; R reaches DECODE_GEMV_FILL blocks where the
-    chunks allow."""
-    plan = tk.decode_gemv_launch(M, N, K, wdtype, planes)
+    64 channels along y per segment (three for the q/k/v launch), enough
+    tiles of 8 rows for M, and a block's shared memory within SMEM_LIMIT,
+    the layer norm's included; R reaches DECODE_GEMV_FILL blocks where the
+    chunks allow; R may be given."""
+    widths = N if segments == 1 else [N] * segments
+    plan = tk.decode_gemv_launch(M, widths, K, wdtype, planes, ln=ln)
     nck = K // tk._gemv_chunk(wdtype)
-    R, tiles = plan["cluster"], -(-N // tk.DECODE_GEMV_CHANNELS)
+    R, tiles = plan["cluster"], segments * -(-N // tk.DECODE_GEMV_CHANNELS)
     assert 1 <= R <= min(8, nck) and plan["grid"] == (R, tiles)
     assert covers_once(plan["shares"], nck) and len(plan["shares"]) == R
     assert 8 * plan["tiles"] >= M and plan["tiles"] in (1, 2, 4, 6, 8)
     assert plan["smem"] <= tk.SMEM_LIMIT
     assert R * tiles >= tk.DECODE_GEMV_FILL or R == min(8, nck)
+    if ln:
+        assert plan["smem"] > tk.decode_gemv_launch(
+            M, widths, K, wdtype, planes, R=R)["smem"]
+    forced = tk.decode_gemv_launch(M, widths, K, wdtype, planes, ln=ln, R=1)
+    assert forced["cluster"] == 1 and covers_once(forced["shares"], nck)
 
 
 def test_decode_gemv_wrapper_raises_what_the_kernel_does_not_take():
@@ -919,7 +1078,9 @@ def test_xattn_step_plan_covers_the_keys_once(D, dk, dtype):
     """xattn_step_launch over T 1-8 and S 1-64 and to Whisper's 1500
     frames: R <= 8 shares covering [0, S) once (empty shares allowed) each
     within the block's capacity, grid (R, H, B) from the shapes, a block's
-    shared memory within SMEM_LIMIT; the wrapper raises past 8 queries."""
+    shared memory within SMEM_LIMIT, at S 1500 R = XATTN_STEP_CLUSTER_T1
+    for one query and XATTN_STEP_CLUSTER for five; the wrapper raises past
+    8 queries."""
     for T in range(1, 9):
         for S in list(range(1, 65)) + [100, 448, 1500, 1504]:
             plan = tk.xattn_step_launch(3, T, S, D, dk, dtype)
@@ -937,6 +1098,9 @@ def test_xattn_step_plan_covers_the_keys_once(D, dk, dtype):
     R = tk._xattn_step_plan(q[:, :5], k, k, dk)["cluster"]
     assert R == tk.XATTN_STEP_CLUSTER or (dtype == torch.float32 and
                                           dk == 128 and R > 4)
+    # one query a window: the cluster size that was fastest in a graph
+    assert tk._xattn_step_plan(q[:, :1], k, k, dk)["cluster"] == \
+        tk.XATTN_STEP_CLUSTER_T1
 
 
 @pytest.mark.parametrize("B,S,D,dk", [(24, 1504, 1280, 64), (2, 96, 384, 64),
@@ -1368,6 +1532,40 @@ def gemv_tolerance(x, w, scale, bias, dtype, logits, post=None):
     return d3 * ps + e * ((y.abs() + d3) * ps)
 
 
+LN_FLIPS = 4   # bf16 flips of x a row may take from the layer norm
+
+
+def fused_tolerance(tol, xr, w, scale, ref, dtype, ln, gelu, residual,
+                    post=None):
+    """gemv_tolerance `tol` widened for the fused modes: with the layer
+    norm, f32 statistics summed in another order than F.layer_norm's move
+    each normalized x by a few f32 ulps, which can send a bf16 rounding of
+    x the other way (at most LN_FLIPS elements a row, each by one bf16
+    ulp, at most 2**-7 |x_k|, so 2**-7 |x_k| |w_nk| |s_n| on an output; in
+    f32 compute, 8 f32 ulps of sum_k |x_k w_nk|), carried
+    through the later roundings (and post's s p); GELU (slope < 1.13) and
+    the residual add
+    each add one rounding of the output (a bf16 ulp, or an f32 ulp for
+    the f32 stream)."""
+    e = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    s = torch.ones_like(tol[0]) if scale is None else scale.abs()
+    if ln and dtype == torch.bfloat16:
+        flip = LN_FLIPS * 2.0 ** -7 * xr.abs().amax(-1, keepdim=True) * \
+            w.abs().amax(-1)[None, :] * s
+        if post is not None:
+            flip = flip * post[0] * post[1].repeat_interleave(
+                post[2], dim=0).abs()
+        tol = tol + flip * (1 + 4 * e)
+    elif ln:
+        tol = tol + 8 * 2.0 ** -24 * (xr.abs() @ w.abs().T) * s
+    if gelu:
+        tol = 1.13 * tol + e * (ref.float().abs() + 1.13 * tol)
+    if residual is not None:
+        er = 2.0 ** -7 if residual.dtype == torch.bfloat16 else 2.0 ** -24
+        tol = tol + er * (ref.float().abs() + tol)
+    return tol
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,N,K,wdt,xdt,dt,mode", [
     # QuantDense at large-v3: greedy 3 rows, beam 5 15 rows (f32 x, the
@@ -1386,18 +1584,50 @@ def gemv_tolerance(x, w, scale, bias, dtype, logits, post=None):
     (3, 51866, 1280, "bf16", "bf16", "bf16", "logits"),
     (5, 1864, 128, "int8", "f32", "f32", "logits+scale"),
     (7, 200, 64, "bf16", "f32", "f32", "logits"),
-    (9, 130, 192, "bf16", "bf16", "f32", "dense+bias")])
+    (9, 130, 192, "bf16", "bf16", "f32", "dense+bias"),
+    # the fused step's modes: the layer norm in the prologue (the int8
+    # model's f32 stream, the bf16 model's bf16 stream, the f32 model's),
+    # its statistics exchanged over the cluster (or, at 266 tiles of
+    # channels, one block's own); GELU (fc1); the residual add (out
+    # projections, fc2) into the f32 or bf16 stream; bf16 weights without
+    # a scale (nn.Dense)
+    (3, 1280, 1280, "int8", "f32", "bf16", "ln+dense+bias"),
+    (8, 1280, 1280, "int8", "f32", "bf16", "ln+dense+bias"),
+    (15, 1280, 1280, "int8", "f32", "bf16", "ln+dense+bias+post"),
+    (48, 5120, 1280, "int8", "f32", "bf16", "ln+dense+bias+gelu"),
+    (3, 5120, 1280, "bf16", "bf16", "bf16", "ln+dense+bias+gelu"),
+    (15, 5120, 1280, "bf16", "bf16", "bf16", "ln+dense+bias+gelu"),
+    (3, 1280, 5120, "int8", "bf16", "bf16", "dense+bias+res"),
+    (48, 1280, 1280, "int8", "f32", "bf16", "dense+bias+res"),
+    (15, 1280, 5120, "bf16", "bf16", "bf16", "dense+bias+res"),
+    (3, 1280, 1280, "bf16", "bf16", "bf16", "dense+bias"),
+    (10, 256, 128, "int8", "f32", "f32", "ln+dense+bias+gelu"),
+    (3, 17024, 1280, "int8", "f32", "bf16", "ln+dense+bias"),
+    (10, 128, 512, "int8", "f32", "f32", "dense+bias+res")])
 def test_gpu_decode_gemv_kernel(cuda, M, N, K, wdt, xdt, dt, mode):
     """The CUDA kernel against its plain version per output within
-    gemv_tolerance; one weight of the row and column that matter most
-    changed moves the kernel's output outside it. Ragged N edges (51 866,
-    1864, 130, 200, 40), 1-8 row tiles, x rounded in the kernel (f32 x in
-    bf16 compute) or split into three bf16 planes (f32 x in f32 compute);
-    the rounded dense output stored as f32 (out_dtype) holds the same
-    values as the plain version's."""
+    gemv_tolerance (fused_tolerance for the layer norm, GELU and residual
+    modes); one weight of the row and column that matter most changed
+    moves the kernel's output outside it. Ragged N edges (51 866, 1864,
+    130, 200, 40), 1-8 row tiles, x rounded in the kernel (f32 x in bf16
+    compute) or split into three bf16 planes (f32 x in f32 compute); the
+    rounded dense output stored as f32 (out_dtype) holds the same values
+    as the plain version's."""
     g = torch.Generator(device=cuda).manual_seed(M + N + K)
     dts = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
-    x = torch.randn(M, K, generator=g, device=cuda).to(dts[xdt])
+    ln = None
+    if "ln" in mode:
+        # a residual stream with a mean, the norm's parameters in the
+        # model's dtype (bf16 for the bf16 and int8 decoders)
+        x = (torch.randn(M, K, generator=g, device=cuda) * 2 + 0.5).to(
+            dts[xdt])
+        pdt = torch.float32 if dt == "f32" else torch.bfloat16
+        ln = tk.GemvLN((1 + 0.1 * torch.randn(K, generator=g, device=cuda))
+                       .to(pdt), (0.1 * torch.randn(K, generator=g,
+                                                    device=cuda)).to(pdt),
+                       1e-5)
+    else:
+        x = torch.randn(M, K, generator=g, device=cuda).to(dts[xdt])
     if wdt == "int8":
         w = torch.randint(-127, 128, (N, K), generator=g, device=cuda,
                           dtype=torch.int8)
@@ -1407,26 +1637,33 @@ def test_gpu_decode_gemv_kernel(cuda, M, N, K, wdt, xdt, dt, mode):
         if "scale" in mode or "dense" in mode and wdt == "int8" else None
     bias = (torch.randn(N, generator=g, device=cuda) * 0.1).to(dts[dt]) \
         if "bias" in mode else None
-    logits = mode.startswith("logits")
+    logits = "logits" in mode
     out_dtype = torch.float32 if "f32out" in mode else None
+    gelu = "gelu" in mode
+    residual = (torch.randn(M, N, generator=g, device=cuda) * 4).to(
+        dts[xdt]) if "res" in mode else None
     # the int8 cross-attention's query folding at 5 rows a window
     post = (64 ** -0.25, (torch.rand(M // 5, N, generator=g, device=cuda)
                           + 0.1) * 1e-2, 5) if "post" in mode else None
+    kw = dict(logits=logits, out_dtype=out_dtype, post=post, ln=ln,
+              gelu=gelu, residual=residual)
     before = tk.LAUNCHES["decode_gemv"]
-    out = tk.decode_gemv(x, w, dts[dt], scale, bias, logits=logits,
-                         out_dtype=out_dtype, post=post)
+    out = tk.decode_gemv(x, w, dts[dt], scale, bias, **kw)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["decode_gemv"] == before + 1
     assert out.shape == (M, N)
-    assert out.dtype == (torch.float32 if logits else out_dtype or dts[dt])
-    ref = tk.decode_gemv_plain(x, w, dts[dt], scale, bias, logits=logits,
-                               out_dtype=out_dtype, post=post)
+    assert out.dtype == (torch.float32 if logits else residual.dtype
+                         if residual is not None else out_dtype or dts[dt])
+    ref = tk.decode_gemv_plain(x, w, dts[dt], scale, bias, **kw)
     if out_dtype is not None:
         assert torch.equal(out.to(dts[dt]).float(), out)   # dtype's values
-    xr = x.to(dts[dt]).float()
+    xin = x if ln is None else tk.layer_norm_plain(x, ln)
+    xr = xin.to(dts[dt]).float()
     tol = gemv_tolerance(xr, w.float(), scale,
                          None if bias is None else bias.float(), dts[dt],
                          logits, post)
+    tol = fused_tolerance(tol, xr, w.float(), scale, ref, dts[dt],
+                          ln is not None, gelu, residual, post)
     assert ((out.float() - ref.float()).abs() <= tol).all()
     # the weight of the largest |x| in row 0's column of the largest output
     n = int((xr[0].abs() @ w.float().abs().T).argmax())
@@ -1434,10 +1671,150 @@ def test_gpu_decode_gemv_kernel(cuda, M, N, K, wdt, xdt, dt, mode):
     w_mut = w.clone()
     w_mut[n, kk] = (-127 if w[n, kk] >= 0 else 127) if wdt == "int8" \
         else w[n, kk] - (1.0 if w[n, kk] >= 0 else -1.0)
-    mutant = tk.decode_gemv_plain(x, w_mut, dts[dt], scale, bias,
-                                  logits=logits, out_dtype=out_dtype,
-                                  post=post)
+    mutant = tk.decode_gemv_plain(x, w_mut, dts[dt], scale, bias, **kw)
     assert ((out.float() - mutant.float()).abs() > tol).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,ctx,wdt,stream,split,slot_kind", [
+    (3, 256, "int8", "f32", False, "device"),    # greedy, int8 decoder
+    (15, 64, "int8", "f32", True, "device"),     # beam 5, generated segment
+    (3, 256, "bf16", "bf16", False, "device"),   # greedy, bf16 decoder
+    (15, 64, "bf16", "bf16", True, "int"),
+    (48, 448, "int8", "f32", False, "int"),
+    (5, 32, "int8", "f32f32", False, "device")])  # the f32 parity model
+def test_gpu_decode_qkv_kernel(cuda, B, ctx, wdt, stream, split, slot_kind):
+    """The one q/k/v launch of a fused step against decode_qkv_plain: q_eff
+    within the GEMV's tolerance (plus the query scale's rounding), k and v
+    written at the slot within it, every other cache row untouched (bit
+    equal); the slot read from device memory or given as a host int."""
+    D = 1280 if stream != "f32f32" else 256
+    g = torch.Generator(device=cuda).manual_seed(B + ctx)
+    f32 = stream == "f32f32"
+    dt = torch.float32 if f32 else torch.bfloat16
+    x = (torch.randn(B, 1, D, generator=g, device=cuda) * 2 + 0.5).to(
+        torch.bfloat16 if stream == "bf16" else torch.float32)
+    ln = tk.GemvLN((1 + 0.1 * torch.randn(D, generator=g, device=cuda))
+                   .to(dt), (0.1 * torch.randn(D, generator=g, device=cuda))
+                   .to(dt), 1e-5)
+    layers = []
+    for i in range(3):
+        if wdt == "int8":
+            w = torch.randint(-127, 128, (D, D), generator=g, device=cuda,
+                              dtype=torch.int8)
+            s = (torch.rand(D, generator=g, device=cuda) + 0.1) * 1e-3
+        else:
+            w = (torch.randn(D, D, generator=g, device=cuda) * 0.03).to(dt)
+            s = None
+        b = None if i == 1 else (torch.randn(D, generator=g, device=cuda)
+                                 * 0.1).to(dt)
+        layers.append((w, s, b))
+    kc = torch.randn(B, ctx, D, generator=g, device=cuda).to(dt)
+    vc = torch.randn(B, ctx, D, generator=g, device=cuda).to(dt)
+    pos = ctx - 3
+    slot = torch.tensor(pos, dtype=torch.int32, device=cuda) \
+        if slot_kind == "device" else pos
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = tk.LAUNCHES["decode_gemv"]
+    q = tk.decode_qkv(x, ln, layers, dt, k1, v1, slot, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["decode_gemv"] == before + 1
+    ref = tk.decode_qkv_plain(x, ln, layers, dt, k2, v2, slot, 64 ** -0.5)
+    assert q.dtype == dt and q.shape == (B, 1, D)
+    xr = tk.layer_norm_plain(x, ln).to(dt).float().reshape(B, D)
+    e = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -23
+    for (w, s, b), got, want, scale in (
+            (layers[0], q[:, 0], ref[:, 0], 64 ** -0.5),
+            (layers[1], k1[:, pos], k2[:, pos], 1.0),
+            (layers[2], v1[:, pos], v2[:, pos], 1.0)):
+        tol = gemv_tolerance(xr, w.float(), s, None if b is None
+                             else b.float(), dt, False)
+        tol = fused_tolerance(tol, xr, w.float(), s, want, dt, True, False,
+                              None) * scale + e * want.float().abs()
+        assert ((got.float() - want.float()).abs() <= tol).all()
+    rest = torch.ones(ctx, dtype=torch.bool, device=cuda)
+    rest[pos] = False
+    assert torch.equal(k1[:, rest], kc[:, rest])
+    assert torch.equal(v1[:, rest], vc[:, rest])
+
+
+@pytest.mark.gpu
+def test_gpu_pdl_chain_in_a_cuda_graph_equals_eager(cuda):
+    """A chain of programmatically dependent launches as the fused step
+    runs them (int8 decoder, 3 rows at large-v3 width): fc1 with the layer
+    norm and GELU -> fc2 reading its output, with the residual add -> the
+    cross-attention's query with the layer norm -> xattn_step reading it
+    -> the out projection with the residual add. Captured in one CUDA
+    graph and replayed over three residual streams written into the
+    captured input, every output equals the eager chain's on the same
+    stream bit for bit (the kernels are deterministic, so a read that
+    overtook its producer would show), and the eager chain is within
+    tolerance of the plain versions' at the end."""
+    g = torch.Generator(device=cuda).manual_seed(77)
+    bf, D, S = torch.bfloat16, 1280, 1500
+
+    def w8(n, k):
+        return torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                             dtype=torch.int8)
+
+    def vec(n, a=0.1):
+        return (torch.randn(n, generator=g, device=cuda) * a).to(bf)
+
+    def sc(n):
+        return (torch.rand(n, generator=g, device=cuda) + 0.1) * 1e-3
+
+    ln = tk.GemvLN((1 + vec(D)).to(bf), vec(D), 1e-5)
+    w1, s1, b1 = w8(4 * D, D), sc(4 * D), vec(4 * D)
+    w2, s2, b2 = w8(D, 4 * D), sc(D), vec(D)
+    wq, sq, bq = w8(D, D), sc(D), vec(D)
+    wo, so, bo = w8(D, D), sc(D), vec(D)
+    k = torch.randn(3, S, D, generator=g, device=cuda).to(bf)
+    v = torch.randn(3, S, D, generator=g, device=cuda).to(bf)
+    x = torch.empty(3, 1, D, device=cuda)
+
+    def chain():
+        h = tk.decode_gemv(x, w1, bf, s1, b1, ln=ln, gelu=True)
+        y = tk.decode_gemv(h, w2, bf, s2, b2, residual=x)
+        q = tk.decode_gemv(y, wq, bf, sq, bq, ln=ln)
+        o = tk.xattn_step(q, k, v, 64)
+        z = tk.decode_gemv(o, wo, bf, so, bo, residual=y)
+        return h, y, q, o, z
+
+    streams = [torch.randn(3, 1, D, generator=g, device=cuda) * 2 + 0.5
+               for _ in range(3)]
+    eager = []
+    for st in streams:
+        x.copy_(st)
+        eager.append([t.clone() for t in chain()])
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()                                  # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tk.LAUNCHES["decode_gemv"]
+    with torch.cuda.graph(graph):
+        outs = chain()
+    assert tk.LAUNCHES["decode_gemv"] == before + 4
+    for st, want in zip(streams, eager):
+        x.copy_(st)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+    # the end of the eager chain against the plain versions' chain
+    x.copy_(streams[-1])
+    h = tk.decode_gemv_plain(x, w1, bf, s1, b1, ln=ln, gelu=True)
+    y = tk.decode_gemv_plain(eager[-1][0], w2, bf, s2, b2, residual=x)
+    q = tk.decode_gemv_plain(eager[-1][1], wq, bf, sq, bq, ln=ln)
+    o = tk.xattn_step_plain(eager[-1][2], k, v, 64)
+    z = tk.decode_gemv_plain(eager[-1][3], wo, bf, so, bo,
+                             residual=eager[-1][1])
+    for got, want, rel in zip(eager[-1], (h, y, q, o, z),
+                              (0.05, 0.02, 0.05, 0.05, 0.02)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rel * want.float().abs().max().item(), err
 
 
 @pytest.mark.gpu

@@ -31,7 +31,7 @@ from notsofar_tpu.ops import pallas_kernels as pk
 from notsofar_tpu.utils import flops as jflops
 from notsofar_tpu_torch.ops import kernels as tk
 from notsofar_tpu_torch.tools import (bench_xattn_variants, bisect_attn_split,
-                                      time_attn_step)
+                                      time_attn_step, time_decode_step)
 from notsofar_tpu_torch.utils import flops as tflops
 from tests.test_torch_kernels import (bf16_round, onedot_rms_tolerance,
                                       onedot_rounding_mutant, rms,
@@ -350,6 +350,26 @@ def test_time_attn_step_raises_without_a_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         time_attn_step.main(["--traffic", str(traffic), "--root",
                              str(REPO)])
+
+
+def test_time_decode_step_raises_without_a_card(monkeypatch):
+    """tools/time_decode_step.py times a checkout's decode step on the card
+    only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        time_decode_step.main(["--root", str(REPO)])
+
+
+@pytest.mark.parametrize("kernels,share", [
+    ([("a", 0.0, 10.0)], 1.0),
+    ([("a", 0.0, 4.0), ("b", 6.0, 10.0)], 0.8),          # a gap of 2
+    ([("a", 0.0, 6.0), ("b", 4.0, 10.0), ("c", 12.0, 20.0)], 0.9),
+    ([("c", 12.0, 20.0), ("a", 0.0, 6.0), ("b", 2.0, 5.0)], 0.7)])
+def test_busy_share_is_the_union_of_kernel_intervals(kernels, share):
+    """The replayed step's busy share: the union of the kernels' intervals
+    (overlaps counted once, in any order) over the span from the first
+    start to the last end."""
+    assert time_decode_step.busy_share(kernels) == pytest.approx(share)
 
 
 # ---------------------------------------------------------------------------

@@ -488,14 +488,17 @@ def counting(monkeypatch, name):
 def test_decode_step_calls_xattn_step_and_decode_gemv(pair, monkeypatch,
                                                       kind):
     """One single-token decode step of a small model on the CPU, after a
-    3-token prefill, counted at the wrappers: the float models call
-    xattn_step once a layer, the bf16 model decode_gemv once (the logits;
-    the f32 embedding stays a matmul), the int8 model decode_gemv 8 times
-    a layer plus once (QuantDense and the logits) and xattn_int8 for its
-    cross-attention. DECODER_CALLS counts the step under each kernel it
-    reaches and decode_gemv_per_call gives its launches; at large-v3 (32
-    layers) that is 257 (int8) and 1 (bf16). A 72-row prefill reaches
-    neither."""
+    3-token prefill, counted at the wrappers: the f32 model calls
+    xattn_step once a layer and no decode_gemv (f32 weights stay
+    matmuls); the bf16 and int8 models run the fused step, decode_qkv once
+    a layer and decode_gemv 5 times a layer plus once (the out
+    projections, the cross-attention's query, fc1, fc2, the logits), 6L + 1
+    launches of the decode_gemv kernel, and xattn_step (bf16) or
+    xattn_int8 (int8) for the cross-attention. DECODER_CALLS counts the
+    step under each kernel it reaches and decode_gemv_per_call gives its
+    launches; at large-v3 (32 layers) that is 193 for both. The 9-row
+    prefill runs layer by layer through decode_gemv (8L + 1, counted under
+    decode_gemv_layerwise); a 72-row prefill reaches neither."""
     _, variables, tm = pair
     if kind == "int8":
         _, _, m = int8_pair(variables, "bf16")
@@ -515,28 +518,104 @@ def test_decode_step_calls_xattn_step_and_decode_gemv(pair, monkeypatch,
     caches = m.empty_kv_caches(6, cache_len=64)
     step = counting(monkeypatch, "xattn_step")
     gemv = counting(monkeypatch, "decode_gemv")
+    qkv = counting(monkeypatch, "decode_qkv")
     tw.reset_decoder_calls()
     with torch.no_grad():
         m.decoder(toks, xa, 0, caches, cross_kvs=cross)       # 72 rows
-        assert (len(step), len(gemv)) == (0, 0)
+        assert (len(step), len(gemv), len(qkv)) == (0, 0, 0)
         assert all(n == 0 for n in tw.DECODER_CALLS.values())
         m.decoder(toks[:3, :3], xa[:3], 0, m.empty_kv_caches(3, cache_len=64),
                   cross_kvs=[tuple(x[:3] if torch.is_tensor(x) else x
                                    for x in c) for c in cross])
+        assert len(gemv) + len(qkv) == (0 if kind == "f32" else 8 * L + 1)
+        assert tw.DECODER_CALLS["decode_gemv_layerwise"] == int(kind != "f32")
+        if kind != "f32":
+            assert m.decoder.decode_gemv_per_call(fused=False) == len(gemv)
         tw.reset_decoder_calls()
-        del step[:], gemv[:]
+        del step[:], gemv[:], qkv[:]
         m.decoder(toks[:, 3:4], xa, torch.tensor(3), caches, cross_kvs=cross)
-    want = {"f32": (L, 0), "bf16": (L, 1), "int8": (0, 8 * L + 1)}[kind]
-    assert (len(step), len(gemv)) == want
+    want = {"f32": (L, 0, 0), "bf16": (L, 5 * L + 1, L),
+            "int8": (0, 5 * L + 1, L)}[kind]
+    assert (len(step), len(gemv), len(qkv)) == want
     assert tw.DECODER_CALLS == {"xattn_int8": int(kind == "int8"),
                                 "xattn_step": int(kind != "int8"),
-                                "decode_gemv": int(kind != "f32")}
+                                "decode_gemv": int(kind != "f32"),
+                                "decode_gemv_layerwise": 0}
     if kind != "f32":
-        assert m.decoder.decode_gemv_per_call() == len(gemv)
+        assert m.decoder.decode_gemv_per_call() == len(gemv) + len(qkv)
     with torch.device("meta"):
         large = tw.WHISPER_DIMS["large-v3"]
-        assert tw.TextDecoder(large, quant=True).decode_gemv_per_call() == 257
-        assert tw.TextDecoder(large).decode_gemv_per_call() == 1
+        assert tw.TextDecoder(large, quant=True).decode_gemv_per_call() == 193
+        assert tw.TextDecoder(large).decode_gemv_per_call() == 193
+        assert tw.TextDecoder(large).decode_gemv_per_call(False) == 257
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int8_f32"])
+@pytest.mark.parametrize("cache", ["unified", "split"])
+def test_fused_decode_step_equals_the_layerwise_step(pair, monkeypatch,
+                                                     kind, cache):
+    """A single-token step of a small decoder on the CPU through the fused
+    blocks (ResidualBlock.decode_step: the layer norms in the GEMVs'
+    prologues, the one q/k/v launch writing the cache, GELU and the
+    residual adds in the epilogues) gives the same logits and caches, bit
+    for bit, as the same step with TextDecoder.fused_step forced off (every
+    block's forward, layer by layer). Layer norms with seeded parameters;
+    the unified cache with per-row pads, or the split beam cache (3 beams,
+    per-stream pads, ancestry)."""
+    _, variables, tm = pair
+    if kind == "bf16":
+        m = tw.WhisperModel(tw.WhisperDims(*KDIMS_ARGS), dtype=torch.bfloat16,
+                            device="cpu")
+        m.load_state_dict(tm.state_dict())
+    else:
+        _, _, m = int8_pair(variables, "f32" if kind == "int8_f32" else "bf16")
+    rng = np.random.RandomState(8)
+    with torch.no_grad():
+        for name, prm in m.decoder.named_parameters():
+            if "ln" in name:
+                prm.add_(torch.from_numpy(rng.randn(*prm.shape).astype(
+                    np.float32) * 0.1).to(prm.dtype))
+    Bs, beams = 2, 3 if cache == "split" else 1
+    B = Bs * beams
+    xa = torch.from_numpy(rng.randn(Bs, 1500, 128).astype(np.float32) * 0.3)
+    cross = m.precompute_cross_kv(xa)
+    if kind != "bf16":
+        cross = m.quantize_cross_kv(cross)
+    toks = torch.from_numpy(rng.randint(0, 1000, (B, 5)))
+    with torch.no_grad():
+        if cache == "unified":
+            caches = m.empty_kv_caches(B, cache_len=32)
+            pads = torch.tensor([0, 2], dtype=torch.int32)
+            m.decoder(toks[:, :4], xa, 0, caches, cross_kvs=cross,
+                      pad_lens=pads)
+        else:
+            prompt = m.empty_kv_caches(Bs, cache_len=4)
+            m.decoder(toks[:Bs, :4], xa, 0, prompt, cross_kvs=cross)
+            gen = m.empty_kv_caches(B, cache_len=8)
+            for kg, vg in gen:
+                kg.normal_(generator=torch.Generator().manual_seed(1))
+                vg.normal_(generator=torch.Generator().manual_seed(2))
+            anc = torch.from_numpy(rng.randint(0, beams, (Bs, beams, 8))
+                                   .astype(np.int32))
+            caches = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
+                      in zip(prompt, gen)]
+            pads = torch.tensor([1, 1, 1, 0, 0, 0], dtype=torch.int32)
+        runs = []
+        for fused in (True, False):
+            if not fused:
+                monkeypatch.setattr(tw.TextDecoder, "fused_step",
+                                    lambda self, *a: False)
+            cs = [tuple(t.clone() for t in c) for c in caches]
+            pos = torch.tensor(6) if cache == "split" else torch.tensor(4)
+            assert m.decoder.fused_step(B, 1, cs, cross) == fused
+            logits, new, _ = m.decoder(toks[:, 4:5], xa, pos, cs,
+                                       cross_kvs=cross, pad_lens=pads)
+            runs.append((logits, new))
+    (lf, cf), (ll, cl) = runs
+    assert lf.dtype == torch.float32 and torch.isfinite(lf).all()
+    assert torch.equal(lf, ll)
+    for a, b in zip(cf, cl):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_int8_load_path():
