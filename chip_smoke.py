@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero):
              parallel); at the main path's shapes (large-v3 attention,
              the int8 decoder's cross-attention at its beam-5 and greedy
              serving shapes, TitaNet-large depthwise convs at k = 7, 11,
-             15, MVDR's masked covariance) and the kernel tools' default
+             15 on word_nmesc's 256 x 320 frames and on the time-based
+             path's 64 windows of 64 and 304 frames (logged), MVDR's
+             masked covariance) and the kernel tools' default
              shapes (xattn_stream and xattn_onedot at 24 rows of int8
              K/V, S 1504, D 1280; attn_step_split_bias at 8 streams x 5
              beams, Pp 256, G 192, with a finite bias and a row masked
@@ -74,7 +76,11 @@ Phases (any failure raises and exits non-zero):
              width with seeded random weights, bf16 then the int8 decoder,
              3 seeded mel windows, beam 5 and greedy, 32 new tokens:
              tokens equal, scores within 1e-4, launch and decoder call
-             counts equal; eager and graphed ms per step logged; one
+             counts equal; eager and graphed ms per step logged; the
+             graphed loop's host breakdown: per replayed step the graph
+             launch, the counters and the wait on the finished.all()
+             read, per decode call the set-up, step 0 and the capture
+             (asr.decoding.DECODE_STEPS); one
              decoder step's kernels under torch.profiler at 3 rows
              (greedy) and 15 (beam 5), bf16 and int8, and the same step
              replayed as a CUDA graph: ms per replay and the device's
@@ -113,6 +119,21 @@ Phases (any failure raises and exits non-zero):
              Each session needs >= 64 words (the device clustering
              chain); depthwise_conv1d must launch 9 times per planned
              TitaNet chunk.
+6b. diarization, time-based: MarbleNet (DEFAULT_BLOCKS) and the
+             telephonic MSDD on the card against the CPU (f32, TF32 off,
+             1e-4); seeded NeMo-layout .nemo checkpoints of both written
+             under chiprun_out/ and found through NOTSOFAR_MODELS_DIR
+             (the MarbleNet's classifier bias makes speech win every
+             frame: every window is embedded); diarization_inference
+             with method 'nmesc' (meeting recipe) and 'nmesc_msdd'
+             (telephonic) on phase 4's session plus phase 6's word track,
+             TitaNet-large in bf16: the MarbleNet VAD ran, the MSDD
+             loaded (no fallback), every word attributed, >= 1 speaker,
+             depthwise_conv1d 9 times per planned TitaNet forward (64
+             windows each, per recipe scale); then msdd_refine at full
+             width on the telephonic base windows with a seeded
+             4-speaker labelling (6 pairs). Stage times logged (read_wav,
+             vad, embed, clustering, msdd, assign).
 7. css       CSS separation (css_batch_prepass of two seeded 7-channel
              360 s sessions in one pass, then one serial css_inference
              of the first) with Conformer-large at full width, bf16,
@@ -155,7 +176,8 @@ the kernel against the CPU's plain path).
 
 The line before the last is {"kernels": [...]}, all eleven kernels, with
 each kernel's launches summed over phases 4-9 and split by phase in
-"launches_by_path" (phase 9 as "tools"); the last line is {"ok": true,
+"launches_by_path" (phase 6b as "diarization_time", phase 9 as "tools");
+the last line is {"ok": true,
 "device": {...}}. The run writes under chiprun_out/: the kernels' ptxas
 report (kernel_build.log), its whole log (chip_smoke.log), the attn_step
 traffic of phases 4, 5 and 8 (attn_step_traffic.json, which
@@ -1220,32 +1242,44 @@ def check_kernels(iters: int):
     # path: 256 windows of the largest bucket (3.072 s -> 320 frames),
     # 1024 channels, bf16 activations, f32 taps, k = 7, 11, 15 (the three
     # mega blocks). The row of the kernels line is k = 15; k = 7 and 11 are
-    # checked and timed on the lines before it.
-    Bd, Td, Cd = 256, 320, 1024
-    xd = randn(Bd, Td, Cd)
-    for k in (7, 11, 15):
-        w = randn(k, Cd, dtype=torch.float32) * k ** -0.5
-        w_mut = w.clone()
-        w_mut[0, 0] += 1.0                 # channel 0's tap 0 changed
-        # tolerance: the kernel sums with FMAs, the plain version with a
-        # rounded product and a rounded add, both in the order i=0..k-1
-        # from 0; each of the k steps rounds once or twice, so the two
-        # differ by at most 2k roundings of the running sum, each at most
-        # 2**-24 of sum_i |x w| (largest over the outputs)
-        mag = K.depthwise_conv1d_plain(xd.abs(), w.abs(), k).max().item()
-        tol = 2 * k * 2.0 ** -24 * mag
-        w_bct = w.t()[:, None, :].to(bf).contiguous()   # [C, 1, k]
-        x_bct = xd.transpose(1, 2).contiguous()          # [B, C, T]
-        record(
-            "depthwise_conv1d", "notsofar_tpu/ops/pallas_kernels.py:435",
-            K.depthwise_conv1d(xd, w, k), K.depthwise_conv1d_plain(xd, w, k),
-            tol, K.depthwise_conv1d_plain(xd, w_mut, k),
-            lambda: K.depthwise_conv1d(xd, w, k),
-            lambda: K.depthwise_conv1d_plain(xd, w, k),
-            lambda: F.conv1d(x_bct, w_bct, padding=(k - 1) // 2, groups=Cd),
-            nbytes=Bd * Td * Cd * 2 + k * Cd * 4 + Bd * Td * Cd * 4,
-            flops=2 * k * Bd * Td * Cd, peak_flops=PEAK_F32_FLOPS,
-            label=f"depthwise_conv1d k={k}", row=k == 15)
+    # checked and timed on the lines before it. Then the time-based path's
+    # forwards: diarization.time_based.EMBED_BATCH = 64 windows at its
+    # shortest and longest recipe scales (0.5 and 3.0 s -> 51 and 301
+    # frames, padded to 64 and 304), checked and timed on lines of their
+    # own, their inputs from a generator of their own.
+    g_tb = torch.Generator(device="cuda").manual_seed(11)
+    Cd = 1024
+    for Bd, Td, gd in ((256, 320, g), (64, 64, g_tb), (64, 304, g_tb)):
+        xd = torch.randn((Bd, Td, Cd), generator=gd, device="cuda").to(bf)
+        for k in (7, 11, 15):
+            w = torch.randn((k, Cd), generator=gd, device="cuda") \
+                * k ** -0.5
+            w_mut = w.clone()
+            w_mut[0, 0] += 1.0                 # channel 0's tap 0 changed
+            # tolerance: the kernel sums with FMAs, the plain version with
+            # a rounded product and a rounded add, both in the order
+            # i=0..k-1 from 0; each of the k steps rounds once or twice,
+            # so the two differ by at most 2k roundings of the running
+            # sum, each at most 2**-24 of sum_i |x w| (largest over the
+            # outputs)
+            mag = K.depthwise_conv1d_plain(xd.abs(), w.abs(), k).max() \
+                .item()
+            tol = 2 * k * 2.0 ** -24 * mag
+            w_bct = w.t()[:, None, :].to(bf).contiguous()   # [C, 1, k]
+            x_bct = xd.transpose(1, 2).contiguous()          # [B, C, T]
+            record(
+                "depthwise_conv1d", "notsofar_tpu/ops/pallas_kernels.py:435",
+                K.depthwise_conv1d(xd, w, k),
+                K.depthwise_conv1d_plain(xd, w, k),
+                tol, K.depthwise_conv1d_plain(xd, w_mut, k),
+                lambda: K.depthwise_conv1d(xd, w, k),
+                lambda: K.depthwise_conv1d_plain(xd, w, k),
+                lambda: F.conv1d(x_bct, w_bct, padding=(k - 1) // 2,
+                                 groups=Cd),
+                nbytes=Bd * Td * Cd * 2 + k * Cd * 4 + Bd * Td * Cd * 4,
+                flops=2 * k * Bd * Td * Cd, peak_flops=PEAK_F32_FLOPS,
+                label=f"depthwise_conv1d {Bd}x{Td} k={k}",
+                row=(Bd, Td, k) == (256, 320, 15))
 
     # masked_scm at the MVDR shape of the CSS path: one chunk of 32
     # windows x 257 bins x 186 frames, K = 3 speakers + noise, M = 7 mics;
@@ -1853,6 +1887,8 @@ def check_graph_decode(max_new: int = 32) -> None:
                                   calls=dict(dec.DECODER_CALLS),
                                   steps=steps, wall=wall, n=n)
             e, gr = runs["eager"], runs["graphed"]
+            log(f"graph {dtype} {kind} ({3 * K} rows), host time: "
+                + host_breakdown(gr["steps"], gr["wall"]))
             diff = (e["lp"] - gr["lp"]).abs().max().item()
             replay_ms = (gr["wall"] - gr["steps"]["capture_s"]) / gr["n"] \
                 * 1e3
@@ -2093,14 +2129,42 @@ def check_decode_launches(label: str, counts: dict, quant: bool) -> None:
 
 def decode_steps_line(label: str, decode_s: float) -> str:
     """The decode loops' step counts since the last reset (graph captures,
-    their seconds, replayed against eager steps) and decode ms per step."""
+    their seconds, replayed against eager steps), decode ms per step and
+    the loops' host seconds (host_breakdown) as shares of decode s."""
     from notsofar_tpu_torch.asr import decoding as dec
     st = dec.DECODE_STEPS
     n = st["eager"] + st["replayed"]
     return (f"{label}: decode steps {n} ({st['replayed']} replayed from "
             f"CUDA graphs, {st['eager']} eager), {st['captures']} graph "
             f"captures in {st['capture_s']:.3f} s, "
-            f"{decode_s / max(n, 1) * 1e3:.2f} ms per step")
+            f"{decode_s / max(n, 1) * 1e3:.2f} ms per step; "
+            + host_breakdown(st, decode_s))
+
+
+def host_breakdown(st: dict, wall: float) -> str:
+    """Where a decode loop's host time went (asr.decoding.DECODE_STEPS):
+    each decode call's fixed cost (the set-up before its first step, step
+    0, eager, and the graph capture) as seconds and shares of `wall`; per
+    replayed step the graph's launch, the counters and the wait on the
+    finished.all() read, in ms; and what `wall` holds beyond them (work
+    around the decode calls: the fallback ladder's packing, the results'
+    copy to the host). Host clocks: a part's device work that runs on
+    while the host goes on is counted where the host waits for it."""
+    n = max(st["replayed"], 1)
+    calls = max(st["captures"], 1)     # a graphed decode call captures once
+    fixed = {k: st[k] for k in ("prefill_s", "step0_s", "capture_s")}
+    per = {k: st[k] / n * 1e3 for k in ("launch_s", "count_s", "read_s")}
+    n_all = st["eager"] + st["replayed"]
+    rest = wall - sum(fixed.values()) - sum(
+        st[k] for k in ("launch_s", "count_s", "read_s"))
+    return (f"wall {wall:.4f} s, {wall / max(n_all, 1) * 1e3:.4f} ms per "
+            f"step; fixed ({st['captures']} graphed decode calls; s, share "
+            "of wall, s per call) " + ", ".join(
+                f"{k} {v:.4f} ({v / max(wall, 1e-9):.4f}, {v / calls:.4f})"
+                for k, v in fixed.items())
+            + f"; per replayed step (ms, {st['replayed']} steps) "
+            + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in per.items())
+            + f"; the rest {rest:.4f} s ({rest / max(wall, 1e-9):.4f})")
 
 
 def same_partition(a, b) -> bool:
@@ -2518,6 +2582,315 @@ def check_attributed(df, label: str, seconds: float) -> None:
             if not (0 <= w[1] <= w[2] <= seconds + 0.02):
                 raise AssertionError(f"diarization {label}: bad word times "
                                      f"{w!r}")
+
+
+# --------------------------------------------------------------------------
+# phase 6b: time-based diarization (nmesc, nmesc_msdd) on the card
+# --------------------------------------------------------------------------
+
+SPEECH_BIAS = 12.0   # the seeded MarbleNet's classifier bias for speech
+
+
+def nemo_marblenet_state(cfg, seed: int) -> dict:
+    """A seeded NeMo EncDecClassificationModel state dict for a MarbleNet
+    topology (conv weights at 1/sqrt(fan_in), batch norms away from
+    identity), its classifier bias set to (-SPEECH_BIAS, +SPEECH_BIAS) so
+    that the speech class wins every frame: a random-weight VAD would find
+    no speech, and with the bias every window of the session is embedded,
+    the heaviest traffic."""
+    rng = np.random.RandomState(seed)
+
+    def r(*shape, fan_in):
+        return rng.randn(*shape) / math.sqrt(fan_in)
+
+    sd, c_in = {}, cfg.n_mels
+    for bi, b in enumerate(cfg.blocks):
+        p, ci = f"encoder.encoder.{bi}", c_in
+        for rep in range(b.repeat):
+            if b.separable:
+                sd[f"{p}.mconv.{3 * rep}.conv.weight"] = r(
+                    ci, 1, b.kernel, fan_in=b.kernel)
+                sd[f"{p}.mconv.{3 * rep + 1}.conv.weight"] = r(
+                    b.filters, ci, 1, fan_in=ci)
+            else:
+                sd[f"{p}.mconv.{3 * rep}.conv.weight"] = r(
+                    b.filters, ci, b.kernel, fan_in=ci * b.kernel)
+            bn = f"{p}.mconv.{3 * rep + 2}"
+            sd[f"{bn}.weight"] = 1.0 + 0.1 * rng.randn(b.filters)
+            sd[f"{bn}.bias"] = 0.1 * rng.randn(b.filters)
+            sd[f"{bn}.running_mean"] = 0.1 * rng.randn(b.filters)
+            sd[f"{bn}.running_var"] = 0.5 + rng.rand(b.filters)
+            ci = b.filters
+        if b.residual:
+            sd[f"{p}.res.0.0.conv.weight"] = r(b.filters, c_in, 1,
+                                               fan_in=c_in)
+            sd[f"{p}.res.0.1.weight"] = np.ones(b.filters)
+            sd[f"{p}.res.0.1.bias"] = np.zeros(b.filters)
+            sd[f"{p}.res.0.1.running_mean"] = np.zeros(b.filters)
+            sd[f"{p}.res.0.1.running_var"] = np.ones(b.filters)
+        c_in = b.filters
+    sd["decoder.decoder_layers.0.weight"] = r(cfg.num_classes, c_in,
+                                              fan_in=c_in)
+    sd["decoder.decoder_layers.0.bias"] = np.asarray([-SPEECH_BIAS,
+                                                      SPEECH_BIAS])
+    return sd
+
+
+def nemo_msdd_state(cfg, seed: int) -> dict:
+    """A seeded NeMo MSDD_module state dict ('msdd.' keys) of an MSDD
+    shape, weights at 1/sqrt(fan_in)."""
+    rng = np.random.RandomState(seed)
+    K, S, C, D, H = (cfg.n_scales, cfg.num_spks, cfg.cnn_channels,
+                     cfg.emb_dim, cfg.hidden)
+
+    def r(*shape):
+        return rng.randn(*shape) / math.sqrt(np.prod(shape[1:]))
+
+    sd = {"conv.0.cnn.0.weight": r(C, 1, K * (S + 1), 1),
+          "conv.0.cnn.0.bias": 0.1 * rng.randn(C)}
+    for i in range(1, cfg.conv_repeat + 1):
+        sd[f"conv.{i}.cnn.0.weight"] = r(C, 1, C, 1)
+        sd[f"conv.{i}.cnn.0.bias"] = 0.1 * rng.randn(C)
+    for i in range(cfg.conv_repeat + 1):
+        sd[f"conv_bn.{i}.running_mean"] = 0.1 * rng.randn(D)
+        sd[f"conv_bn.{i}.running_var"] = 0.5 + rng.rand(D)
+    for name, (o, i) in (("conv_to_linear", (H, C * D)),
+                         ("linear_to_weights", (K, H)),
+                         ("dist_to_emb", (H, K * S)),
+                         ("hidden_to_spks", (S, 2 * H))):
+        sd[f"{name}.weight"] = r(o, i)
+        sd[f"{name}.bias"] = 0.1 * rng.randn(o)
+    for k in range(cfg.num_lstm_layers):
+        for sfx in ("", "_reverse"):
+            sd[f"lstm.weight_ih_l{k}{sfx}"] = r(4 * H, H if k == 0 else 2 * H)
+            sd[f"lstm.weight_hh_l{k}{sfx}"] = r(4 * H, H)
+            sd[f"lstm.bias_ih_l{k}{sfx}"] = 0.1 * rng.randn(4 * H)
+            sd[f"lstm.bias_hh_l{k}{sfx}"] = 0.1 * rng.randn(4 * H)
+    return {f"msdd.{k}": v for k, v in sd.items()}
+
+
+def write_nemo(path: Path, sd: dict, config: dict) -> None:
+    """A .nemo archive: model_weights.ckpt (float32 tensors) and
+    model_config.yaml."""
+    import tarfile
+    import yaml
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ckpt, cfg = path.with_suffix(".ckpt"), path.with_suffix(".yaml")
+    torch.save({k: torch.tensor(np.asarray(v, np.float32))
+                for k, v in sd.items()}, ckpt)
+    cfg.write_text(yaml.safe_dump(config))
+    with tarfile.open(path, "w") as tar:
+        tar.add(ckpt, arcname="model_weights.ckpt")
+        tar.add(cfg, arcname="model_config.yaml")
+    ckpt.unlink()
+    cfg.unlink()
+
+
+def check_time_based_models() -> None:
+    """MarbleNet (DEFAULT_BLOCKS, f32) frame probabilities and the
+    telephonic MSDD's probabilities on the card against the same seeded
+    weights on the CPU, TF32 off. Tolerance 1e-4 absolute: f32 sums in
+    another order on both sides (cuDNN convs and LSTM, cuBLAS against CPU
+    kernels), ~1e-6 expected."""
+    from notsofar_tpu_torch.models.marblenet import FrameVAD
+    from notsofar_tpu_torch.models.msdd import MSDDConfig, OverlapDecoder
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(11)
+        wavs = (rng.randn(3, 40 * 16000) * 0.1).astype(np.float32)
+        lengths = np.asarray([40 * 16000, 31 * 16000 + 7, 12 * 16000])
+        cpu = FrameVAD(device="cpu", seed=4)
+        gpu = FrameVAD(state_dict=cpu.module.state_dict(), device="cuda")
+        d_vad = float(np.abs(gpu.frame_probs(wavs, lengths)
+                             - cpu.frame_probs(wavs, lengths)).max())
+        cfg = MSDDConfig()
+        cpu_m = OverlapDecoder(cfg, device="cpu", seed=5)
+        gpu_m = OverlapDecoder(cfg, cpu_m.module.state_dict(), device="cuda")
+        e = rng.randn(2, 256, cfg.n_scales, cfg.emb_dim).astype(np.float32)
+        a = rng.randn(2, cfg.n_scales, cfg.emb_dim, 2).astype(np.float32)
+        d_msdd = float(np.abs(gpu_m.refine(e, a) - cpu_m.refine(e, a)).max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    log(f"time-based models, card against CPU (f32, TF32 off): MarbleNet "
+        f"frame probabilities max abs {d_vad:.3e}, MSDD (telephonic: K "
+        f"{cfg.n_scales}, D {cfg.emb_dim}, hidden {cfg.hidden}, "
+        f"{cfg.num_lstm_layers} LSTM layers, {cfg.cnn_channels} channels) "
+        f"max abs {d_msdd:.3e} (tolerance 1e-4)")
+    if not (d_vad <= 1e-4 and d_msdd <= 1e-4):
+        raise AssertionError("time-based models differ on the card")
+
+
+def planned_forwards(vad: np.ndarray, total: int, recipe,
+                     batch: int) -> dict:
+    """Speaker-encoder forwards that diarize_streams plans for a VAD
+    mask: windows per recipe scale in batches of `batch`."""
+    from notsofar_tpu_torch.diarization import time_based as tb
+    out = {}
+    for w, h in zip(recipe.speaker_embeddings.window_length_in_sec,
+                    recipe.speaker_embeddings.shift_length_in_sec):
+        n = len(tb._speech_window_starts(vad, total, 16000, int(w * 16000),
+                                         int(h * 16000)))
+        out[w] = (n, -(-n // batch))
+    return out
+
+
+def run_time_based(work: Path, asr_df, seconds: float = 40.0):
+    """Phase 6b: diarization_inference with method='nmesc' (the meeting
+    recipe) and 'nmesc_msdd' (telephonic) on phase 4's session with a
+    seeded word track, every model at full width on the card: MarbleNet
+    (DEFAULT_BLOCKS, f32) and the telephonic MSDD loaded from seeded
+    NeMo-layout .nemo checkpoints under NOTSOFAR_MODELS_DIR, TitaNet-large
+    in bf16 (seeded random weights). No fallback may run (the MarbleNet
+    VAD, the loaded MSDD); every word gets a speaker; depthwise_conv1d
+    launches 9 times per planned TitaNet forward. Then msdd_refine on
+    the telephonic base windows with a seeded 4-speaker labelling (6
+    pairs), whatever the clustering found. Launch counts are reset before
+    the phase; returns them."""
+    import os
+    from notsofar_tpu_torch.diarization import time_based as tb
+    from notsofar_tpu_torch.diarization.common import DiarizationCfg
+    from notsofar_tpu_torch.diarization.diarization import \
+        diarization_inference
+    from notsofar_tpu_torch.diarization.recipes import resolve_recipe
+    from notsofar_tpu_torch.diarization.word_based import \
+        resolve_speaker_encoder
+    from notsofar_tpu_torch.models.marblenet import (FrameVAD,
+                                                     MarbleNetConfig)
+    from notsofar_tpu_torch.models.msdd import MSDDConfig, OverlapDecoder
+    from notsofar_tpu_torch.ops import kernels
+    from notsofar_tpu_torch.utils.audio import read_wav
+    from notsofar_tpu_torch.utils.profiling import StageTimer
+
+    check_time_based_models()
+    models = work / "diar_models"
+    mcfg, dcfg = MarbleNetConfig(), DiarizationCfg()
+    write_nemo(models / f"{dcfg.vad_model_name}.nemo",
+               nemo_marblenet_state(mcfg, 21), dict(
+                   preprocessor=dict(features=mcfg.n_mels),
+                   encoder=dict(jasper=[dict(
+                       filters=b.filters, repeat=b.repeat, kernel=[b.kernel],
+                       dilation=[b.dilation], residual=b.residual,
+                       separable=b.separable) for b in mcfg.blocks])))
+    write_nemo(models / f"{dcfg.msdd_model_name}.nemo",
+               nemo_msdd_state(MSDDConfig(), 22), dict(name="msdd"))
+    log(f"time-based checkpoints written under {models.name}/: MarbleNet "
+        f"(DEFAULT_BLOCKS, classifier bias -{SPEECH_BIAS} / +{SPEECH_BIAS} "
+        "so that speech wins every frame), MSDD (telephonic shape)")
+    df = add_word_track(asr_df.assign(session_id="smoke_time"), seconds, 0)
+    old_dir = os.environ.get("NOTSOFAR_MODELS_DIR")
+    os.environ["NOTSOFAR_MODELS_DIR"] = str(models)
+    tb._VAD_CACHE.clear()
+    tb._MSDD_CACHE.clear()
+    msdd_calls = {"n": 0}
+    refine = OverlapDecoder.refine
+
+    def counted(self, *a):
+        msdd_calls["n"] += 1
+        return refine(self, *a)
+
+    OverlapDecoder.refine = counted
+    try:
+        encoder = resolve_speaker_encoder(dcfg)
+        vad = tb.resolve_frame_vad(dcfg)
+        if not isinstance(vad, FrameVAD):
+            raise AssertionError("the MarbleNet checkpoint did not load")
+        wavs = [read_wav(f, normalize=True) for f in
+                sorted(df.wav_file_name.unique())]
+        wavs = [w if w.ndim == 1 else w[0] for w in wavs]
+        concat = np.concatenate(wavs)
+        kernels.reset_launches()
+        results, plan = {}, {}
+        for method in ("nmesc", "nmesc_msdd"):
+            recipe = resolve_recipe(method)
+            mask = np.concatenate([tb.make_recipe_vad(vad, recipe)(w, 16000)
+                                   for w in wavs])
+            probs = np.concatenate([vad.frame_probs(w[None], [len(w)])[0]
+                                    for w in wavs])
+            plan[method] = planned_forwards(mask, len(concat), recipe,
+                                            tb.EMBED_BATCH)
+            cfg = DiarizationCfg(method=method)
+            timer, before = StageTimer(), dict(kernels.LAUNCHES)
+            calls0 = msdd_calls["n"]
+            t0 = time.perf_counter()
+            out = diarization_inference(str(work / "diar_time"), df, cfg,
+                                        fetch_from_cache=False, timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = kernels.LAUNCHES["depthwise_conv1d"] - \
+                before["depthwise_conv1d"]
+            want = 9 * sum(f for _, f in plan[method].values())
+            msdd = tb._MSDD_CACHE.get((dcfg.msdd_model_name, "cuda"))
+            spk = out.speaker_id.nunique()
+            results[method] = dict(wall=wall, speakers=spk, stages={
+                k: round(v, 3) for k, v in timer.stage_seconds.items()})
+            log(f"diarization {method} ({recipe.name} recipe): wall "
+                f"{wall:.2f} s, stages {results[method]['stages']}; VAD "
+                f"{tb.LAST_VAD_USED['kind']}, speech frames "
+                f"{mask.mean():.4f}, min P(speech) {probs.min():.4f}; "
+                f"windows and forwards per scale {plan[method]}; "
+                f"depthwise_conv1d launches {n} (planned {want}); speakers "
+                f"{spk}; MSDD {type(msdd).__name__} calls "
+                f"{msdd_calls['n'] - calls0}")
+            check_attributed(out, f"time-based {method}", seconds)
+            if tb.LAST_VAD_USED["kind"] != "marblenet":
+                raise AssertionError(f"{method}: the {tb.LAST_VAD_USED} "
+                                     "VAD ran, not MarbleNet")
+            if method == "nmesc_msdd" and not isinstance(msdd,
+                                                         OverlapDecoder):
+                raise AssertionError("nmesc_msdd fell back: no MSDD loaded")
+            if not (spk >= 1 and n == want > 0):
+                raise AssertionError(f"{method}: {spk} speakers, "
+                                     f"depthwise_conv1d {n} of {want}")
+            if method == "nmesc_msdd" and spk >= 2 and \
+                    msdd_calls["n"] == calls0:
+                raise AssertionError("nmesc_msdd: the MSDD never ran")
+        # the MSDD at full width on a seeded 4-speaker labelling of the
+        # telephonic base windows (6 pairs), whatever the clustering found
+        recipe = resolve_recipe("nmesc_msdd")
+        mask = np.concatenate([tb.make_recipe_vad(vad, recipe)(w, 16000)
+                               for w in wavs])
+        base_win = int(recipe.speaker_embeddings.window_length_in_sec[-1]
+                       * 16000)
+        starts = tb._speech_window_starts(
+            mask, len(concat), 16000, base_win,
+            int(recipe.speaker_embeddings.shift_length_in_sec[-1] * 16000))
+        labels = np.random.RandomState(23).randint(4, size=len(starts))
+        labels[:4] = np.arange(4)
+        calls0, before = msdd_calls["n"], kernels.LAUNCHES["depthwise_conv1d"]
+        t0 = time.perf_counter()
+        spk_vad = tb.msdd_refine(
+            concat, 16000, encoder, tb._MSDD_CACHE[(dcfg.msdd_model_name,
+                                                    "cuda")],
+            starts, labels, mask.astype(float), 4,
+            scales=recipe.speaker_embeddings.window_length_in_sec,
+            hops=recipe.speaker_embeddings.shift_length_in_sec,
+            cluster_win_sec=base_win / 16000)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = kernels.LAUNCHES["depthwise_conv1d"] - before
+        want = 9 * sum(f for _, f in plan["nmesc_msdd"].values())
+        active = spk_vad.reshape(4, -1).sum(axis=1).tolist()
+        log(f"msdd_refine, 4 seeded speakers on {len(starts)} base windows: "
+            f"{msdd_calls['n'] - calls0} MSDD calls (6 pairs), {secs:.2f} "
+            f"s, active frames per speaker {active}, depthwise_conv1d "
+            f"{n} (planned {want})")
+        if not (msdd_calls["n"] - calls0 == 6 and spk_vad.shape[0] == 4
+                and set(np.unique(spk_vad)) <= {0.0, 1.0} and n == want
+                and sum(active) > 0):
+            raise AssertionError("msdd_refine at full width failed")
+    finally:
+        OverlapDecoder.refine = refine
+        if old_dir is None:
+            os.environ.pop("NOTSOFAR_MODELS_DIR", None)
+        else:
+            os.environ["NOTSOFAR_MODELS_DIR"] = old_dir
+    counts = dict(kernels.LAUNCHES)
+    log(f"diarization, time-based: kernel launches {counts}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -3098,6 +3471,8 @@ def main() -> int:
             session, work, None, "greedy", ("encoder_mha", "attn_step"))
         log("phase 6 diarization, word_nmesc")
         by_path["diarization"] = run_diarization(work, asr_dfs)
+        log("phase 6b diarization, time-based (nmesc, nmesc_msdd)")
+        by_path["diarization_time"] = run_time_based(work, asr_dfs["beam5"])
         log("phase 7 css, Conformer-large + MVDR")
         by_path["css"] = run_css(work)
         log("phase 8 pipeline, inference_v1.yaml with int8 ASR")

@@ -23,13 +23,14 @@ expanded over K*V and pruned to the top K per batch element, and the
 final hypothesis is chosen by length-normalized average logprob
 (MaximumLikelihoodRanker with length_penalty=None).
 """
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from notsofar_tpu_torch.asr.decoding import (NEG_INF, DecodeOptions,
-                                             GreedyDecoder)
+from notsofar_tpu_torch.asr.decoding import (DECODE_STEPS, NEG_INF,
+                                             DecodeOptions, GreedyDecoder)
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import WhisperModel
 
@@ -64,6 +65,7 @@ class BeamDecoder(GreedyDecoder):
         GreedyDecoder._run_steps (None: a CUDA graph on the card). Returns
         (tokens [B, K, max_new], stats [B, 2K+1] = sum_lp || length ||
         no_speech_prob)."""
+        t_call = time.perf_counter()
         model, tok = self.model, self.tok
         dev = xa.device
         K = self.beam_size
@@ -160,6 +162,7 @@ class BeamDecoder(GreedyDecoder):
             cur_logits.copy_(new_logits[:, 0])
             step_t.add_(1)
 
+        DECODE_STEPS["prefill_s"] += time.perf_counter() - t_call
         self._run_steps(step, max_new, st["finished"], graph)
         stats = torch.cat([sum_lp.reshape(B, K),
                            st["length"].reshape(B, K).float(),

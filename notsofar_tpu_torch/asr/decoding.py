@@ -8,10 +8,13 @@ step counter and cache position) lives in tensors it updates in place.
 Step 0 runs eagerly (its logit filters differ); on the card the later
 steps are one CUDA graph, captured once per decode call and replayed step
 after step (utils/cuda_graph.py); on the CPU the same function runs
-eagerly. The loop checks ``finished.all()`` every FINISHED_CHECK_EVERY
-steps (a host sync), never past max_new_tokens; rows that finished emit
-EOT and add 0 log-probability, so extra steps change nothing and the
-check only saves steps.
+eagerly. The loop reads ``finished.all()`` every FINISHED_CHECK_EVERY
+steps, never past max_new_tokens, and keeps one step queued ahead of the
+host: the read of step i is copied to pinned host memory behind an event
+and waited on only once step i + 1 is enqueued, so at most one step runs
+past the one where every row finished. Rows that finished emit EOT and
+add 0 log-probability, so extra steps change nothing and the check only
+saves steps.
 
 Logit filters (pure functions of a small per-row state):
 
@@ -35,6 +38,7 @@ decoders take no ``variables`` argument.
 """
 import base64
 import gzip
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,10 +53,9 @@ from notsofar_tpu_torch.utils.cuda_graph import StepGraph, capture_stream
 
 NEG_INF = -1e30
 
-# decode steps between two checks of finished.all() (each a host sync): of
-# 1, 2, 4 and 8, 1 was the fastest on an H100 (chip_smoke.py phase 3b, rows
-# ending at different steps): the sync between two replays is lost in a
-# step's noise, and each step run past the last EOT costs a whole step
+# decode steps between two reads of finished.all(): of 1, 2, 4 and 8, 1
+# was the fastest on an H100 (chip_smoke.py phase 3b, rows ending at
+# different steps): each step run past the last EOT costs a whole step
 FINISHED_CHECK_EVERY = 1
 
 
@@ -109,14 +112,47 @@ class DecodeOptions:
 
 
 # decode steps run eagerly and replayed from CUDA graphs, graph captures
-# and the seconds they took, in this process
+# and the seconds they took, in this process; and the loops' host seconds:
+# each call's set-up before its first step (caches, cross-attention
+# memory, the prompt's forward), step 0 (eager, the graphs' warm-up), the
+# replays' launches, the counters they bump, and the waits on
+# finished.all() reads
 DECODE_STEPS: Dict[str, float] = {"eager": 0, "replayed": 0, "captures": 0,
-                                  "capture_s": 0.0}
+                                  "capture_s": 0.0, "prefill_s": 0.0,
+                                  "step0_s": 0.0, "launch_s": 0.0,
+                                  "count_s": 0.0, "read_s": 0.0}
 
 
 def reset_decode_steps() -> None:
     for k in DECODE_STEPS:
         DECODE_STEPS[k] = 0
+
+
+class _FinishedRead:
+    """finished.all() read back to the host. post() enqueues the read
+    (on the card: a copy into pinned host memory and an event behind it,
+    so the stream does not wait); wait() returns it, blocking until the
+    event is done. On the CPU the read is taken at post()."""
+
+    def __init__(self, finished: torch.Tensor):
+        self.finished = finished
+        self.value = False
+        if finished.is_cuda:
+            self.host = torch.zeros((), dtype=torch.bool, pin_memory=True)
+            self.event = torch.cuda.Event()
+
+    def post(self) -> None:
+        if self.finished.is_cuda:
+            self.host.copy_(self.finished.all(), non_blocking=True)
+            self.event.record()
+        else:
+            self.value = bool(self.finished.all())
+
+    def wait(self) -> bool:
+        if self.finished.is_cuda:
+            self.event.synchronize()
+            return bool(self.host)
+        return self.value
 
 
 def gumbel_noise(shape, generator: torch.Generator,
@@ -235,16 +271,43 @@ class GreedyDecoder:
                    generators: Sequence[torch.Generator] = ()) -> None:
         """Decode steps 0 .. max_new - 1 through ``step(first)``, which
         updates the loop's state in place and advances its step counter;
-        stop early once ``finished`` is all true, checked before every
-        FINISHED_CHECK_EVERY-th step. Step 0 runs eagerly. With ``graph``
-        (default: on a card) the later steps are one CUDA graph of
-        ``step(False)``, captured at the first of them and replayed;
-        without, they run eagerly (the CPU path, and the card's comparison
-        of the two)."""
+        stop early once ``finished`` is all true. Step 0 runs eagerly.
+        With ``graph`` (default: on a card) the later steps are one CUDA
+        graph of ``step(False)``, captured at the first of them and
+        replayed; without, they run eagerly (the CPU path, and the card's
+        comparison of the two).
+
+        finished.all() is read after every FINISHED_CHECK_EVERY-th step:
+        the read after step i is posted without blocking and waited on
+        only after step i + 1 is enqueued, so the card always has a step
+        queued while the host waits, and at most one step runs past the
+        step where every row finished. The host seconds of each part go
+        to DECODE_STEPS."""
         if max_new <= 0:
             return
         if graph is None:
             graph = finished.is_cuda
+        read, gate = _FinishedRead(finished), None
+
+        def stop_after(i: int) -> bool:
+            """Step i is enqueued: wait on the read posted after step
+            i - 1 (it gates step i + 1), then post the read after step i
+            (it gates step i + 2). True when every row had finished by
+            step i - 1, so step i ran past the end."""
+            nonlocal gate
+            if gate == i + 1:
+                t = time.perf_counter()
+                done = read.wait()
+                DECODE_STEPS["read_s"] += time.perf_counter() - t
+                gate = None
+                if done:
+                    return True
+            if (i + 2) % FINISHED_CHECK_EVERY == 0 and i + 2 < max_new:
+                read.post()
+                gate = i + 2
+            return False
+
+        t0 = time.perf_counter()
         if graph:
             # the warm-up on the capture stream: every kernel library is
             # loaded and its attributes set before the capture
@@ -256,22 +319,30 @@ class GreedyDecoder:
         else:
             step(True)
         DECODE_STEPS["eager"] += 1
+        DECODE_STEPS["step0_s"] += time.perf_counter() - t0
         captured = None
-        for i in range(1, max_new):
-            if i % FINISHED_CHECK_EVERY == 0 and bool(finished.all()):
-                break
-            if not graph:
-                step(False)
-                DECODE_STEPS["eager"] += 1
-                continue
-            if captured is None:
-                captured = StepGraph(lambda: step(False),
-                                     (kernels.LAUNCHES, DECODER_CALLS),
-                                     generators)
-                DECODE_STEPS["captures"] += 1
-                DECODE_STEPS["capture_s"] += captured.capture_s
-            captured.replay()
-            DECODE_STEPS["replayed"] += 1
+        try:
+            if stop_after(0):
+                return
+            for i in range(1, max_new):
+                if not graph:
+                    step(False)
+                    DECODE_STEPS["eager"] += 1
+                else:
+                    if captured is None:
+                        captured = StepGraph(lambda: step(False),
+                                             (kernels.LAUNCHES,
+                                              DECODER_CALLS), generators)
+                        DECODE_STEPS["captures"] += 1
+                        DECODE_STEPS["capture_s"] += captured.capture_s
+                    captured.replay()
+                    DECODE_STEPS["replayed"] += 1
+                if stop_after(i):
+                    break
+        finally:
+            if captured is not None:
+                DECODE_STEPS["launch_s"] += captured.launch_s
+                DECODE_STEPS["count_s"] += captured.count_s
 
     def _sot_pos(self, prompt_len: int) -> int:
         """Index of <|startoftranscript|> in a prompt that ends with the
@@ -299,6 +370,7 @@ class GreedyDecoder:
         left-pad slots. graph: see _run_steps (None: a CUDA graph on the
         card). Returns (tokens [B, max_new] int64, stats [B, 3] =
         sum_logprob || length || no_speech_prob)."""
+        t_call = time.perf_counter()
         model, tok = self.model, self.tok
         dev = xa.device
         B = xa.shape[0]
@@ -364,6 +436,7 @@ class GreedyDecoder:
             cur_logits.copy_(new_logits[:, 0])
             step_t.add_(1)
 
+        DECODE_STEPS["prefill_s"] += time.perf_counter() - t_call
         self._run_steps(step, max_new, st["finished"], graph, gens)
         stats = torch.stack([sum_lp, st["length"].float(), no_speech_prob],
                             dim=1)

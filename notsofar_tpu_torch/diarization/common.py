@@ -21,7 +21,8 @@ class DiarizationCfg:
     embedding_model_name: str = "titanet_large"
     msdd_model_name: str = "diar_msdd_telephonic"
     vad_model_name: str = "vad_multilingual_marblenet"
-    # recipe yaml for the time-based methods (a later slice)
+    # recipe yaml for the time-based methods ('': nmesc -> meeting,
+    # nmesc_msdd -> telephonic; diarization/recipes.py)
     recipe_name: str = ""
     # speaker-encoder matmul dtype: 'bfloat16' (serving) or 'float32'
     # (strict-parity runs); cosine-affinity clustering is robust to bf16

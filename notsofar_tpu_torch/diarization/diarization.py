@@ -1,11 +1,11 @@
-"""Diarization dispatch: skip / by_wav_file_name / word_nmesc.
+"""Diarization dispatch: skip / by_wav_file_name / word_nmesc / the
+time-based nmesc and nmesc_msdd.
 
 Port of notsofar_tpu/diarization/diarization.py with the same contracts:
 the input is the ASR segments dataframe of one session; the output adds a
-'speaker_id' column (re-segmented for word_nmesc). The per-session pickle
-cache layout is the same: out_dir/diarization/{session_id}/{method}/
-all_segments_df.pkl. The time-based methods (nmesc, nmesc_msdd) come
-with a later slice and raise NotImplementedError here.
+'speaker_id' column (re-segmented for word_nmesc and the time-based
+methods). The per-session pickle cache layout is the same:
+out_dir/diarization/{session_id}/{method}/all_segments_df.pkl.
 """
 import os
 from pathlib import Path
@@ -14,6 +14,7 @@ from typing import Optional
 import pandas as pd
 
 from notsofar_tpu_torch.diarization.common import DiarizationCfg
+from notsofar_tpu_torch.diarization.time_based import time_based_diarization
 from notsofar_tpu_torch.diarization.word_based import (
     word_based_clustering, word_based_clustering_batch)
 from notsofar_tpu_torch.utils.logging_def import get_logger
@@ -21,10 +22,7 @@ from notsofar_tpu_torch.utils.profiling import StageTimer
 
 _LOG = get_logger("diarization")
 
-TIME_BASED_SLICE_MSG = (
-    "the time-based diarization methods (nmesc, nmesc_msdd: MarbleNet VAD "
-    "+ MSDD) are not ported yet; they come with the time-based "
-    "diarization slice (ROADMAP.md A.11). Use method='word_nmesc'.")
+METHODS = ("word_nmesc", "nmesc", "nmesc_msdd")
 
 
 def _cache_file(out_dir: str, session_name: str, method: str) -> Path:
@@ -43,15 +41,16 @@ def _with_stream_index(segments_df: pd.DataFrame):
 
 def diarization_inference(out_dir: str, segments_df: pd.DataFrame,
                           cfg: DiarizationCfg, fetch_from_cache: bool,
-                          encoder=None, device=None,
+                          encoder=None, msdd=None, device=None,
                           timer: Optional[StageTimer] = None
                           ) -> pd.DataFrame:
     """Assign a speaker label to each ASR word of one session.
 
-    word_nmesc runs the speaker encoder on `device` (default ``cuda``;
-    raises without a card unless the caller passes ``device="cpu"``)
-    unless an encoder is given. timer: optional StageTimer for the
-    word_nmesc stages."""
+    word_nmesc and the time-based methods run their models (speaker
+    encoder; MarbleNet VAD and, for nmesc_msdd, the MSDD, when mounted)
+    on `device` (default ``cuda``; raises without a card unless the
+    caller passes ``device="cpu"``) unless an encoder or MSDD is given.
+    timer: optional StageTimer for the method's stages."""
     _LOG.info("Running Speaker Diarization")
     if segments_df.session_id.nunique() > 1:
         raise ValueError("no cross-session information is permitted")
@@ -67,9 +66,7 @@ def diarization_inference(out_dir: str, segments_df: pd.DataFrame,
         out["speaker_id"] = "wav_" + pd.Series(ind, index=out.index).astype(str)
         _LOG.info(f"Diarization by wav file names: {list(uniques)}")
         return out
-    if cfg.method in ("nmesc", "nmesc_msdd"):
-        raise NotImplementedError(TIME_BASED_SLICE_MSG)
-    if cfg.method != "word_nmesc":
+    if cfg.method not in METHODS:
         raise ValueError(f"unknown diarization method: {cfg.method}")
 
     if len(segments_df) == 0:
@@ -87,8 +84,15 @@ def diarization_inference(out_dir: str, segments_df: pd.DataFrame,
     os.makedirs(out_file.parent, exist_ok=True)
 
     df, wav_files = _with_stream_index(segments_df)
-    attributed = word_based_clustering(wav_files, df, cfg, encoder=encoder,
-                                       device=device, timer=timer)
+    if cfg.method == "word_nmesc":
+        attributed = word_based_clustering(wav_files, df, cfg,
+                                           encoder=encoder, device=device,
+                                           timer=timer)
+    else:
+        attributed = time_based_diarization(wav_files, df,
+                                            str(out_file.parent), cfg,
+                                            encoder=encoder, msdd=msdd,
+                                            device=device, timer=timer)
     attributed.to_pickle(out_file)
     _LOG.info(f"Speaker Diarization saved to {out_file}")
     return attributed

@@ -1,6 +1,10 @@
-"""Time a checkout's decode step and its dense-layer GEMVs on the card.
+"""Time a checkout's decode step and its dense-layer GEMVs on the card,
+or (``--loops``) its whole decode loops.
 
     python3 notsofar_tpu_torch/tools/time_decode_step.py [--root DIR]
+        [--out FILE]
+    python3 notsofar_tpu_torch/tools/time_decode_step.py --loops
+        [--root DIR] [--dtype bfloat16|int8] [--calls 3] [--eot-scale 0]
         [--out FILE]
 
 ``--root`` names the checkout whose ``notsofar_tpu_torch`` is imported
@@ -33,9 +37,26 @@ at 3, 15 and 48 rows, and xattn_step at 3 windows x Tq 1 and 5 (S 1500,
 bf16): ms by CUDA events (L2 flushed) and as 32 launches in one CUDA
 graph, ms per launch. Prints one line per measurement and, last, a JSON
 object of them all (also written to ``--out``). Runs only on a CUDA card.
+
+``--loops`` times whole decode calls instead, through entry points that
+every checkout since the decode step was graphed has
+(``GreedyDecoder._decode_loop``, ``BeamDecoder._beam_loop``, the
+counters ``asr.decoding.DECODE_STEPS``): Whisper large-v3 with seeded
+random weights in ``--dtype`` (bf16, or the int8 decoder with int8
+cross-attention K/V), 3 seeded mel windows through the encoder, then
+greedy (3 rows) and beam 5 (15 rows) decode calls of up to 224 new
+tokens (the shipped max), each call timed by the host clock from its
+start to a synchronize after it (the prefill, step 0, the graph capture
+and every step), ``--calls`` times after one warm-up call.
+``--eot-scale`` > 0 scales the model's EOT embedding row, so that rows
+end at different steps before 224 (random weights alone rarely end a
+decode). Prints, per loop, ms per call, the steps a call runs, ms per
+step, and the DECODE_STEPS keys the checkout has (its host seconds per
+part, where it counts them); last, the JSON object.
 """
 import argparse
 import json
+import time
 import sys
 from collections import defaultdict
 from pathlib import Path
@@ -217,6 +238,58 @@ def xattn_step_times(iters: int) -> dict:
     return out
 
 
+def time_loops(dtype: str, calls: int, eot_scale: float) -> dict:
+    """ms per call, steps per call and DECODE_STEPS per call of the
+    greedy and beam-5 loops (``--loops``; see the module's docstring)."""
+    import numpy as np
+    import torch
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.asr.beam import BeamDecoder
+    from notsofar_tpu_torch.asr.inference import load_whisper_model
+
+    model, tok, _ = load_whisper_model("large-v3", None,
+                                       compute_dtype=dtype, device="cuda")
+    if eot_scale > 0 and model.quant_decoder:
+        raise ValueError("--eot-scale scales a float embedding row; the "
+                         "int8 decoder's embedding is quantized")
+    mel = torch.from_numpy(np.random.RandomState(8).randn(3, 128, 3000)
+                           .astype(np.float32)).cuda()
+    emb = model.decoder.token_embedding.weight
+    row = emb[tok.eot].clone()
+    out = {}
+    try:
+        if eot_scale > 0:
+            with torch.no_grad():
+                emb[tok.eot] *= eot_scale
+        with torch.no_grad():
+            xa = model.encode(mel)
+        opts = dec.DecodeOptions(max_new_tokens=224,
+                                 cross_kv_quant=model.quant_decoder)
+        for kind in ("greedy", "beam5"):
+            d = BeamDecoder(model, tok, opts, beam_size=5) \
+                if kind == "beam5" else dec.GreedyDecoder(model, tok, opts)
+            loop = d._beam_loop if kind == "beam5" else d._decode_loop
+            initial = d._initial_tokens(None)
+            prompt = torch.tensor(initial, device="cuda").repeat(3, 1)
+            loop(xa, len(initial), prompt)       # warm-up
+            torch.cuda.synchronize()
+            dec.reset_decode_steps()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                loop(xa, len(initial), prompt)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / calls
+            st = {k: v / calls for k, v in dec.DECODE_STEPS.items()}
+            steps = st["eager"] + st["replayed"]
+            out[kind] = dict(ms_per_call=wall * 1e3, steps=steps,
+                             ms_per_step=wall * 1e3 / steps,
+                             decode_steps=st)
+    finally:
+        with torch.no_grad():
+            emb[tok.eot].copy_(row)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
@@ -224,6 +297,11 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--window", type=int, default=10)
+    ap.add_argument("--loops", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "int8"))
+    ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--eot-scale", type=float, default=0.0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -237,6 +315,18 @@ def main(argv=None) -> int:
     if Path(K.__file__).resolve().parents[2] != root:
         raise RuntimeError(f"time_decode_step: imported {K.__file__}, not "
                            f"the checkout {root}")
+    if args.loops:
+        res = dict(root=str(root), card=card_line(), dtype=args.dtype,
+                   eot_scale=args.eot_scale,
+                   loops=time_loops(args.dtype, args.calls, args.eot_scale))
+        print(f"device: {res['card']}; checkout {root}", flush=True)
+        for kind, r in res["loops"].items():
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in
+                              r["decode_steps"].items())
+            print(f"{kind}: {r['ms_per_call']:.2f} ms per call, "
+                  f"{r['steps']:.1f} steps, {r['ms_per_step']:.4f} ms per "
+                  f"step; per call: {parts}", flush=True)
+        return _emit(res, args.out)
     res = dict(root=str(root), card=card_line(), steps={})
     print(f"device: {res['card']}; checkout {root}", flush=True)
     for dtype in ("bfloat16", "int8"):
@@ -260,10 +350,15 @@ def main(argv=None) -> int:
     for k, v in {**res["gemv"], **res["xattn_step"]}.items():
         print(f"{k}: " + ", ".join(f"{a} {b:.4f}" for a, b in v.items()),
               flush=True)
+    return _emit(res, args.out)
+
+
+def _emit(res: dict, out) -> int:
+    """Print `res` as the last line, and write it to `out` if given."""
     line = json.dumps(res)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line)
     print(line)
     return 0
 

@@ -54,7 +54,9 @@ class StepGraph:
 
     counters: dicts of ints that the step's Python code bumps; each replay
     adds what one capture of the step added. generators: the non-default
-    CUDA generators the step draws from."""
+    CUDA generators the step draws from. The host seconds of the capture
+    (capture_s) and, summed over the replays, of their launches
+    (launch_s) and of the counting after them (count_s)."""
 
     def __init__(self, step: Callable[[], object],
                  counters: Sequence[Dict[str, int]] = (),
@@ -94,9 +96,14 @@ class StepGraph:
                 c[k] -= v
             self.deltas.append(d)
         self.capture_s = time.perf_counter() - t0
+        self.launch_s = self.count_s = 0.0
 
     def replay(self) -> None:
+        t0 = time.perf_counter()
         self.graph.replay()
+        t1 = time.perf_counter()
         for c, d in zip(self.counters, self.deltas):
             for k, v in d.items():
                 c[k] += v
+        self.launch_s += t1 - t0
+        self.count_s += time.perf_counter() - t1

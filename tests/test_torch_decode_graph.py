@@ -85,6 +85,65 @@ def test_cpu_decode_runs_every_step_eagerly():
     assert steps["captures"] == 0
 
 
+def strict_run_steps(self, step, max_new, finished, graph, generators=()):
+    """The strict schedule, the reference for the loops' queued one: every
+    step eager, finished.all() read on the host before each step after
+    the first, so the loop stops right after the first step at which
+    every row has finished."""
+    step(True)
+    tdec.DECODE_STEPS["eager"] += 1
+    for _ in range(1, max_new):
+        if bool(finished.all()):
+            break
+        step(False)
+        tdec.DECODE_STEPS["eager"] += 1
+
+
+def watch_finished(monkeypatch):
+    """Wrap the loops' _run_steps so that finished.all() is noted after
+    every step (eager loops only); returns the list it fills."""
+    seen = []
+    run = tdec.GreedyDecoder._run_steps
+
+    def watched(self, step, max_new, finished, graph, generators=()):
+        def traced(first):
+            step(first)
+            seen.append(bool(finished.all()))
+        return run(self, traced, max_new, finished, graph, generators)
+
+    monkeypatch.setattr(tdec.GreedyDecoder, "_run_steps", watched)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled", "beam3"])
+def test_queued_schedule_equals_the_strict_one(kind, monkeypatch):
+    """The loops' schedule (the read of finished.all() after step i waited
+    on only after step i + 1 is enqueued) against the strict one
+    (strict_run_steps): the same tokens and stats bit for bit, the same
+    launches per step, and exactly one step more than the strict loop,
+    the one after the first step at which every row has finished. For
+    greedy rows that step is the last row's first EOT."""
+    m = model("cpu")
+    with monkeypatch.context() as mp:
+        mp.setattr(tdec.GreedyDecoder, "_run_steps", strict_run_steps)
+        tok_s, st_s, _, calls_s, steps_s = decode(m, kind, None)
+    with monkeypatch.context() as mp:
+        seen = watch_finished(mp)
+        tok_q, st_q, _, calls_q, steps_q = decode(m, kind, None)
+    n_s, n_q = steps_s["eager"], steps_q["eager"]
+    assert 1 < n_s < 40 and n_q == n_s + 1 == len(seen)
+    assert seen.index(True) + 1 == n_s
+    assert torch.equal(tok_s, tok_q) and torch.equal(st_s, st_q)
+    # the prefill and one decoder call a step, both schedules
+    assert calls_s["xattn_step"] == n_s + 1
+    assert calls_q["xattn_step"] == n_q + 1
+    assert steps_q["read_s"] > 0 and steps_q["step0_s"] > 0
+    if kind != "beam3":
+        first_eot = [int((row == tokenizer().eot).nonzero()[0])
+                     for row in tok_s]
+        assert n_s == max(first_eot) + 1
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -117,3 +176,34 @@ def test_gpu_graphed_decode_equals_the_eager_loop(cuda, kind, quant):
     if quant:
         assert launch_g["xattn_int8"] == \
             DIMS.n_text_layer * calls_g["xattn_int8"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,quant", [
+    ("greedy", False), ("sampled", False), ("beam3", False),
+    ("greedy", True)])
+def test_gpu_queued_graph_equals_the_strict_eager_loop(cuda, kind, quant,
+                                                      monkeypatch):
+    """The graphed loop with its queued schedule against the eager loop
+    with the strict one (strict_run_steps): equal tokens, scores within
+    1e-5, one step more when the rows finish before max_new_tokens (every
+    step after the first replayed), and that step's kernel launches more:
+    the step run past the end changes nothing. The sampled rows draw from
+    the card's generators and may run to max_new_tokens; the others end
+    early."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = model(cuda, quant)
+    with monkeypatch.context() as mp:
+        mp.setattr(tdec.GreedyDecoder, "_run_steps", strict_run_steps)
+        tok_e, st_e, launch_e, _, steps_e = decode(m, kind, False)
+    tok_g, st_g, launch_g, _, steps_g = decode(m, kind, None)
+    n = steps_e["eager"]
+    n_q = min(n + 1, 40)
+    assert 1 < n <= 40 and (n < 40 or kind == "sampled")
+    assert steps_g["captures"] == 1 and steps_g["eager"] == 1
+    assert steps_g["replayed"] == n_q - 1
+    assert torch.equal(tok_e, tok_g)
+    assert (st_e - st_g).abs().max().item() <= 1e-5
+    kern = "attn_step_split" if kind == "beam3" else "attn_step"
+    assert launch_e[kern] == DIMS.n_text_layer * n
+    assert launch_g[kern] == DIMS.n_text_layer * n_q

@@ -144,9 +144,10 @@ def test_batch_prepass_matches_serial_calls(tmp_path, encoders):
 
 def test_dispatch_modes_match_jax(tmp_path):
     """skip and by_wav_file_name give the JAX package's frames; the
-    time-based methods raise NotImplementedError naming their slice; an
-    unknown method raises ValueError; word_nmesc without an encoder and
-    without a card raises instead of running on the CPU."""
+    time-based methods dispatch (the toy encoder, no models mounted) and
+    return a speaker_id column for every word; an unknown method raises
+    ValueError; word_nmesc without an encoder and without a card raises
+    instead of running on the CPU."""
     df = _segments_df(tmp_path)
     for method in ("skip", "by_wav_file_name"):
         got = tdiar.diarization_inference(
@@ -155,10 +156,11 @@ def test_dispatch_modes_match_jax(tmp_path):
             str(tmp_path), df, jcommon.DiarizationCfg(method=method), False)
         pd.testing.assert_frame_equal(got, want)
     for method in ("nmesc", "nmesc_msdd"):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            tdiar.diarization_inference(
-                str(tmp_path), df, tcommon.DiarizationCfg(method=method),
-                False)
+        out = tdiar.diarization_inference(
+            str(tmp_path), df, tcommon.DiarizationCfg(method=method), False,
+            encoder=SpectralToyEncoder(), device="cpu")
+        assert "speaker_id" in out.columns and len(out) > 0
+        assert out.speaker_id.str.startswith("spk").all()
     with pytest.raises(ValueError):
         tdiar.diarization_inference(
             str(tmp_path), df, tcommon.DiarizationCfg(method="bogus"), False)

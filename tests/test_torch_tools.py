@@ -360,6 +360,14 @@ def test_time_decode_step_raises_without_a_card(monkeypatch):
         time_decode_step.main(["--root", str(REPO)])
 
 
+def test_time_decode_step_loops_mode_raises_without_a_card(monkeypatch):
+    """--loops times a checkout's whole decode calls, on the card only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        time_decode_step.main(["--loops", "--root", str(REPO), "--dtype",
+                               "int8", "--calls", "1"])
+
+
 @pytest.mark.parametrize("kernels,share", [
     ([("a", 0.0, 10.0)], 1.0),
     ([("a", 0.0, 4.0), ("b", 6.0, 10.0)], 0.8),          # a gap of 2
