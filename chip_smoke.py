@@ -168,6 +168,25 @@ Phases (any failure raises and exits non-zero):
              every timed row be finite, and each kernel launch as many
              times as the tool's loops call it; the stream chain is
              logged against 32 x phase 2's xattn_stream time.
+10. train    the CSS training stack at the shipped recipe's full width
+             (configs/train_css/conformer_v1.0_mc.yaml: Conformer-large,
+             f32, mask/l1 loss, AdamW, clip 0.01): (a) one step on 2
+             seeded 3 s segments on the card against the CPU from the
+             same seeded weights, held by training/parity.py (scalars
+             1e-3 relative, arrays 0.1 of their scale, each update
+             element in Adam's box, the card's update AdamW's step from
+             its own moments), the one-gradient sign-flip mutant outside;
+             ReLU inputs of another sign on the card, and the CPU against
+             itself with the batch's rows swapped, logged; (b)
+             run_training_css for 8 iterations of 32 segments on a seeded
+             simulated partition in the reference byte format (eval and
+             checkpoint every 4): ms a step after a sync, segments a
+             second, the loader's wait, peak memory, every loss finite;
+             (c) the step-8 checkpoint restored into a fresh state bit for
+             bit with both step counters, then 2 more iterations with
+             resume=True; (d) save_css_model's params.msgpack read back by
+             load_css_model on the card, masks equal bit for bit to the
+             in-memory module's. No hand-written kernel may launch.
 
 Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 186 frames, 4 masks, 7 mics), and phase 3 a small MC Conformer CSS on the
@@ -175,8 +194,9 @@ card against the CPU (masks in f32 and bf16, one short engine pass with
 the kernel against the CPU's plain path).
 
 The line before the last is {"kernels": [...]}, all eleven kernels, with
-each kernel's launches summed over phases 4-9 and split by phase in
-"launches_by_path" (phase 6b as "diarization_time", phase 9 as "tools");
+each kernel's launches summed over phases 4-10 and split by phase in
+"launches_by_path" (phase 6b as "diarization_time", phase 9 as "tools",
+phase 10 as "train", where every count is 0);
 the last line is {"ok": true,
 "device": {...}}. The run writes under chiprun_out/: the kernels' ptxas
 report (kernel_build.log), its whole log (chip_smoke.log), the attn_step
@@ -186,6 +206,7 @@ runs, the sessions' wavs, ASR and diarization pickles and separated
 streams (deleted at the end).
 """
 import contextlib
+import gc
 import io
 import json
 import math
@@ -201,6 +222,8 @@ import torch
 from notsofar_tpu_torch.tools.common import bound_ms as card_bound_ms
 from notsofar_tpu_torch.tools.common import (card_line, time_cuda,
                                              time_cuda_graph)
+from notsofar_tpu_torch.tools.time_train_step import (recipe_config,
+                                                      write_train_data)
 from notsofar_tpu_torch.utils.flops import (H100_HBM_BYTES_PER_S,
                                             H100_PEAK_BF16, H100_PEAK_F32)
 
@@ -3425,6 +3448,273 @@ def run_tools(stream_ms: float) -> dict:
     return dict(K.LAUNCHES)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the CSS training stack at Conformer-large width
+# --------------------------------------------------------------------------
+
+TRAIN_MUTANT = "encoder.layer_0.ffn_in.w1.weight"
+TRAIN_BATCH = 32         # TrainCfg's default global batch, the debug recipe's
+
+
+def train_step_record(cfg, dev: str, rows=(0, 1), mutant: bool = False):
+    """One train step of `cfg` from seeded weights (seed 21) on `dev`, on
+    rows `rows` of 2 seeded 3 s segments with mic shifts 1 and 4 (dropout
+    0): its parity.step_record, its seconds, and the signs of every ReLU
+    input of the forward pass (each FFN's w1 output, each conv module's
+    batch-norm output) on the CPU. mutant: TRAIN_MUTANT's gradient negated
+    after the clip."""
+    from notsofar_tpu_torch.models.conformer import ConvModule, FeedForward
+    from notsofar_tpu_torch.training import parity
+    from notsofar_tpu_torch.training import train as T
+
+    rng = np.random.RandomState(30)
+    direct = (rng.randn(2, 48000, 7, 3) * 0.05).astype(np.float32)
+    noise = (rng.randn(2, 48000, 7) * 0.01).astype(np.float32)
+    rows = list(rows)
+    batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in
+             {"mixture": direct.sum(-1) + noise,
+              "gt_spk_direct_early_echoes": direct, "gt_noise": noise}.items()}
+    shifts = torch.tensor([1, 4], device=dev)[rows]
+    model = T.get_model(cfg, dev, seed=21)
+    state = T.init_state(model, cfg)
+    step, _ = T.make_train_step(model, cfg)
+    signs = []
+    for mod in model.module.modules():
+        pre = mod.w1 if isinstance(mod, FeedForward) else \
+            mod.bn if isinstance(mod, ConvModule) else None
+        if pre is not None:
+            pre.register_forward_hook(
+                lambda m, i, o: signs.append((o > 0).cpu()))
+    clip = T.clip_by_global_norm
+    if mutant:
+        p = model.module.get_parameter(TRAIN_MUTANT)
+
+        def clip_and_flip(params, max_norm):
+            norm = clip(params, max_norm)
+            p.grad.neg_()
+            return norm
+        T.clip_by_global_norm = clip_and_flip
+    before = {n: q.detach().clone()
+              for n, q in model.module.named_parameters()}
+    try:
+        t0 = time.perf_counter()
+        metrics = step(state, batch, cfg.learning_rate,
+                       torch.Generator(device=dev), shifts)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        T.clip_by_global_norm = clip
+    return parity.step_record(state, before, metrics), secs, signs
+
+
+def check_train_step():
+    """Phase 10a: one train step of the full-width recipe on 2 seeded 3 s
+    segments (dropout 0, mic shifts 1 and 4) on the card (TF32 off) and on
+    the CPU from the same seeded weights, held by training/parity.py: the
+    loss, side info and gradient norm within CARD_SCALAR_RTOL relative;
+    gradients, AdamW moments and running statistics within CARD_RTOL of
+    their scale; each update element within Adam's step over the moments'
+    box; and the card's update AdamW's step from the card's own moments
+    (parity.adam_mismatches). The card's step with one gradient's sign
+    flipped after the clip must fall outside. Logged beside it: the ReLU
+    inputs whose sign differs between the devices, and the same errors
+    between the CPU and the CPU with the batch's two rows swapped (the
+    same math, sums in another order)."""
+    from notsofar_tpu_torch.training import parity
+
+    cfg = recipe_config()
+    lr = cfg.learning_rate
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, t_card, s_card = train_step_record(cfg, "cuda")
+        ref, t_cpu, s_cpu = train_step_record(cfg, "cpu")
+        swap, _, _ = train_step_record(cfg, "cpu", rows=(1, 0))
+        bad, _, _ = train_step_record(cfg, "cuda", mutant=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    rtol, srtol = parity.CARD_RTOL, parity.CARD_SCALAR_RTOL
+    kw = dict(lr=lr, weight_decay=cfg.weight_decay, scalar_rtol=srtol)
+    mism = parity.step_mismatches(ref, got, rtol, **kw) + \
+        parity.adam_mismatches(got, lr, cfg.weight_decay)
+    mut = parity.step_mismatches(ref, bad, rtol, **kw)
+    ratios = parity.error_ratios(ref, got, rtol, lr, srtol)
+    noise = parity.error_ratios(ref, swap, rtol, lr, srtol)
+    flips = sum(int((a != b).sum()) for a, b in zip(s_card, s_cpu))
+    units = sum(a.numel() for a in s_cpu)
+    n_params = sum(a.size for a in ref["grad"].values())
+    log(f"train step, card against CPU (Conformer-large, {n_params} "
+        f"parameters, 2 x 3 s, f32, TF32 off; card {t_card:.2f} s, "
+        f"CPU {t_cpu:.2f} s): loss {got['scalars']['loss']!r} vs "
+        f"{ref['scalars']['loss']!r}, grad norm "
+        f"{got['scalars']['grad_norm']!r} vs {ref['scalars']['grad_norm']!r}")
+    log(f"train step errors over their tolerance (scalars rtol "
+        f"{srtol:g}, arrays {rtol:g} of their scale; <= 1 "
+        "holds): " + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()
+                               if k != "tight")
+        + f"; update elements bounded within 0.1 lr: "
+        f"{100 * ratios['tight']:.1f}%; ReLU inputs of another sign on the "
+        f"card: {flips} of {units}")
+    log("train step, the CPU with the batch's rows swapped against the CPU "
+        "(the same math, sums in another order): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in noise.items() if k != "tight"))
+    log(f"train step mutant ({TRAIN_MUTANT}'s gradient negated): "
+        f"{len(mut)} mismatches, e.g. {mut[:3]}")
+    if mism:
+        raise AssertionError(f"train step card vs CPU: {mism[:10]}")
+    if not any(m.startswith(f"update {TRAIN_MUTANT}") for m in mut):
+        raise AssertionError(f"the train-step mutant was not caught: {mut}")
+
+
+def run_training(work: Path) -> dict:
+    """Phase 10b-d on the card at the recipe's full width with batch
+    TRAIN_BATCH: run_training_css for 8 iterations (eval and save every
+    4) on a seeded simulated partition of 256 segments, each step timed
+    after a device sync; then the step-8 checkpoint restored into a fresh
+    state (bit for bit, with the step counters) and 2 more iterations
+    with resume=True; then the trained weights written by save_css_model
+    and read by load_css_model on the card: the masks of one batch equal
+    to the in-memory module's. Launch counts are reset before 10b and
+    read after 10d; no hand-written kernel may launch. Returns them."""
+    from notsofar_tpu_torch.css.inference import (load_css_model,
+                                                  save_css_model)
+    from notsofar_tpu_torch.ops import kernels
+    from notsofar_tpu_torch.training import train as T
+
+    t0 = time.perf_counter()
+    train_dir = write_train_data(work / "train", 64, seed=40)
+    val_dir = write_train_data(work / "val", 8, seed=41)
+    out_dir = work / "run"
+    cfg = recipe_config(global_batch_size=TRAIN_BATCH,
+                       eval_every=(4, "iterations"),
+                       save_every=(4, "iterations"),
+                       stop_after=(8, "iterations"))
+    log(f"train data: 64 + 8 utterances x 7.5 s x 7 mics written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    make_step = T.make_train_step
+    seen = {"state": None, "ms": [], "host_ms": [], "gaps": [], "losses": []}
+
+    def timed_make_train_step(model, cfg):
+        train_step, eval_step = make_step(model, cfg)
+        last = {"end": None}
+
+        def timed_step(state, *args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if last["end"] is not None:
+                seen["gaps"].append(start - last["end"])
+            metrics = train_step(state, *args, **kwargs)
+            seen["host_ms"].append(1e3 * (time.perf_counter() - start))
+            torch.cuda.synchronize()
+            last["end"] = time.perf_counter()
+            seen["ms"].append(1e3 * (last["end"] - start))
+            seen["losses"].append(metrics["loss"])
+            seen["state"] = state
+            return metrics
+        return timed_step, eval_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    T.make_train_step = timed_make_train_step
+    try:
+        t0 = time.perf_counter()
+        T.run_training_css(cfg, str(train_dir), str(val_dir), str(out_dir),
+                           device="cuda")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, gaps = list(seen["ms"]), list(seen["gaps"])
+        host = float(np.median(seen["host_ms"][2:8]))
+        losses = [float(v) for v in seen["losses"]]
+        trained = seen["state"]
+
+        # 10c: restore into a fresh state, bit for bit, then 2 more steps
+        fresh = T.init_state(T.get_model(cfg, "cuda", seed=99), cfg)
+        fresh, sched = T.restore_checkpoint(str(out_dir), fresh)
+        a = trained.model.module.state_dict()
+        b = fresh.model.module.state_dict()
+        same_model = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                                  for k in a)
+        oa, ob = trained.optimizer.state_dict(), fresh.optimizer.state_dict()
+        same_opt = oa["param_groups"] == ob["param_groups"] and all(
+            torch.equal(st[k], ob["state"][i][k])
+            for i, st in oa["state"].items() for k in st)
+        del fresh, a, b, oa, ob
+        seen.update(ms=[], gaps=[], losses=[])
+        T.run_training_css(recipe_config(
+            global_batch_size=TRAIN_BATCH, eval_every=(4, "iterations"),
+            save_every=(4, "iterations"), stop_after=(2, "iterations")),
+            str(train_dir), str(val_dir), str(out_dir), resume=True,
+            device="cuda")
+        resumed_losses = [float(v) for v in seen["losses"]]
+        resumed = seen["state"]
+    finally:
+        T.make_train_step = make_step
+    last = torch.load(max((out_dir / "checkpoints").glob("*.pt"),
+                          key=lambda p: int(p.stem)), weights_only=True)
+
+    # 10d: the native save, read back on the card
+    save_css_model(work / "native", resumed.model.module.state_dict(), cfg)
+    loaded, _ = load_css_model(work / "native", device="cuda")
+    seg = int(cfg.segment_len_secs * cfg.fs)
+    mix = torch.from_numpy(np.stack([
+        np.fromfile(f, np.int16).reshape(-1, 7)[:seg] / np.float32(30000.0)
+        for f in sorted(val_dir.glob("*.mixture"))[:4]]).astype(np.float32))
+    mix = mix.cuda()
+    resumed.model.train(False)
+    want = resumed.model.forward(mix)
+    got = loaded.forward(mix)
+    same_masks = all(torch.equal(want[k], got[k]) for k in want)
+    counts = dict(kernels.LAUNCHES)
+
+    steady = ms[2:8]
+    med = float(np.median(steady))
+    # the wait before each of steps 3-8, but step 5's follows an eval and
+    # a checkpoint
+    waits = [gaps[k - 2] for k in (3, 4, 6, 7, 8)]
+    steps = [ms[k - 1] / 1e3 for k in (3, 4, 6, 7, 8)]
+    wait_share = sum(waits) / (sum(waits) + sum(steps))
+    log(f"train (Conformer-large, f32, batch {TRAIN_BATCH} x 3 s, "
+        f"{len(ms)} steps, eval and save every 4): ms a step "
+        f"{[round(x, 2) for x in ms]}; median of steps 3-8 {med:.2f} ms "
+        f"= {TRAIN_BATCH * 1e3 / med:.1f} segments/s, of which the host "
+        f"enqueues for {host:.2f} ms; loader wait before "
+        f"steps 3, 4, 6-8 {[round(1e3 * w, 1) for w in waits]} ms, "
+        f"{100 * wait_share:.1f}% of their wall; 8 iterations in "
+        f"{wall:.1f} s wall with evals and checkpoints; "
+        f"max_memory_allocated {peak:.2f} GiB ({peak - base:.2f} GiB above "
+        f"the {base:.2f} GiB held before the run)")
+    log(f"train losses {losses}; resumed {resumed_losses}")
+    log(f"train resume: restored step {trained.step}, scheduler step "
+        f"{sched}, model equal {same_model}, optimizer equal {same_opt}; "
+        f"after 2 more steps checkpoint step {last['step']}, scheduler "
+        f"step {last['scheduler_step']}; native save -> load_css_model "
+        f"masks equal {same_masks}")
+    log(f"train: kernel launches {counts}")
+    if len(ms) != 8 or len(resumed_losses) != 2 or not all(
+            math.isfinite(x) for x in losses + resumed_losses):
+        raise AssertionError(f"train: steps or losses {losses} "
+                             f"{resumed_losses}")
+    if (trained.step, sched) != (8, 8) or not (same_model and same_opt):
+        raise AssertionError("train: the restored state differs")
+    if (last["step"], last["scheduler_step"]) != (10, 10):
+        raise AssertionError(f"train resume: counters {last['step']}, "
+                             f"{last['scheduler_step']}")
+    if not same_masks:
+        raise AssertionError("train: native save masks differ")
+    if any(counts.values()):
+        raise AssertionError(f"train: kernels launched {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3480,6 +3770,11 @@ def main() -> int:
     log("phase 9 tools, bench_xattn_variants and bisect_attn_split")
     by_path["tools"] = run_tools(
         next(r["ms"] for r in rows if r["name"] == "xattn_stream"))
+    log("phase 10 train, the CSS training stack at Conformer-large width")
+    check_train_step()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=OUT) as tmp:
+        by_path["train"] = run_training(Path(tmp))
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -6,9 +6,9 @@ Port of notsofar_tpu/css/inference.py with the same files on disk:
   input_mixture.wav;
 * `fetch_from_cache` returns existing sep*.wav;
 * `pass_through_ch0` bypasses CSS entirely;
-* a model directory holds a yaml config and either the JAX package's
-  native params.msgpack (written by its save_css_model) or a reference
-  *.pt torch checkpoint (converted on load).
+* a model directory holds a yaml config and either the native
+  params.msgpack (written by save_css_model, here or in the JAX package)
+  or a reference *.pt torch checkpoint (converted on load).
 
 The entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; ``cfg.use_pallas_scm`` sends MVDR's masked covariance
@@ -24,11 +24,14 @@ from notsofar_tpu_torch.css.engine import CssCfg, CssEngine
 from notsofar_tpu_torch.models.convert import (convert_css_state_dict,
                                                load_torch_checkpoint,
                                                read_flax_msgpack,
-                                               variables_from_jax)
+                                               variables_from_jax,
+                                               variables_to_jax,
+                                               write_flax_msgpack)
 from notsofar_tpu_torch.models.css_wrapper import CssModel
 from notsofar_tpu_torch.training.config import TrainCfg
 from notsofar_tpu_torch.utils.audio import load_session_audio, write_wav
-from notsofar_tpu_torch.utils.conf import load_yaml_to_dataclass
+from notsofar_tpu_torch.utils.conf import (dataclass_to_dict,
+                                           load_yaml_to_dataclass)
 from notsofar_tpu_torch.utils.device import resolve_device
 from notsofar_tpu_torch.utils.logging_def import get_logger
 from notsofar_tpu_torch.utils.profiling import StageTimer
@@ -38,6 +41,21 @@ _LOG = get_logger("css")
 _ENGINE_CACHE: Dict[str, CssEngine] = {}
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def save_css_model(model_dir, state_dict: Dict[str, torch.Tensor],
+                   train_cfg: TrainCfg):
+    """Write the native checkpoint format: config.yaml plus params.msgpack
+    holding the flax variables (params, batch_stats, constants) of a
+    ConformerCSS state dict, laid out as flax.serialization.to_bytes lays
+    them out, so the JAX package's load_css_model reads it too."""
+    import yaml
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.yaml").write_text(
+        yaml.safe_dump(dataclass_to_dict(train_cfg)))
+    (model_dir / "params.msgpack").write_bytes(
+        write_flax_msgpack(variables_to_jax(state_dict)))
 
 
 def load_css_model(model_dir, compute_dtype: str = "float32", device=None

@@ -1,4 +1,4 @@
-"""Conformer speech-separation network (eval mode) in torch.nn.
+"""Conformer speech-separation network in torch.nn.
 
 Port of notsofar_tpu/models/conformer.py (the reference Conformer CSS):
 
@@ -22,6 +22,14 @@ weights are cast to the value dtype before the f32 p.v product; the
 depthwise conv (33 taps, a flax nn.Conv in the JAX package) is
 F.conv1d(groups=D) in the module dtype plus its bias in that dtype; the
 mask sigmoid runs on f32.
+
+`module.eval()` is flax's deterministic=True, use_running_average=True;
+`module.train()` is deterministic=False, use_running_average=False:
+dropout at flax's six sites (FFN after the ReLU and after w2, the
+attention probabilities and output, the conv module's output, the encoder
+after embed_ln) with masks drawn from the `generator` passed to forward,
+and the conv module's batch norm on batch statistics (models/titanet.py
+BatchNorm, momentum 0.9).
 """
 import math
 from dataclasses import dataclass
@@ -67,20 +75,41 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
+def dropout(mod: nn.Module, x: torch.Tensor, p: float, generator
+            ) -> torch.Tensor:
+    """flax nn.Dropout(p): the identity in eval mode or at p 0; in train
+    mode each element is kept with probability 1 - p (a Bernoulli draw from
+    `generator`, a torch.Generator on x's device) and scaled by
+    1 / (1 - p)."""
+    if not mod.training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws its masks from an "
+                         "explicit torch.Generator; pass generator=")
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - p, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_inner: int, dtype):
+    def __init__(self, d_model: int, d_inner: int, dtype,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.p = dropout_rate
         self.ln = LayerNorm(d_model)
         self.w1 = Dense(d_model, d_inner, True, dtype)
         self.w2 = Dense(d_inner, d_model, True, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(torch.relu(self.w1(self.ln(x))))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        x = dropout(self, torch.relu(self.w1(self.ln(x))), self.p, generator)
+        return dropout(self, self.w2(x), self.p, generator)
 
 
 class MultiHeadedAttention(nn.Module):
-    def __init__(self, n_head: int, n_feat: int, dtype):
+    def __init__(self, n_head: int, n_feat: int, dtype,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.p = dropout_rate
         self.h = n_head
         self.d_k = n_feat // n_head
         self.ln = LayerNorm(n_feat)
@@ -89,7 +118,8 @@ class MultiHeadedAttention(nn.Module):
         self.v = Dense(n_feat, n_feat, True, dtype)
         self.out = Dense(n_feat, n_feat, True, dtype)
 
-    def forward(self, x: torch.Tensor, pos_k) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_k, generator=None
+                ) -> torch.Tensor:
         """x: [B, T, D]; pos_k: [T, T, d_k] f32 or None."""
         B, T, D = x.shape
         h, d_k = self.h, self.d_k
@@ -106,15 +136,17 @@ class MultiHeadedAttention(nn.Module):
                                pk.transpose(1, 2))          # [T, B*h, T]
             scores = scores + rel.reshape(T, B, h, T).permute(1, 2, 0, 3)
         scores = scores / math.sqrt(d_k)
-        attn = torch.softmax(scores, dim=-1)
+        attn = dropout(self, torch.softmax(scores, dim=-1), self.p, generator)
         out = torch.matmul(attn.to(v.dtype).float(), v.float())
         out = out.transpose(1, 2).reshape(B, T, D)
-        return self.out(out)
+        return dropout(self, self.out(out), self.p, generator)
 
 
 class ConvModule(nn.Module):
-    def __init__(self, input_dim: int, kernel_size: int, dtype):
+    def __init__(self, input_dim: int, kernel_size: int, dtype,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.p = dropout_rate
         self.dtype = dtype
         self.kernel_size = kernel_size
         self.ln = LayerNorm(input_dim)
@@ -123,11 +155,11 @@ class ConvModule(nn.Module):
         self.pw1_b = nn.Parameter(torch.zeros(2))
         self.dw = nn.Conv1d(input_dim, input_dim, kernel_size,
                             groups=input_dim)
-        self.bn = BatchNorm(input_dim, 1e-5)
+        self.bn = BatchNorm(input_dim, 1e-5, momentum=0.9)
         self.pw2_w = nn.Parameter(torch.ones(1))
         self.pw2_b = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """x: [B, T, D] -> [B, T, D] f32."""
         x = self.ln(x)
         a = x * self.pw1_w[0] + self.pw1_b[0]
@@ -139,25 +171,27 @@ class ConvModule(nn.Module):
                      groups=x.shape[-1])
         x = y.transpose(1, 2) + self.dw.bias.to(self.dtype)
         x = torch.relu(self.bn(x))
-        return x * self.pw2_w[0] + self.pw2_b[0]
+        return dropout(self, x * self.pw2_w[0] + self.pw2_b[0], self.p,
+                       generator)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: ConformerConfig, dtype):
         super().__init__()
-        c = cfg
-        self.ffn_in = FeedForward(c.attention_dim, c.linear_units, dtype)
+        c, p = cfg, cfg.dropout_rate
+        self.ffn_in = FeedForward(c.attention_dim, c.linear_units, dtype, p)
         self.attn = MultiHeadedAttention(c.attention_heads, c.attention_dim,
-                                         dtype)
-        self.conv = ConvModule(c.attention_dim, c.kernel_size, dtype)
-        self.ffn_out = FeedForward(c.attention_dim, c.linear_units, dtype)
+                                         dtype, p)
+        self.conv = ConvModule(c.attention_dim, c.kernel_size, dtype, p)
+        self.ffn_out = FeedForward(c.attention_dim, c.linear_units, dtype, p)
         self.ln_out = LayerNorm(c.attention_dim)
 
-    def forward(self, x: torch.Tensor, pos_k) -> torch.Tensor:
-        x = x + 0.5 * self.ffn_in(x)
-        x = x + self.attn(x, pos_k)
-        x = x + self.conv(x)
-        x = x + 0.5 * self.ffn_out(x)
+    def forward(self, x: torch.Tensor, pos_k, generator=None
+                ) -> torch.Tensor:
+        x = x + 0.5 * self.ffn_in(x, generator)
+        x = x + self.attn(x, pos_k, generator)
+        x = x + self.conv(x, generator)
+        x = x + 0.5 * self.ffn_out(x, generator)
         return self.ln_out(x)
 
 
@@ -174,19 +208,22 @@ class ConformerEncoder(nn.Module):
         for i in range(c.num_blocks):
             self.add_module(f"layer_{i}", EncoderLayer(c, dtype))
 
-    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: torch.Tensor, generator=None) -> torch.Tensor:
         """xs: [B, T, idim] -> [B, T, attention_dim] f32."""
         c = self.cfg
-        x = torch.relu(self.embed_ln(self.embed(xs)))
+        x = dropout(self, self.embed_ln(self.embed(xs)), c.dropout_rate,
+                    generator)
+        x = torch.relu(x)
         pos_k = None
         if c.relative_pos_emb:
             T = x.shape[1]
             ar = torch.arange(T, device=x.device)
             pos_seq = torch.clamp(ar[:, None] - ar[None, :], -c.pos_maxlen,
                                   c.pos_maxlen - 1) + c.pos_maxlen
+            # a gather, whose gradient is a scatter-add into the table
             pos_k = self.pos_emb[pos_seq]                   # [T, T, d_k]
         for i in range(c.num_blocks):
-            x = getattr(self, f"layer_{i}")(x, pos_k)
+            x = getattr(self, f"layer_{i}")(x, pos_k, generator)
         return x
 
 
@@ -240,10 +277,11 @@ class ConformerCSS(nn.Module):
         self.input_scale.fill_(1.0)
         return self
 
-    def forward(self, f: torch.Tensor) -> torch.Tensor:
-        """f: [B, D, T] feature -> masks [B, F, T, S+N] f32."""
+    def forward(self, f: torch.Tensor, generator=None) -> torch.Tensor:
+        """f: [B, D, T] feature -> masks [B, F, T, S+N] f32. generator:
+        the dropout masks' torch.Generator in train mode."""
         x = (f.transpose(1, 2) + self.input_bias) * self.input_scale
-        x = self.encoder(x)
+        x = self.encoder(x, generator)
         m = torch.sigmoid(self.mask_head(x).float())        # [B, T, F*(S+N)]
         B, T, _ = m.shape
         # torch.chunk along the feature axis: source s is columns

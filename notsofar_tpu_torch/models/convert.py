@@ -9,10 +9,12 @@ package's formats:
   builds, which ``variables_from_jax`` then maps by name.
 * ``variables_from_jax``: flax variables {'params', 'batch_stats',
   'constants'} with numpy (or array-like) leaves -> state dict.
-* ``read_flax_msgpack``: the native ``params.msgpack`` that the JAX
-  package's ``save_css_model`` writes (flax's msgpack layout: nested maps,
-  each ndarray an ext record 1 holding msgpack (shape, dtype name,
-  bytes)), decoded here without msgpack or flax.
+* ``variables_to_jax``: the inverse, a state dict -> flax variables.
+* ``read_flax_msgpack`` / ``write_flax_msgpack``: the native
+  ``params.msgpack`` that ``save_css_model`` writes, here and in the JAX
+  package (flax's msgpack layout: nested maps, each ndarray an ext record
+  1 holding msgpack (shape, dtype name, bytes)), decoded and encoded here
+  without msgpack or flax.
 
 The STFT kernels in the reference checkpoint (executor.extractor.*.K) are
 ignored: they are deterministic and recomputed.
@@ -142,6 +144,47 @@ def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def variables_to_jax(sd: Dict[str, torch.Tensor]) -> Dict:
+    """ConformerCSS state dict -> flax variables {'params', 'batch_stats',
+    'constants'} of f32 numpy arrays, the inverse of variables_from_jax:
+    a 1-d weight (LayerNorm, BatchNorm) -> scale, a 2-d one (Dense) ->
+    kernel (in, out), the 3-d depthwise conv weight [D, 1, k] -> kernel
+    (k, 1, D); running_mean/running_var -> batch_stats mean/var;
+    input_bias/input_scale -> constants. Keys are sorted at every level,
+    as jax.device_get leaves a flax tree."""
+    tree: Dict = {"batch_stats": {}, "constants": {}, "params": {}}
+
+    def put(col, path, value):
+        node = tree[col]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+
+    for key, v in sd.items():
+        a = v.detach().to("cpu", torch.float32).numpy()
+        path = key.split(".")
+        name = path[-1]
+        if name in ("running_mean", "running_var"):
+            put("batch_stats", path[:-1] + [name[len("running_"):]], a)
+        elif key in ("input_bias", "input_scale"):
+            put("constants", path, a)
+        elif name == "weight":
+            if a.ndim == 1:
+                put("params", path[:-1] + ["scale"], a)
+            else:
+                put("params", path[:-1] + ["kernel"],
+                    a.T if a.ndim == 2 else a.transpose(2, 1, 0))
+        else:
+            put("params", path, a)
+
+    def ordered(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: ordered(node[k]) for k in sorted(node)}
+
+    return ordered(tree)
+
+
 def convert_css_state_dict(sd: Dict[str, np.ndarray], num_blocks: int
                            ) -> Dict[str, torch.Tensor]:
     """Reference ConformerCssWrapper state dict (numpy-valued, 'module.'
@@ -259,6 +302,85 @@ def _unchunk(tree):
         chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
         return np.concatenate(chunks).reshape(shape)
     return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int,
+              codes: tuple) -> None:
+    """A msgpack length header: `fix | n` up to fix_max, else the first
+    code of (8-bit, 16-bit, 32-bit) that holds n, then n big-endian."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                (0xff, 0xffff, 0xffffffff)):
+        if code is not None and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(out: bytearray, v) -> None:
+    """msgpack as msgpack.packb(use_bin_type=True) writes the types that a
+    flax tree of arrays holds: maps, str, bytes, non-negative ints,
+    tuples (arrays) and f32/f64/int ndarrays (ext record 1)."""
+    if isinstance(v, dict):
+        _pack_len(out, len(v), 0x80, 15, (None, 0xde, 0xdf))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, str):
+        b = v.encode()
+        _pack_len(out, len(b), 0xa0, 31, (0xd9, 0xda, 0xdb))
+        out += b
+    elif isinstance(v, bytes):
+        _pack_len(out, len(v), None, 0, (0xc4, 0xc5, 0xc6))
+        out += v
+    elif isinstance(v, int) and v >= 0:
+        if v <= 0x7f:
+            out.append(v)
+        else:
+            for code, fmt, limit in ((0xcc, ">B", 0xff), (0xcd, ">H", 0xffff),
+                                     (0xce, ">I", 0xffffffff),
+                                     (0xcf, ">Q", 2 ** 64 - 1)):
+                if v <= limit:
+                    out.append(code)
+                    out += struct.pack(fmt, v)
+                    break
+    elif isinstance(v, tuple):
+        _pack_len(out, len(v), 0x90, 15, (None, 0xdc, 0xdd))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, np.ndarray):
+        if v.nbytes > _MAX_CHUNK_BYTES:
+            raise ValueError("arrays over 1 GiB are chunked by flax; not "
+                             "written here")
+        inner = bytearray()
+        _pack(inner, (tuple(int(d) for d in v.shape), v.dtype.name,
+                      np.ascontiguousarray(v).tobytes()))
+        n = len(inner)
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _pack_len(out, n, None, 0, (0xc7, 0xc8, 0xc9))
+        out.append(1)                                    # ext type: ndarray
+        out += inner
+    else:
+        raise TypeError(f"cannot write {type(v).__name__} as flax msgpack")
+
+
+_MAX_CHUNK_BYTES = 2 ** 30   # flax's MAX_CHUNK_SIZE
+
+
+def write_flax_msgpack(tree: Dict) -> bytes:
+    """Encode nested dicts of numpy arrays as flax.serialization.to_bytes
+    does (the inverse of read_flax_msgpack). Keys are written in the
+    dicts' order: variables_to_jax sorts them, as flax's own tree map
+    does."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
 
 
 def read_flax_msgpack(data: bytes) -> Dict:

@@ -9,8 +9,12 @@ ConformerCssWrapper) with the same tensor contracts:
     istft(stft complex [B,F,T]) -> [B, NSamples]
 
 `CssModel` holds the ConformerCSS module with its weights on one device
-(the JAX package passes `variables` to every call instead).
+(the JAX package passes `variables` to every call instead). It starts in
+eval mode without gradients; `train()` turns on dropout, batch statistics
+and gradients (the JAX package's deterministic=False,
+use_running_average=False), and the forward pass then keeps its graph.
 """
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -65,6 +69,14 @@ class CssModel:
         self.num_spks = n.num_spks
         self.num_nois = n.num_nois
 
+    def train(self, mode: bool = True) -> "CssModel":
+        """Train mode (dropout, batch statistics, gradients on) or, with
+        mode False, the constructor's eval mode without gradients (the
+        weights' requires_grad flag steers how torch.matmul folds a batch,
+        so eval masks equal an inference model's bit for bit only so)."""
+        self.module.train(mode).requires_grad_(mode)
+        return self
+
     def stft(self, s: torch.Tensor) -> torch.Tensor:
         """s: [B, T, Mics] or [B, T] -> complex [B, F, T, Mics] or
         [B, F, T] (channels last)."""
@@ -85,19 +97,25 @@ class CssModel:
         _, _, feat = self.extractor(cm.abs(), cm.angle())
         return feat
 
-    @torch.no_grad()
-    def masks_from_feature(self, feat: torch.Tensor
+    def masks_from_feature(self, feat: torch.Tensor, generator=None
                            ) -> Dict[str, torch.Tensor]:
-        all_masks = self.module(feat)                       # [B, F, T, S+N]
+        """Masks of the features; under no_grad in eval mode. generator:
+        the dropout masks' torch.Generator in train mode."""
+        grad = contextlib.nullcontext() if self.module.training \
+            else torch.no_grad()
+        with grad:
+            all_masks = self.module(feat, generator)        # [B, F, T, S+N]
         return {"spk_masks": all_masks[..., :self.num_spks],
                 "noise_masks": all_masks[..., self.num_spks:]}
 
-    def separate(self, stft_c: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def separate(self, stft_c: torch.Tensor, generator=None
+                 ) -> Dict[str, torch.Tensor]:
         """stft_c: complex [B,F,T,Mics] (MC) or [B,F,T] (SC) -> mask
         dict."""
-        return self.masks_from_feature(self.features(stft_c))
+        return self.masks_from_feature(self.features(stft_c), generator)
 
-    def forward(self, mix: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, mix: torch.Tensor, generator=None
+                ) -> Dict[str, torch.Tensor]:
         """mix: [B, T, Mics] time domain -> mask dict (the mic axis is
         squeezed for SC)."""
         is_sc = mix.shape[2] == 1
@@ -105,7 +123,16 @@ class CssModel:
             "IPD extractor is expected iff the number of microphones is "
             "greater than 1 — model misconfiguration?")
         s = mix[:, :, 0] if is_sc else mix
-        return self.separate(self.stft(s))
+        return self.separate(self.stft(s), generator)
+
+
+def make_css_model(cfg: Optional[ConformerCssConfig] = None,
+                   dtype=torch.float32, device=None, seed: int = 0
+                   ) -> CssModel:
+    """A CssModel with seeded random weights (default config: the
+    Conformer of ConformerConfig() and the MC extractor)."""
+    return CssModel(cfg or ConformerCssConfig(), dtype=dtype, device=device,
+                    seed=seed)
 
 
 def sc_extractor_config() -> ExtractorConfig:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from notsofar_tpu_torch.asr.mel import mel_filterbank
 from notsofar_tpu_torch.ops.kernels import depthwise_conv1d
+from notsofar_tpu_torch.parallel.mesh import all_reduce_sum
 from notsofar_tpu_torch.utils.device import resolve_device
 
 HOP = 160
@@ -143,20 +144,50 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis with flax's arithmetic:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias, promoted to f32."""
+    """Batch norm over the last axis with flax's arithmetic:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, promoted to f32.
 
-    def __init__(self, channels: int, eps: float):
+    mean and var are the running statistics, except in train mode with a
+    `momentum` (the Conformer's flax nn.BatchNorm(momentum=0.9) with
+    use_running_average=False): there they are the batch's, in f32 over
+    every axis but the last, mean = E[x] and the biased fast variance
+    var = max(0, E[x^2] - E[x]^2), summed over the global batch when a
+    process group is initialized (parallel.mesh.all_reduce_sum, which the
+    backward pass reduces too); the running statistics then move to
+    momentum * running + (1 - momentum) * batch. Without a momentum
+    (TitaNet, MarbleNet: inference only) both modes read the running
+    statistics."""
+
+    def __init__(self, channels: int, eps: float,
+                 momentum: Optional[float] = None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        x = x.float()
+        if self.training and self.momentum is not None:
+            flat = x.reshape(-1, x.shape[-1])
+            count = torch.full((1,), flat.shape[0], dtype=torch.float32,
+                               device=x.device)
+            stats = all_reduce_sum(torch.cat(
+                [flat.sum(0), (flat * flat).sum(0), count]))
+            C, n = x.shape[-1], stats[-1]
+            mean, mean2 = stats[:C] / n, stats[C:2 * C] / n
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class DepthwiseConv(nn.Module):

@@ -8,6 +8,7 @@ host Hungarian solver: with 3 sources there are 6 permutations).
     optimally assigned pairwise losses; targets[..., perm[b]] aligns with
     preds[b]. Ties go to the first permutation in itertools order.
 """
+import functools
 import itertools
 from typing import Callable, Tuple
 
@@ -32,6 +33,14 @@ def _permutations(n: int) -> np.ndarray:
     return np.array(list(itertools.permutations(range(n))), dtype=np.int64)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_permutations(n: int, device: torch.device) -> torch.Tensor:
+    """The [n!, n] permutation table on `device`, copied there once: a copy
+    from pageable host memory in every call would make the host wait for
+    the card's queued work (a train step's forward pass)."""
+    return torch.from_numpy(_permutations(n)).to(device)
+
+
 def pairwise_loss_matrix(preds: torch.Tensor, targets: torch.Tensor,
                          base_loss: Callable) -> torch.Tensor:
     """[B, ..., S] x [B, ..., S] -> [B, S, S]: loss_mat[b, i, j] = mean
@@ -48,7 +57,7 @@ def pit_loss(preds: torch.Tensor, targets: torch.Tensor, base: str = "mse"
     targets."""
     lm = pairwise_loss_matrix(preds, targets, BASE_LOSSES[base])  # [B,S,S]
     S = lm.shape[-1]
-    perms = torch.from_numpy(_permutations(S)).to(lm.device)     # [P, S]
+    perms = _device_permutations(S, lm.device)                   # [P, S]
     # totals[b, p] = mean_s lm[b, s, perms[p, s]]
     gathered = lm[:, torch.arange(S, device=lm.device)[None, :], perms]
     totals = gathered.mean(dim=-1)                                # [B, P]

@@ -1,1 +1,1 @@
-"""Session sharding across torch.distributed processes."""
+"""Processes, collectives and data parallelism over torch.distributed."""
