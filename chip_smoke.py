@@ -187,6 +187,27 @@ Phases (any failure raises and exits non-zero):
              resume=True; (d) save_css_model's params.msgpack read back by
              load_css_model on the card, masks equal bit for bit to the
              in-memory module's. No hand-written kernel may launch.
+11. validate python -m notsofar_tpu_torch.tools.validate_real_weights,
+             run in process inside phase 8's directory (its MC reference
+             .pt, Whisper large-v3 .pt and 7-channel 40 s meeting) with
+             seeded checkpoints of every other format written beside
+             them at published widths: the SC Conformer-large as
+             params.msgpack, titanet_large.nemo, the MarbleNet
+             (DEFAULT_BLOCKS, classifier bias 0) and the telephonic MSDD
+             .nemo. All eight components must PASS with rc 0 (css-mc,
+             css-sc, whisper, titanet, marblenet within rel 1e-3 of the
+             independent NeMo-semantics oracle, msdd, e2e-wer with the
+             shipped inference_v1.yaml, int8-wer-delta: the pipeline in
+             bf16 and int8); each component timed, its launches counted;
+             the whisper component under utils.profiling.trace into
+             chiprun_out/validate_trace/ (gzipped), whose kernel events
+             must name encoder_mha, attn_step, xattn_step and
+             decode_gemv. separate_uploaded_lazy must leave the streams
+             on the card until first read. cuDNN's default TF32 against
+             the full-f32 MarbleNet and MSDD is logged. Mutants: a sign
+             flip in the MarbleNet conversion FAILs marblenet on the
+             oracle bound; the MC .pt overwritten with garbage FAILs
+             css-mc with rc 1, every other model component unchanged.
 
 Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 186 frames, 4 masks, 7 mics), and phase 3 a small MC Conformer CSS on the
@@ -194,14 +215,15 @@ card against the CPU (masks in f32 and bf16, one short engine pass with
 the kernel against the CPU's plain path).
 
 The line before the last is {"kernels": [...]}, all eleven kernels, with
-each kernel's launches summed over phases 4-10 and split by phase in
+each kernel's launches summed over phases 4-11 and split by phase in
 "launches_by_path" (phase 6b as "diarization_time", phase 9 as "tools",
-phase 10 as "train", where every count is 0);
+phase 10 as "train", where every count is 0, phase 11 as "validate");
 the last line is {"ok": true,
 "device": {...}}. The run writes under chiprun_out/: the kernels' ptxas
 report (kernel_build.log), its whole log (chip_smoke.log), the attn_step
 traffic of phases 4, 5 and 8 (attn_step_traffic.json, which
-notsofar_tpu_torch/tools/time_attn_step.py times) and, while it
+notsofar_tpu_torch/tools/time_attn_step.py times), phase 11's Whisper
+trace (validate_trace/*.json.gz) and, while it
 runs, the sessions' wavs, ASR and diarization pickles and separated
 streams (deleted at the end).
 """
@@ -2614,13 +2636,13 @@ def check_attributed(df, label: str, seconds: float) -> None:
 SPEECH_BIAS = 12.0   # the seeded MarbleNet's classifier bias for speech
 
 
-def nemo_marblenet_state(cfg, seed: int) -> dict:
+def nemo_marblenet_state(cfg, seed: int, bias: float = SPEECH_BIAS) -> dict:
     """A seeded NeMo EncDecClassificationModel state dict for a MarbleNet
     topology (conv weights at 1/sqrt(fan_in), batch norms away from
-    identity), its classifier bias set to (-SPEECH_BIAS, +SPEECH_BIAS) so
-    that the speech class wins every frame: a random-weight VAD would find
-    no speech, and with the bias every window of the session is embedded,
-    the heaviest traffic."""
+    identity), its classifier bias set to (-bias, +bias). The default,
+    SPEECH_BIAS, makes the speech class win every frame: a random-weight
+    VAD would find no speech, and with the bias every window of the
+    session is embedded, the heaviest traffic."""
     rng = np.random.RandomState(seed)
 
     def r(*shape, fan_in):
@@ -2654,9 +2676,19 @@ def nemo_marblenet_state(cfg, seed: int) -> dict:
         c_in = b.filters
     sd["decoder.decoder_layers.0.weight"] = r(cfg.num_classes, c_in,
                                               fan_in=c_in)
-    sd["decoder.decoder_layers.0.bias"] = np.asarray([-SPEECH_BIAS,
-                                                      SPEECH_BIAS])
+    sd["decoder.decoder_layers.0.bias"] = np.asarray([-bias, bias])
     return sd
+
+
+def write_marblenet_nemo(path: Path, cfg, sd: dict) -> None:
+    """A MarbleNet .nemo archive whose yaml gives the topology as NeMo's
+    jasper encoder config (FrameVAD.from_checkpoint reads it)."""
+    write_nemo(path, sd, dict(
+        preprocessor=dict(features=cfg.n_mels),
+        encoder=dict(jasper=[dict(
+            filters=b.filters, repeat=b.repeat, kernel=[b.kernel],
+            dilation=[b.dilation], residual=b.residual,
+            separable=b.separable) for b in cfg.blocks])))
 
 
 def nemo_msdd_state(cfg, seed: int) -> dict:
@@ -2791,13 +2823,8 @@ def run_time_based(work: Path, asr_df, seconds: float = 40.0):
     check_time_based_models()
     models = work / "diar_models"
     mcfg, dcfg = MarbleNetConfig(), DiarizationCfg()
-    write_nemo(models / f"{dcfg.vad_model_name}.nemo",
-               nemo_marblenet_state(mcfg, 21), dict(
-                   preprocessor=dict(features=mcfg.n_mels),
-                   encoder=dict(jasper=[dict(
-                       filters=b.filters, repeat=b.repeat, kernel=[b.kernel],
-                       dilation=[b.dilation], residual=b.residual,
-                       separable=b.separable) for b in mcfg.blocks])))
+    write_marblenet_nemo(models / f"{dcfg.vad_model_name}.nemo", mcfg,
+                         nemo_marblenet_state(mcfg, 21))
     write_nemo(models / f"{dcfg.msdd_model_name}.nemo",
                nemo_msdd_state(MSDDConfig(), 22), dict(name="msdd"))
     log(f"time-based checkpoints written under {models.name}/: MarbleNet "
@@ -3715,6 +3742,350 @@ def run_training(work: Path) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the real-weight validator on seeded checkpoints of every format
+# --------------------------------------------------------------------------
+
+VALIDATE_CHECKS = (("css-mc", "check_css_mc"), ("css-sc", "check_css_sc"),
+                   ("whisper", "check_whisper"), ("titanet", "check_titanet"),
+                   ("marblenet", "check_marblenet"), ("msdd", "check_msdd"),
+                   ("e2e-wer", "check_e2e"),
+                   ("int8-wer-delta", "check_int8_wer_delta"))
+# the kernels the validator's Whisper round trip (greedy, word timestamps)
+# launches; a profiler trace names each as <name>_kernel (or
+# <name>_f32_kernel)
+WHISPER_KERNELS = ("encoder_mha", "attn_step", "xattn_step", "decode_gemv")
+TRACE_DIR = OUT / "validate_trace"
+TRACE_MAX_BYTES = 24 << 20   # what a chip call may bring back is limited
+
+
+def nemo_titanet_state(cfg, seed: int, n_classes: int = 10) -> dict:
+    """A seeded NeMo EncDecSpeakerLabelModel state dict of a TitaNet shape
+    (the layout of titanet_large.nemo: per JasperBlock repeat five mconv
+    slots, dw conv, pw conv, batch norm, with squeeze-excite appended at
+    5 * (repeat - 1) + 3; the residual as res.0.0 + res.0.1; the attentive
+    pooling's TDNN, tanh and conv; emb_layers.0 with an affine-free batch
+    norm; the bias-free head). Weights at 1/sqrt(fan_in), batch norms away
+    from identity."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def r(*shape):
+        return rng.randn(*shape) / math.sqrt(np.prod(shape[1:]))
+
+    def bn(p, c, affine=True):
+        if affine:
+            sd[f"{p}.weight"] = 1.0 + 0.1 * rng.randn(c)
+            sd[f"{p}.bias"] = 0.1 * rng.randn(c)
+        sd[f"{p}.running_mean"] = 0.1 * rng.randn(c)
+        sd[f"{p}.running_var"] = 0.5 + rng.rand(c)
+
+    def block(idx, c_in, c_out, kernel, repeat, residual, se):
+        p, ci = f"encoder.encoder.{idx}", c_in
+        for rep in range(repeat):
+            sd[f"{p}.mconv.{5 * rep}.conv.weight"] = r(ci, 1, kernel)
+            sd[f"{p}.mconv.{5 * rep + 1}.conv.weight"] = r(c_out, ci, 1)
+            bn(f"{p}.mconv.{5 * rep + 2}", c_out)
+            ci = c_out
+        if se:
+            si = 5 * (repeat - 1) + 3
+            sd[f"{p}.mconv.{si}.fc.0.weight"] = r(c_out // cfg.se_reduction,
+                                                   c_out)
+            sd[f"{p}.mconv.{si}.fc.2.weight"] = r(c_out,
+                                                   c_out // cfg.se_reduction)
+        if residual:
+            sd[f"{p}.res.0.0.conv.weight"] = r(c_out, c_in, 1)
+            bn(f"{p}.res.0.1", c_out)
+
+    block(0, cfg.n_mels, cfg.filters, cfg.prologue_kernel, 1, False,
+          cfg.prologue_se)
+    for bi, k in enumerate(cfg.block_kernels):
+        block(1 + bi, cfg.filters, cfg.filters, k, cfg.block_repeat, True,
+              True)
+    block(1 + len(cfg.block_kernels), cfg.filters, cfg.epilogue_filters, 1,
+          1, False, cfg.epilogue_se)
+    C, A, E = cfg.epilogue_filters, cfg.attention_dim, cfg.emb_dim
+    pool = "decoder._pooling.attention_layer"
+    sd[f"{pool}.0.conv_layer.weight"] = r(A, 3 * C, 1)
+    sd[f"{pool}.0.conv_layer.bias"] = 0.1 * rng.randn(A)
+    bn(f"{pool}.0.bn", A)
+    sd[f"{pool}.2.weight"] = r(C, A, 1)
+    sd[f"{pool}.2.bias"] = 0.1 * rng.randn(C)
+    sd["decoder.emb_layers.0.0.weight"] = r(E, 2 * C)
+    sd["decoder.emb_layers.0.0.bias"] = 0.1 * rng.randn(E)
+    bn("decoder.emb_layers.0.1", E, affine=False)
+    sd["decoder.final.weight"] = r(n_classes, E)
+    return sd
+
+
+def write_validate_checkpoints(models: Path) -> None:
+    """Beside phase 8's MC reference .pt and Whisper .pt: the SC
+    Conformer-large in the native format (save_css_model:
+    params.msgpack), and titanet_large.nemo (TitaNetConfig()),
+    vad_multilingual_marblenet.nemo (DEFAULT_BLOCKS, classifier bias 0,
+    so that the oracle's bound reads the network and not a constant) and
+    diar_msdd_telephonic.nemo (MSDDConfig()), all seeded."""
+    from notsofar_tpu_torch.css.inference import save_css_model
+    from notsofar_tpu_torch.models.css_wrapper import CssModel
+    from notsofar_tpu_torch.models.marblenet import MarbleNetConfig
+    from notsofar_tpu_torch.models.msdd import MSDDConfig
+    from notsofar_tpu_torch.models.titanet import TitaNetConfig
+    from notsofar_tpu_torch.training.config import (ConformerCfgM,
+                                                    ConformerCssCfgM,
+                                                    ExtractorCfgM, NnetCfgM,
+                                                    TrainCfg)
+    t0 = time.perf_counter()
+    sc_cfg = TrainCfg(conformer_css_cfg=ConformerCssCfgM(
+        extractor_conf=ExtractorCfgM(ipd_index=""),
+        nnet_conf=NnetCfgM(in_features=257, conformer_conf=ConformerCfgM(
+            attention_dim=512, attention_heads=8, num_blocks=18,
+            dropout_rate=0.0))))
+    sc = CssModel(sc_cfg.conformer_css_cfg.freeze(), device="cuda", seed=13)
+    save_css_model(models / "notsofar" / "conformer1.0" / "sc",
+                   sc.module.state_dict(), sc_cfg)
+    del sc
+    write_nemo(models / "titanet_large.nemo",
+               nemo_titanet_state(TitaNetConfig(), 23), {})
+    mcfg = MarbleNetConfig()
+    write_marblenet_nemo(models / "vad_multilingual_marblenet.nemo", mcfg,
+                         nemo_marblenet_state(mcfg, 24, bias=0.0))
+    write_nemo(models / "diar_msdd_telephonic.nemo",
+               nemo_msdd_state(MSDDConfig(), 25), dict(name="msdd"))
+    log(f"validate: checkpoints written in {time.perf_counter() - t0:.1f} "
+        "s: css sc params.msgpack (Conformer-large), titanet_large.nemo, "
+        "vad_multilingual_marblenet.nemo, diar_msdd_telephonic.nemo; "
+        "phase 8's css mc model.pt and whisper/large-v3.pt")
+
+
+def trace_kernels(trace_dir: Path) -> dict:
+    """The profiler trace's device kernel events, counted per
+    WHISPER_KERNELS entry, then the trace gzipped in place (Perfetto
+    reads it so; dropped above TRACE_MAX_BYTES)."""
+    import gzip
+    files = sorted(trace_dir.glob("*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"validate: {len(files)} trace files")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if str(e.get("cat", "")).lower() == "kernel"]
+    found = {k: sum(1 for n in names
+                    if re.search(rf"\b{k}(_f32)?_kernel\b", n))
+             for k in WHISPER_KERNELS}
+    found["all kernels"] = len(names)
+    gz = Path(str(files[0]) + ".gz")
+    with gzip.open(gz, "wb") as f:
+        f.write(files[0].read_bytes())
+    files[0].unlink()
+    size = gz.stat().st_size
+    if size > TRACE_MAX_BYTES:
+        gz.unlink()
+        log(f"validate: the gzipped trace ({size} bytes) removed, over the "
+            "output's room")
+    return found
+
+
+def check_lazy_separation(models: Path) -> None:
+    """CssEngine.separate_uploaded_lazy on the card (the SC model): the
+    scales come back, the int16 streams stay on the card until the lazy
+    list is first read, and then equal separate_sessions_batch's."""
+    from notsofar_tpu_torch.css.engine import CssCfg
+    from notsofar_tpu_torch.css.inference import get_css_engine
+    engine = get_css_engine(str(models), "notsofar/conformer1.0/sc",
+                            CssCfg(), device="cuda")
+    rng = np.random.RandomState(31)
+    mix = (rng.randn(1, 20 * 16000, 1) * 0.1).astype(np.float32)
+    up = engine.upload_sessions(engine.prepare_sessions([mix], 16000))
+    lazy, (wav_dev, scales_dev, n_reals) = engine.separate_uploaded_lazy(up)
+    deferred = lazy._host is None and wav_dev.is_cuda and scales_dev.is_cuda
+    streams = lazy[0]
+    want = engine.separate_sessions_batch([mix], 16000)[0]
+    equal = all(np.array_equal(a, b) for a, b in zip(streams, want))
+    log(f"validate: separate_uploaded_lazy streams {tuple(wav_dev.shape)} "
+        f"{wav_dev.dtype} on {wav_dev.device} until first access "
+        f"{deferred}; {len(streams)} streams of {n_reals[0]} samples after "
+        f"it, equal to separate_sessions_batch {equal}")
+    if not (deferred and equal and lazy._host is not None):
+        raise AssertionError("validate: separate_uploaded_lazy")
+
+
+# full-f32 MarbleNet and MSDD on the card: an order of magnitude above
+# what f32 sums in another order gave on an H100 (rel 6.8e-07, max abs
+# 6.0e-08) and below what cuDNN's TF32 gave there (2.8e-04, 8.1e-06)
+F32_REL, F32_ABS = 1e-5, 1e-6
+
+
+def tf32_effect(models: Path, V) -> None:
+    """What cuDNN's default TF32 (torch.backends.cudnn.allow_tf32, on
+    unless a caller turns it off) does to MarbleNet and the MSDD, which
+    now run their convs and LSTM in full f32 (utils.device.cudnn_f32):
+    the MarbleNet oracle's rel and the MSDD's probabilities against the
+    CPU, with the guard (gated by F32_REL, F32_ABS), and with it bypassed
+    and TF32 allowed (logged)."""
+    from unittest import mock
+
+    from notsofar_tpu_torch.models import marblenet, msdd
+    from notsofar_tpu_torch.models.msdd import OverlapDecoder
+    path = str(models / "diar_msdd_telephonic.nemo")
+    cpu = OverlapDecoder.from_checkpoint(path, device="cpu")
+    card = OverlapDecoder.from_checkpoint(path, device="cuda")
+    c = cpu.cfg
+    rng = np.random.RandomState(32)
+    e = rng.randn(2, 256, c.n_scales, c.emb_dim).astype(np.float32)
+    a = rng.randn(2, c.n_scales, c.emb_dim, 2).astype(np.float32)
+    want = cpu.refine(e, a)
+    out = {}
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for label, guard in (("f32", None), ("tf32",
+                                             contextlib.nullcontext)):
+            with contextlib.ExitStack() as stack:
+                if guard is not None:
+                    for mod in (marblenet, msdd):
+                        stack.enter_context(mock.patch.object(
+                            mod, "cudnn_f32", guard))
+                V.RESULTS.clear()
+                V.check_marblenet(str(models), torch.device("cuda"))
+                rel = re.search(r"rel ([0-9.e+-]+)", V.RESULTS[-1][2])
+                out[label] = (float(rel.group(1)) if rel else math.nan,
+                              float(np.abs(card.refine(e, a) - want).max()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    log(f"validate: cuDNN in full f32 (the port): MarbleNet oracle rel "
+        f"{out['f32'][0]:.3e}, MSDD card against CPU max abs "
+        f"{out['f32'][1]:.3e} (gates {F32_REL}, {F32_ABS}); with cuDNN's "
+        f"default TF32: rel {out['tf32'][0]:.3e}, max abs "
+        f"{out['tf32'][1]:.3e}")
+    if not (out["f32"][0] < F32_REL and out["f32"][1] < F32_ABS):
+        raise AssertionError(f"validate: MarbleNet / MSDD not in f32 "
+                             f"{out['f32']}")
+
+
+def check_validate_mutants(models: Path, V, first: dict) -> None:
+    """A one-tensor sign flip in the MarbleNet conversion (the last
+    block's conv kernel) must FAIL marblenet on the oracle bound; the MC
+    checkpoint overwritten with garbage must FAIL css-mc with rc 1 while
+    every other model component keeps its status (no --meetings-dir, so
+    both pipeline components SKIP)."""
+    from unittest import mock
+
+    from notsofar_tpu_torch.models import marblenet
+    convert = marblenet.convert_nemo_marblenet
+
+    def flipped(sd, cfg):
+        v = convert(sd, cfg)
+        blk = v["params"][f"block_{len(cfg.blocks) - 1}"]
+        name = next(k for k in sorted(blk) if k.startswith("conv_"))
+        blk[name]["kernel"] = -blk[name]["kernel"]
+        return v
+
+    with mock.patch.object(marblenet, "convert_nemo_marblenet", flipped):
+        V.RESULTS.clear()
+        flip = V.check_marblenet(str(models), torch.device("cuda"))
+    flip_result = V.RESULTS[-1]
+    (models / "notsofar" / "conformer1.0" / "mc" / "model.pt").write_bytes(
+        b"not a checkpoint")
+    rc = V.main(["--models-dir", str(models), "--whisper-model",
+                 PIPELINE_WHISPER])
+    status = {n: st for n, st, _ in V.RESULTS}
+    log(f"validate mutants: sign flip -> {flip_result}; garbage MC .pt -> "
+        f"rc {rc}, {status}")
+    if flip is not None or "parity FAILED" not in flip_result[2]:
+        raise AssertionError("validate: the sign-flip mutant passed")
+    want = {n: first[n] for n in first}
+    want.update({"css-mc": "FAIL", "e2e-wer": "SKIP",
+                 "int8-wer-delta": "SKIP"})
+    if rc != 1 or status != want:
+        raise AssertionError(f"validate: garbage MC .pt gave rc {rc}, "
+                             f"{status}, expected {want}")
+
+
+def run_validate(work: Path) -> dict:
+    """Phase 11: python -m notsofar_tpu_torch.tools.validate_real_weights
+    run in process (validate_real_weights.main) on phase 8's models dir
+    and meeting, with seeded checkpoints of every format at published
+    widths written beside phase 8's. Every component must PASS, rc 0. Each
+    component is timed (synchronized) and its kernel launches counted
+    (counts reset before each); the Whisper component runs under
+    utils.profiling.trace into chiprun_out/validate_trace/, whose device
+    events must name its four kernels. Then separate_uploaded_lazy on the
+    card, TF32's effect on MarbleNet and the MSDD (logged), and the two
+    mutants. Returns the launches of the validator's run."""
+    import os
+    from notsofar_tpu_torch.ops import kernels
+    from notsofar_tpu_torch.tools import validate_real_weights as V
+    from notsofar_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    models, meetings = work / "models", work / "meetings"
+    write_validate_checkpoints(models)
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    for f in TRACE_DIR.glob("*"):
+        f.unlink()
+    per, total = {}, dict.fromkeys(kernels.LAUNCHES, 0)
+    saved = {fn: getattr(V, fn) for _, fn in VALIDATE_CHECKS}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            with (trace(str(TRACE_DIR)) if name == "whisper"
+                  else contextlib.nullcontext()):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            per[name] = (time.perf_counter() - t,
+                         {k: v for k, v in kernels.LAUNCHES.items() if v})
+            for k, v in kernels.LAUNCHES.items():
+                total[k] += v
+            return out
+        return run
+
+    old_dir = os.environ.get("NOTSOFAR_MODELS_DIR")
+    os.environ["NOTSOFAR_MODELS_DIR"] = str(models)
+    try:
+        for name, fn in VALIDATE_CHECKS:
+            setattr(V, fn, counted(name, saved[fn]))
+        t0 = time.perf_counter()
+        rc = V.main(["--models-dir", str(models), "--meetings-dir",
+                     str(meetings), "--whisper-model", PIPELINE_WHISPER,
+                     "--out-dir", str(work / "validate_out")])
+        wall = time.perf_counter() - t0
+        results = list(V.RESULTS)
+        for name, fn in VALIDATE_CHECKS:
+            setattr(V, fn, saved[fn])
+        for name, status, detail in results:
+            s, counts = per.get(name, (math.nan, {}))
+            log(f"validate {name}: {status} in {s:.2f} s, launches "
+                f"{counts}: {detail}")
+        status = {n: st for n, st, _ in results}
+        log(f"validate: rc {rc}, {len(results)} components in {wall:.1f} s")
+        if rc != 0 or [n for n, _, _ in results] != [
+                n for n, _ in VALIDATE_CHECKS] or set(status.values()) != {
+                    "PASS"}:
+            raise AssertionError(f"validate: rc {rc}, {status}")
+        found = trace_kernels(TRACE_DIR)
+        whisper = per["whisper"][1]
+        log(f"validate whisper trace (chiprun_out/validate_trace/): kernel "
+            f"events by name {found}; counted launches {whisper}")
+        missing = [k for k in WHISPER_KERNELS
+                   if not (found[k] > 0 and whisper.get(k, 0) > 0)]
+        if missing:
+            raise AssertionError(f"validate: whisper never ran {missing}")
+        check_lazy_separation(models)
+        tf32_effect(models, V)
+        check_validate_mutants(models, V, status)
+    finally:
+        for name, fn in VALIDATE_CHECKS:
+            setattr(V, fn, saved[fn])
+        if old_dir is None:
+            os.environ.pop("NOTSOFAR_MODELS_DIR", None)
+        else:
+            os.environ["NOTSOFAR_MODELS_DIR"] = old_dir
+    log(f"validate: phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3767,6 +4138,9 @@ def main() -> int:
         by_path["css"] = run_css(work)
         log("phase 8 pipeline, inference_v1.yaml with int8 ASR")
         by_path["pipeline"] = run_pipeline(work)
+        log("phase 11 validate, validate_real_weights on seeded checkpoints "
+            "of every format")
+        by_path["validate"] = run_validate(work)
     log("phase 9 tools, bench_xattn_variants and bisect_attn_split")
     by_path["tools"] = run_tools(
         next(r["ms"] for r in rows if r["name"] == "xattn_stream"))

@@ -622,6 +622,15 @@ def decode_alignment_heads(blob: str, n_text_layer: int,
     return list(zip(ls.tolist(), hs.tolist()))
 
 
+def encode_alignment_heads(pairs: List[Tuple[int, int]], n_text_layer: int,
+                           n_text_head: int) -> str:
+    """Inverse of decode_alignment_heads (for tests / sidecar authoring)."""
+    arr = np.zeros((n_text_layer, n_text_head), bool)
+    for l, h in pairs:
+        arr[l, h] = True
+    return base64.b85encode(gzip.compress(arr.tobytes())).decode()
+
+
 PREPEND_PUNCTUATIONS = "\"'“¿([{-"
 APPEND_PUNCTUATIONS = "\"'.。,，!！?？:：”)]}、"
 
@@ -667,11 +676,18 @@ def merge_punctuations(words: List[Dict],
     return [w for w in ws if w["word"]]
 
 
-def _median7(x: torch.Tensor) -> torch.Tensor:
-    """Width-7 median along the last axis, edge padded."""
-    xp = torch.cat([x[..., :1].expand(*x.shape[:-1], 3), x,
-                    x[..., -1:].expand(*x.shape[:-1], 3)], dim=-1)
-    return xp.unfold(-1, 7, 1).median(dim=-1).values
+def median_filter(x: torch.Tensor, width: int = 7) -> torch.Tensor:
+    """Median filter along the last axis with edge padding. The width must
+    be odd (whisper's filter widths are): torch.median takes the lower of
+    two middle values where numpy averages them."""
+    if width <= 1 or x.shape[-1] == 0:
+        return x
+    if width % 2 == 0:
+        raise ValueError(f"median filter width {width} is even")
+    pad = width // 2
+    xp = torch.cat([x[..., :1].expand(*x.shape[:-1], pad), x,
+                    x[..., -1:].expand(*x.shape[:-1], pad)], dim=-1)
+    return xp.unfold(-1, width, 1).median(dim=-1).values
 
 
 def _znorm_median(w: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
@@ -683,7 +699,7 @@ def _znorm_median(w: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
     mean = torch.where(mask, w, 0.0).sum(-2, keepdim=True) / cnt
     var = torch.where(mask, (w - mean) ** 2, 0.0).sum(-2, keepdim=True) / cnt
     wn = (w - mean) / (torch.sqrt(var) + 1e-9)
-    return _median7(wn).sum(dim=1)
+    return median_filter(wn).sum(dim=1)
 
 
 @torch.no_grad()

@@ -118,3 +118,11 @@ def log_mel_spectrogram_batch(audio: torch.Tensor,
     maxv = masked.amax(dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, maxv - 8.0)
     return (log_spec + 4.0) / 4.0
+
+
+def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES
+                ) -> torch.Tensor:
+    """Pad with zeros / trim the last axis to `length` (whisper contract)."""
+    if audio.shape[-1] >= length:
+        return audio[..., :length]
+    return F.pad(audio, (0, length - audio.shape[-1]))

@@ -322,6 +322,21 @@ class CssEngine:
             want_side_info=False, timer=timer)
         return wav_dev, scales_dev
 
+    def separate_uploaded_lazy(self, up: Dict,
+                               timer: Optional[StageTimer] = None):
+        """separate_uploaded with the host copy deferred: returns (lazy
+        host wav lists, (wav_dev, scales_dev, n_reals)).
+
+        Only the scales are read to the host here (a sync: the separation
+        is done when this returns). The int16 streams stay on the device
+        until the lazy list's first access, so their copy does not delay
+        the scales read and does not compete with the next batch's
+        upload."""
+        wav_dev, scales_dev = self.separate_uploaded(up, timer=timer)
+        out = _LazyHostWavs(wav_dev, scales_dev.cpu().numpy(), up["n_reals"],
+                            self.cfg.num_spks)
+        return out, (wav_dev, scales_dev, up["n_reals"])
+
     def separate_sessions_batch(self, speech_mixes: List[np.ndarray], fs: int,
                                 return_device: bool = False,
                                 defer_host: bool = False,
@@ -334,18 +349,13 @@ class CssEngine:
         can read the separated audio without another upload.
         defer_host=True (with return_device) returns a lazy host list
         that copies the int16 streams off the device on first index."""
-        prep = self.prepare_sessions(speech_mixes, fs)
-        up = self.upload_sessions(prep)
-        wav_dev, scales_dev = self.separate_uploaded(up, timer=timer)
-        n_reals = prep["n_reals"]
+        up = self.upload_sessions(self.prepare_sessions(speech_mixes, fs))
+        lazy, dev = self.separate_uploaded_lazy(up, timer=timer)
         if defer_host and return_device:
-            out = _LazyHostWavs(wav_dev, scales_dev.cpu().numpy(), n_reals,
-                                self.cfg.num_spks)
-            return out, (wav_dev, scales_dev, n_reals)
-        out = list(_LazyHostWavs(wav_dev, scales_dev.cpu().numpy(), n_reals,
-                                 self.cfg.num_spks))
+            return lazy, dev
+        out = list(lazy)
         if return_device:
-            return out, (wav_dev, scales_dev, n_reals)
+            return out, dev
         return out
 
     # ---- host wrapper -----------------------------------------------------

@@ -18,8 +18,10 @@ encoder output of the whole waveform (one forward per stream at the
 Activations are [B, T, C]. Each repeat masks its input before its conv;
 the residual 1x1 conv reads the block's unmasked input (the JAX module's
 order). Batch norms are eval-mode with eps 1e-3. The depthwise convs are
-grouped ``F.conv1d`` calls (the JAX module's nn.Conv, outside Pallas);
-pointwise convs and the classifier are matmuls (models.titanet.Dense).
+grouped ``F.conv1d`` calls (the JAX module's nn.Conv, outside Pallas),
+run in full f32 on the card (cuDNN's default TF32 off, utils.device.
+cudnn_f32); pointwise convs and the classifier are matmuls
+(models.titanet.Dense).
 Models live on an explicit device (default ``cuda``, raising without a
 card; ``device="cpu"`` runs on the CPU).
 """
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from notsofar_tpu_torch.models.titanet import (HOP, BatchNorm, Dense,
                                                titanet_features)
-from notsofar_tpu_torch.utils.device import resolve_device
+from notsofar_tpu_torch.utils.device import cudnn_f32, resolve_device
 from notsofar_tpu_torch.utils.logging_def import get_logger
 
 _LOG = get_logger("marblenet")
@@ -83,9 +85,10 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = self.dilation * (self.weight.shape[-1] - 1) // 2
-        y = F.conv1d(x.to(self.dtype).transpose(1, 2),
-                     self.weight.to(self.dtype), padding=pad,
-                     dilation=self.dilation, groups=self.groups)
+        with cudnn_f32():
+            y = F.conv1d(x.to(self.dtype).transpose(1, 2),
+                         self.weight.to(self.dtype), padding=pad,
+                         dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
 

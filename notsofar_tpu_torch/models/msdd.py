@@ -22,7 +22,9 @@ layout [C, 1, K(S+1), 1] (then [C, 1, C, 1]). The cosine divides by
 norms have no affine parameters and eps 1e-5. The JAX module's three
 flax RNN(OptimizedLSTMCell) pairs (the backward one reversed and kept in
 order) are one ``nn.LSTM(num_layers=3, bidirectional=True)``: gates
-(i, f, g, o), the cells' biases in bias_hh and bias_ih zero.
+(i, f, g, o), the cells' biases in bias_hh and bias_ih zero. The convs
+and the LSTM run in full f32 on the card (cuDNN's default TF32 off,
+utils.device.cudnn_f32).
 """
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -32,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from notsofar_tpu_torch.utils.device import resolve_device
+from notsofar_tpu_torch.utils.device import cudnn_f32, resolve_device
 
 BN_EPS = 1e-5
 GATES = ("i", "f", "g", "o")   # torch's gate order
@@ -109,7 +111,8 @@ class MSDD(nn.Module):
         """conv_{i} + ReLU over a [BT, 1, rows, D] grid -> [BT, C, D], then
         the non-affine batch norm over D (NeMo: BatchNorm2d(emb_dim,
         affine=False), eval mode) and a leaky ReLU."""
-        x = torch.relu(getattr(self, f"conv_{i}")(x))[:, :, 0]
+        with cudnn_f32():
+            x = torch.relu(getattr(self, f"conv_{i}")(x))[:, :, 0]
         mean = getattr(self, f"conv_bn_{i}_mean")
         var = getattr(self, f"conv_bn_{i}_var")
         x = (x - mean) * torch.rsqrt(var + BN_EPS)
@@ -138,7 +141,8 @@ class MSDD(nn.Module):
                         avg[:, None])                     # [B, 1, K, S, D]
         ctx = (w[..., None] * sim).reshape(B, T, K * S)   # scale-major
         ctx = torch.relu(self.dist_to_emb(ctx))
-        h, _ = self.lstm(ctx)                             # [B, T, 2H]
+        with cudnn_f32():
+            h, _ = self.lstm(ctx)                         # [B, T, 2H]
         return torch.sigmoid(self.hidden_to_spks(torch.relu(h)))
 
 

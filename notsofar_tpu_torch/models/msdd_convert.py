@@ -35,6 +35,8 @@ from typing import Dict, Tuple
 import numpy as np
 
 from notsofar_tpu_torch.models.msdd import MSDDConfig
+# the JAX module's load_nemo_archive, shared with titanet_convert (and
+# importable from here, as in the JAX package) rather than copied again
 from notsofar_tpu_torch.models.titanet_convert import load_nemo_archive
 
 

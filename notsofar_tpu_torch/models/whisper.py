@@ -4,7 +4,8 @@ Port of notsofar_tpu/models/whisper.py. Parameters use the openai-whisper
 checkpoint layout (``encoder.blocks.{i}.attn.query.weight`` ...), so an
 openai ``.pt`` loads with ``load_state_dict``; ``variables_from_jax``
 converts the JAX package's flax tree into the same layout, which is how
-the parity tests give both packages identical weights.
+the parity tests give both packages identical weights, and
+``convert_hf_whisper_state_dict`` a Hugging Face checkpoint's.
 
 Numerics follow the JAX model: matmuls in the model dtype; attention
 logits, softmax and the decoder's output logits in f32, with attention
@@ -877,6 +878,14 @@ class WhisperModel(nn.Module):
                                for b, s in enumerate(seeks)])
         return self.encoder(windows)
 
+    @torch.no_grad()
+    def decode_logits(self, tokens: torch.Tensor, xa: torch.Tensor,
+                      pos_offset: int = 0) -> torch.Tensor:
+        """Teacher-forced logits [B, T, vocab] f32 of tokens [B, T] against
+        the encoder output xa, the first token at position pos_offset."""
+        logits, _, _ = self.decoder(tokens, xa, pos_offset)
+        return logits
+
     def empty_kv_caches(self, batch: int, dtype=None,
                         cache_len: Optional[int] = None):
         """Self-attention caches [batch, ctx, D] per layer, in the model
@@ -1005,6 +1014,54 @@ def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
     for i in range(n_text):
         block(f"decoder.blocks.{i}", dec[f"block_{i}"], cross=True)
     return sd
+
+
+def convert_hf_whisper_state_dict(sd: Dict, dims: WhisperDims
+                                  ) -> Dict[str, torch.Tensor]:
+    """HuggingFace transformers Whisper weights (numpy arrays or tensors)
+    -> a WhisperModel state_dict in the openai layout.
+
+    Accepts WhisperModel / WhisperForConditionalGeneration state dicts
+    (the 'model.' prefix is stripped). Every key the dims call for must
+    be present; HF's key projections carry no bias, as openai's."""
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items()
+              if k.startswith("model.")}
+    out: Dict[str, torch.Tensor] = {}
+
+    def take(dst, src):
+        out[dst] = torch.as_tensor(sd[src])
+
+    def lin(dst, src, bias=True):
+        take(dst + ".weight", src + ".weight")
+        if bias:
+            take(dst + ".bias", src + ".bias")
+
+    def block(dst, src, cross):
+        subs = (("attn", "self_attn"), ("cross_attn", "encoder_attn")) \
+            if cross else (("attn", "self_attn"),)
+        for ours, theirs in subs:
+            lin(f"{dst}.{ours}_ln", f"{src}.{theirs}_layer_norm")
+            for name, hf in (("query", "q_proj"), ("key", "k_proj"),
+                             ("value", "v_proj"), ("out", "out_proj")):
+                lin(f"{dst}.{ours}.{name}", f"{src}.{theirs}.{hf}",
+                    bias=name != "key")
+        lin(dst + ".mlp_ln", src + ".final_layer_norm")
+        lin(dst + ".mlp.0", src + ".fc1")
+        lin(dst + ".mlp.2", src + ".fc2")
+
+    lin("encoder.conv1", "encoder.conv1")
+    lin("encoder.conv2", "encoder.conv2")
+    lin("encoder.ln_post", "encoder.layer_norm")
+    take("encoder.positional_embedding", "encoder.embed_positions.weight")
+    for i in range(dims.n_audio_layer):
+        block(f"encoder.blocks.{i}", f"encoder.layers.{i}", cross=False)
+    take("decoder.token_embedding.weight", "decoder.embed_tokens.weight")
+    take("decoder.positional_embedding", "decoder.embed_positions.weight")
+    lin("decoder.ln", "decoder.layer_norm")
+    for i in range(dims.n_text_layer):
+        block(f"decoder.blocks.{i}", f"decoder.layers.{i}", cross=True)
+    return out
 
 
 _QUANT_KEY = re.compile(r"decoder\.(blocks\.\d+\.((cross_)?attn\.(query|key|"

@@ -103,6 +103,12 @@ class STFT:
         i = torch.matmul(self.Ki, frames.transpose(-1, -2))
         return torch.complex(r, i)
 
+    def mag_phase(self, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [..., S] -> (magnitude, phase), each [..., F, T]."""
+        c = self.forward(x)
+        return c.abs(), c.angle()
+
     def inverse(self, c: torch.Tensor) -> torch.Tensor:
         """c: complex [..., F, T] -> real [..., S], the exact adjoint of
         `forward` (conv_transpose1d with the same kernel)."""

@@ -1,6 +1,6 @@
 """Wav I/O without soundfile/librosa.
 
-Copies of ``read_wav``, ``read_wav_scaled``, ``write_wav``,
+Copies of ``EPSILON``, ``read_wav``, ``read_wav_scaled``, ``write_wav``,
 ``load_session_audio``, ``parse_scp`` and ``ScpWaveReader`` from
 notsofar_tpu/utils/audio.py (the helpers the ASR, diarization and CSS
 slices need): scipy.io.wavfile plus float32 PCM.
@@ -12,6 +12,7 @@ import numpy as np
 import scipy.io.wavfile as wf
 
 MAX_INT16 = np.iinfo(np.int16).max
+EPSILON = np.finfo(np.float32).eps
 
 
 def read_wav(fname, normalize: bool = True, return_rate: bool = False):

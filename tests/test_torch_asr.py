@@ -227,6 +227,30 @@ def test_word_timestamps_match_jax(pair):  # noqa: F811
                 assert abs(a["probability"] - b["probability"]) < 1e-4
 
 
+@pytest.mark.parametrize("width", [1, 3, 7, 11])
+def test_median_filter_matches_jax(width):
+    """median_filter along the last axis, edge padded, equal to the JAX
+    package's numpy filter at odd widths (the words' DTW uses 7); an even
+    width raises (torch takes the lower middle value, numpy the mean)."""
+    rng = np.random.RandomState(width)
+    x = rng.randn(2, 3, 40).astype(np.float32)
+    got = tdec.median_filter(torch.from_numpy(x), width)
+    np.testing.assert_array_equal(got.numpy(), jdec.median_filter(x, width))
+    with pytest.raises(ValueError):
+        tdec.median_filter(torch.from_numpy(x), 4)
+
+
+def test_encode_alignment_heads_matches_jax(monkeypatch):
+    """The same blob as the JAX encoder (gzip's header time held fixed),
+    and decode_alignment_heads inverts it."""
+    import gzip
+    monkeypatch.setattr(gzip.time, "time", lambda: 1.7e9)
+    pairs = [(0, 1), (2, 0), (3, 5), (3, 7)]
+    blob = tdec.encode_alignment_heads(pairs, 4, 8)
+    assert blob == jdec.encode_alignment_heads(pairs, 4, 8)
+    assert tdec.decode_alignment_heads(blob, 4, 8) == pairs
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 def test_dtw_matches_the_jax_reference_dp(seed):
     """The port's wavefront float64 DTW returns the JAX package's numpy

@@ -53,6 +53,24 @@ def test_stft_and_istft_match_jax(window, frame_len, hop):
         jstft.num_frames(8000, frame_len, hop) == want.shape[-1]
 
 
+@pytest.mark.parametrize("window", ["hann", "sqrt_hann"])
+def test_stft_mag_phase_matches_jax(window):
+    """STFT.mag_phase: magnitude within 1e-5 of its scale; phase within
+    1e-4 rad where the magnitude is above 1e-3 of its scale (the angle of
+    a near-zero bin is noise on both sides)."""
+    rng = np.random.RandomState(len(window))
+    x = (rng.randn(2, 8000) * 0.1).astype(np.float32)
+    jmag, jph = jstft.STFT(512, 256, window).mag_phase(jnp.asarray(x))
+    mag, ph = tstft.STFT(512, 256, window).mag_phase(t(x))
+    jmag, jph = np.asarray(jmag), np.asarray(jph)
+    assert mag.shape == ph.shape == jmag.shape
+    assert mag.dtype == ph.dtype == torch.float32
+    assert rel_err(mag.numpy(), jmag) < 1e-5
+    big = jmag > 1e-3 * jmag.max()
+    dph = np.angle(np.exp(1j * (ph.numpy() - jph)))
+    assert big.mean() > 0.9 and np.abs(dph[big]).max() < 1e-4
+
+
 def _phase(rng, B=2, C=7, F=257, T=60):
     c = rng.randn(B, C, F, T) + 1j * rng.randn(B, C, F, T)
     return np.angle(c).astype(np.float32)

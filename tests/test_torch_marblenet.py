@@ -65,6 +65,26 @@ def waves(seed: int):
     return wavs, lengths
 
 
+def test_convs_run_with_cudnn_tf32_off(monkeypatch):
+    """Every conv of the MarbleNet runs with cuDNN's TF32 off
+    (utils.device.cudnn_f32; on the card, TF32 moved the oracle's rel
+    from 6.8e-07 to 2.8e-04, chip_smoke.py phase 11), and the caller's
+    setting comes back after each."""
+    seen = []
+    conv = torch.nn.functional.conv1d
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv(*a, **k)
+    monkeypatch.setattr(torch.nn.functional, "conv1d", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    _, port = pair(jm.convert_nemo_marblenet(nemo_sd(0), JCFG))
+    port.frame_probs(*waves(0))
+    n_convs = sum(b.repeat for b in JCFG.blocks)
+    assert len(seen) == n_convs and not any(seen)
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 def test_converter_tree_matches_the_module():
     """The port's converter gives the JAX converter's tree, leaf for
     leaf, and variables_from_jax maps it onto every parameter and

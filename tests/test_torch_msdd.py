@@ -69,6 +69,28 @@ def test_probs_match_jax(weights):
     assert (got >= 0).all() and (got <= 1).all()
 
 
+def test_convs_and_lstm_run_with_cudnn_tf32_off(monkeypatch):
+    """The MSDD's convs and its LSTM run with cuDNN's TF32 off
+    (utils.device.cudnn_f32; on the card, TF32 moved the probabilities
+    from 6.0e-08 to 8.1e-06 off the CPU, chip_smoke.py phase 11), and the
+    caller's setting comes back."""
+    seen = []
+    for cls in (torch.nn.Conv2d, torch.nn.LSTM):
+        fwd = cls.forward
+
+        def spy(self, *a, _fwd=fwd, _name=cls.__name__, **k):
+            seen.append((_name, torch.backends.cudnn.allow_tf32))
+            return _fwd(self, *a, **k)
+        monkeypatch.setattr(cls, "forward", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    dec = port_of(JCFG, jmsdd.OverlapDecoder(JCFG).variables)
+    dec.refine(*inputs(1, 1, 4, JCFG))
+    assert [n for n, _ in seen] == ["Conv2d"] * (JCFG.conv_repeat + 1) + [
+        "LSTM"]
+    assert not any(tf32 for _, tf32 in seen)
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 def test_variable_speaker_count():
     """S is data-driven: a module built for S = 3 equals the JAX module
     initialized on S = 3 inputs."""
@@ -124,7 +146,8 @@ def test_converter_synthetic_checkpoint(prefix):
 def test_nemo_tar_roundtrip(tmp_path):
     """.nemo tar (model_weights.ckpt with 'msdd.' keys + a yaml) ->
     OverlapDecoder.from_checkpoint on the CPU, equal to the JAX
-    package's decoder from the same archive."""
+    package's decoder from the same archive; load_nemo_archive gives the
+    JAX reader's state dict and config."""
     sd = {f"msdd.{k}" if not k.startswith("msdd.") else k: v
           for k, v in _synthetic_nemo_sd(seed=4).items()}
     torch.save(sd, tmp_path / "model_weights.ckpt")
@@ -139,6 +162,14 @@ def test_nemo_tar_roundtrip(tmp_path):
     e, a = inputs(4, 1, 4, dec.cfg)
     want = jmsdd.OverlapDecoder.from_checkpoint(nemo).refine(e, a)
     assert np.abs(dec.refine(e, a) - want).max() <= TOL
+    # msdd_convert.load_nemo_archive reads the archive as the JAX one
+    got_sd, got_cfg = tconv.load_nemo_archive(nemo)
+    want_sd, want_cfg = jconv.load_nemo_archive(nemo)
+    assert got_cfg == want_cfg == {"name": "synthetic_msdd"}
+    assert set(got_sd) == set(want_sd) == set(sd)
+    for k in got_sd:
+        assert got_sd[k].dtype == want_sd[k].dtype
+        np.testing.assert_array_equal(got_sd[k], want_sd[k])
 
 
 @pytest.mark.parametrize("seed", [0, 5])

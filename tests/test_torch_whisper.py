@@ -128,6 +128,65 @@ def test_decoder_teacher_forced_matches_jax(pair):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("pos_offset", [0, 5])
+def test_decode_logits_matches_jax(pair, pos_offset):
+    """WhisperModel.decode_logits (teacher-forced logits from pos_offset)
+    against the JAX decode_logits on the same weights: f32 logits within
+    1e-4."""
+    jm, variables, tm = pair
+    rng = np.random.RandomState(11 + pos_offset)
+    xa = rng.randn(2, 64, 128).astype(np.float32) * 0.3
+    toks = rng.randint(0, 1000, (2, 6))
+    want = np.asarray(jm.decode_logits(variables, jnp.asarray(toks, jnp.int32),
+                                       jnp.asarray(xa), pos_offset))
+    got = tm.decode_logits(torch.from_numpy(toks), torch.from_numpy(xa),
+                           pos_offset)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("prefix", ["", "model."])
+def test_convert_hf_whisper_state_dict_matches_jax(prefix):
+    """A Hugging Face Whisper state dict (WhisperModel, or with the
+    WhisperForConditionalGeneration 'model.' prefix and its tied
+    proj_out) through the port's converter equals the JAX converter's
+    tree through variables_from_jax, bit for bit, and loads strictly."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    dims = tw.WhisperDims(*KDIMS_ARGS)
+    hf = transformers.WhisperModel(transformers.WhisperConfig(
+        vocab_size=dims.n_vocab, num_mel_bins=dims.n_mels,
+        encoder_layers=dims.n_audio_layer,
+        encoder_attention_heads=dims.n_audio_head,
+        decoder_layers=dims.n_text_layer,
+        decoder_attention_heads=dims.n_text_head, d_model=dims.n_text_state,
+        encoder_ffn_dim=4 * dims.n_text_state,
+        decoder_ffn_dim=4 * dims.n_text_state,
+        max_source_positions=dims.n_audio_ctx,
+        max_target_positions=dims.n_text_ctx, pad_token_id=0))
+    sd = {prefix + k: v for k, v in hf.state_dict().items()}
+    if prefix:
+        sd["proj_out.weight"] = sd["model.decoder.embed_tokens.weight"]
+    got = tw.convert_hf_whisper_state_dict(sd, dims)
+    want = tw.variables_from_jax(jw.convert_hf_whisper_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, jw.WhisperDims(*KDIMS_ARGS)))
+    assert set(got) == set(want)
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    tw.WhisperModel(dims, device="cpu").load_state_dict(got)
+
+
+def test_pad_or_trim_matches_jax():
+    rng = np.random.RandomState(4)
+    for shape in ((1000,), (2, 3, 700)):
+        x = rng.randn(*shape).astype(np.float32)
+        for length in (500, 700, 1200):
+            want = jmel.pad_or_trim(x, length)
+            got = tmel.pad_or_trim(torch.from_numpy(x), length)
+            np.testing.assert_array_equal(got.numpy(), want)
+    assert tmel.pad_or_trim(torch.zeros(5)).shape == (tmel.N_SAMPLES,)
+
+
 @pytest.mark.parametrize("pos_as", ["int", "tensor"])
 def test_decoder_incremental_matches_jax_through_attn_step(pair, pos_as):
     """Prefill 3 tokens, then T=1 cache steps (attn_step on both sides),
@@ -666,16 +725,19 @@ def _imported_modules(path: Path):
 
 def test_port_never_imports_jax_or_the_jax_package():
     """No module of notsofar_tpu_torch, nor chip_smoke.py,
-    run_inference_gpu.py or run_training_css_gpu.py, imports jax, flax or
-    notsofar_tpu: statically, and in a fresh interpreter that imports every
-    module of the port (the training stack's among them)."""
+    run_inference_gpu.py or run_training_css_gpu.py, imports jax, flax,
+    notsofar_tpu or the repository's tools/: statically, and in a fresh
+    interpreter that imports every module of the port (the training
+    stack's and the real-weight validator's among them)."""
     files = sorted((REPO / "notsofar_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py", REPO / "run_inference_gpu.py",
          REPO / "run_training_css_gpu.py"]
     assert {"train", "losses", "augmentations", "schedulers", "dataset",
             "parity"} <= {f.stem for f in files
                           if f.parent.name == "training"}
-    banned = ("jax", "jaxlib", "flax", "notsofar_tpu")
+    assert {"validate_real_weights", "marblenet_oracle", "results_analysis",
+            "plot_utils"} <= {f.stem for f in files}
+    banned = ("jax", "jaxlib", "flax", "notsofar_tpu", "tools")
     for f in files:
         for mod in _imported_modules(f):
             assert mod.split(".")[0] not in banned, (f, mod)
