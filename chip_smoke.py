@@ -74,12 +74,17 @@ Phases (any failure raises and exits non-zero):
 3b. graph   the decode loops on the card as CUDA graphs (the default)
              against the same loops run eagerly: Whisper large-v3 at full
              width with seeded random weights, bf16 then the int8 decoder,
-             3 seeded mel windows, beam 5 and greedy, 32 new tokens:
-             tokens equal, scores within 1e-4, launch and decoder call
-             counts equal; eager and graphed ms per step logged; the
-             graphed loop's host breakdown: per replayed step the graph
-             launch, the counters and the wait on the finished.all()
-             read, per decode call the set-up, step 0 and the capture
+             seeded mel windows, beam 5 and greedy, 32 new tokens; one
+             decoder per loop decodes keys A (3 windows) and B (2) in the
+             order A, B, A, A, each call on windows of its own: the first
+             call of a key captures its set-up, step-0 and step graphs,
+             the later A calls capture nothing and replay every step;
+             every call's tokens equal, scores within 1e-4, launch and
+             decoder call counts equal to the eager loop's on its inputs;
+             a sampled greedy rung (per-row fallback generators) twice on
+             one key draws what the eager loop draws from the same
+             generators; per call the host seconds of the set-up, step 0
+             and the captures, ms a call, eager and graphed ms per step
              (asr.decoding.DECODE_STEPS); one
              decoder step's kernels under torch.profiler at 3 rows
              (greedy) and 15 (beam 5), bf16 and int8, and the same step
@@ -102,7 +107,9 @@ Phases (any failure raises and exits non-zero):
              to 64 rows), the fused steps counted at least the decode
              steps. The decode
              steps (replayed from CUDA graphs and eager), the graph
-             captures and their seconds, and ms per step are logged, and
+             captures and their seconds, ms per step, the decode calls
+             with their workspace hits, misses and evictions, the bytes
+             the workspaces hold and the peak memory are logged, and
              the attn_step launches as a histogram of (rows, cache
              length, pos), which must account for every counted launch.
 5. asr greedy the same session with beam_size=None (greedy + fallback
@@ -177,7 +184,10 @@ Phases (any failure raises and exits non-zero):
              element in Adam's box, the card's update AdamW's step from
              its own moments), the one-gradient sign-flip mutant outside;
              ReLU inputs of another sign on the card, and the CPU against
-             itself with the batch's rows swapped, logged; (b)
+             itself with the batch's rows swapped, logged; the card's
+             gradient and first-moment distance and ReLU sign flips also
+             with cuDNN's TF32 at PyTorch's default (on) under the port's
+             f32 guard, and with the guard bypassed (logged); (b)
              run_training_css for 8 iterations of 32 segments on a seeded
              simulated partition in the reference byte format (eval and
              checkpoint every 4): ms a step after a sync, segments a
@@ -202,7 +212,9 @@ Phases (any failure raises and exits non-zero):
              the whisper component under utils.profiling.trace into
              chiprun_out/validate_trace/ (gzipped), whose kernel events
              must name encoder_mha, attn_step, xattn_step and
-             decode_gemv. separate_uploaded_lazy must leave the streams
+             decode_gemv; the validator's decode calls (workspace hits,
+             misses, bytes) and peak memory are logged.
+             separate_uploaded_lazy must leave the streams
              on the card until first read. cuDNN's default TF32 against
              the full-f32 MarbleNet and MSDD is logged. Mutants: a sign
              flip in the MarbleNet conversion FAILs marblenet on the
@@ -1887,23 +1899,32 @@ def check_graph_decode(max_new: int = 32) -> None:
     """Phase 3b: the decode loops as CUDA graphs against the same loops run
     eagerly (their internal graph=False), at full width: Whisper large-v3
     with seeded random weights, bf16 and then the int8 decoder with int8
-    cross-attention K/V, one batch of 3 seeded mel windows through the
-    encoder, beam 5 and greedy, max_new_tokens steps. Tokens must be equal,
-    the scores within 1e-4 absolute, the kernel launches and int8 decoder
-    calls equal; eager and graphed ms per step are logged side by side."""
+    cross-attention K/V, seeded mel windows through the encoder, beam 5
+    and greedy, max_new_tokens steps. One decoder per loop decodes keys A
+    (3 windows) and B (2 windows) in the order A, B, A, A, each call on
+    windows of its own (GRAPH_CALLS): A's and B's first calls capture the
+    set-up, step-0 and step graphs, the later A calls must capture
+    nothing, run no step eagerly and replay every step. Every call's
+    tokens must equal the eager loop's on its inputs, the scores within
+    1e-4 absolute, the kernel launches and decoder calls equal. Then a
+    sampled greedy rung (per-row fallback generators, temperature 0.6)
+    twice on one key: each call's tokens, scores and generator states
+    after it equal the eager loop's from the same fresh generators. The
+    host seconds per call (set-up, step 0, capture) and eager and
+    graphed ms per step are logged."""
     from notsofar_tpu_torch.asr import decoding as dec
     from notsofar_tpu_torch.asr.beam import BeamDecoder
     from notsofar_tpu_torch.asr.inference import load_whisper_model
-    from notsofar_tpu_torch.ops import kernels
 
-    mel = torch.from_numpy(np.random.RandomState(8).randn(3, 128, 3000)
+    n_win = sum(n for _, n, _ in GRAPH_CALLS)
+    mel = torch.from_numpy(np.random.RandomState(8).randn(n_win, 128, 3000)
                            .astype(np.float32)).cuda()
     for dtype in ("bfloat16", "int8"):
         model, tok, _ = load_whisper_model("large-v3", None,
                                            compute_dtype=dtype,
                                            device="cuda")
         with torch.no_grad():
-            xa = model.encode(mel)
+            xa_all = model.encode(mel)
         opts = dec.DecodeOptions(max_new_tokens=max_new,
                                  cross_kv_quant=model.quant_decoder)
         for kind in ("beam5", "greedy"):
@@ -1913,55 +1934,31 @@ def check_graph_decode(max_new: int = 32) -> None:
             else:
                 d = dec.GreedyDecoder(model, tok, opts)
                 loop, K = d._decode_loop, 1
-            initial = d._initial_tokens(None)
-            prompt = torch.tensor(initial, device="cuda").repeat(3, 1)
-            runs = {}
-            for mode, graph in (("eager", False), ("graphed", None)):
-                kernels.reset_launches()
-                dec.reset_decoder_calls()
-                dec.reset_decode_steps()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                tokens, stats = loop(xa, len(initial), prompt, graph=graph)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                steps = dict(dec.DECODE_STEPS)
-                n = steps["eager"] + steps["replayed"]
-                runs[mode] = dict(tokens=tokens, lp=stats[:, :K],
-                                  launches=dict(kernels.LAUNCHES),
-                                  calls=dict(dec.DECODER_CALLS),
-                                  steps=steps, wall=wall, n=n)
-            e, gr = runs["eager"], runs["graphed"]
-            log(f"graph {dtype} {kind} ({3 * K} rows), host time: "
-                + host_breakdown(gr["steps"], gr["wall"]))
-            diff = (e["lp"] - gr["lp"]).abs().max().item()
-            replay_ms = (gr["wall"] - gr["steps"]["capture_s"]) / gr["n"] \
-                * 1e3
-            log(f"graph {dtype} {kind}: {gr['n']} steps ({gr['steps']}), "
-                f"tokens equal {torch.equal(e['tokens'], gr['tokens'])}, "
-                f"sum_logprob max abs diff {diff:.3e} (tolerance 1e-4); "
-                f"ms per step eager {e['wall'] / e['n'] * 1e3:.2f}, graphed "
-                f"{gr['wall'] / gr['n'] * 1e3:.2f} with its capture "
-                f"({gr['steps']['capture_s']:.3f} s), {replay_ms:.2f} "
-                "without; launches equal "
-                f"{e['launches'] == gr['launches']}, int8 decoder calls "
-                f"{gr['calls']['xattn_int8']}")
-            if not torch.equal(e["tokens"], gr["tokens"]) or not diff <= 1e-4:
-                raise AssertionError(f"graph {dtype} {kind}: the graphed "
-                                     "decode differs from the eager loop")
-            if e["launches"] != gr["launches"] or e["calls"] != gr["calls"]:
-                raise AssertionError(f"graph {dtype} {kind}: launches "
-                                     f"{gr['launches']} / {gr['calls']}, "
-                                     f"eager {e['launches']} / {e['calls']}")
-            if not (gr["steps"]["captures"] == 1 and gr["steps"]["eager"]
-                    == 1 and gr["n"] == e["n"] > 1):
-                raise AssertionError(f"graph {dtype} {kind}: steps "
-                                     f"{gr['steps']}, eager {e['steps']}")
+            w0 = 0
+            for i, (name, n, prompts) in enumerate(GRAPH_CALLS):
+                xa = xa_all[w0:w0 + n]
+                w0 += n
+                toks, pads, P = d._pack_prompts(prompts)
+                kw = dict(pad_lens=torch.from_numpy(pads).cuda()) \
+                    if any(prompts) else {}
+                if not kw:
+                    P = len(d._initial_tokens(None))
+                    toks = toks[:, -P:]
+                prompt = torch.from_numpy(toks).cuda()
+                e, gr = (decode_run(loop, K, xa, P, prompt, graph=graph,
+                                    **kw) for graph in (False, None))
+                reused = i >= 2
+                check_graphed_call(f"graph {dtype} {kind} call {i + 1} "
+                                   f"(key {name}, {n * K} rows)", e, gr,
+                                   reused)
+            del d, loop
+        if dtype == "bfloat16":
+            check_sampled_reuse(model, tok, xa_all, max_new)
         for beams in (1, 5):
             log(f"graph {dtype}: " + step_kernels(model, beams))
         if dtype == "bfloat16":
-            time_finished_interval(model, tok, xa)
-        del model, xa
+            time_finished_interval(model, tok, xa_all[:3])
+        del model, xa_all
     ms = {f"{k[0].replace('torch.', '')} {k[1]} rows": round(v, 3)
           for k, v in STEP_DEVICE_MS.items()}
     replay = {f"{k[0].replace('torch.', '')} {k[1]} rows":
@@ -1977,6 +1974,104 @@ def check_graph_decode(max_new: int = 32) -> None:
     import notsofar_tpu_torch.asr.inference as inf
     inf._MODEL_CACHE.pop("None/large-v3/int8/cuda", None)
     torch.cuda.empty_cache()
+
+
+# phase 3b's decode calls on one decoder, in order: (key, windows, each
+# window's prompt); key B's prompts are right-aligned in a 16-token bucket
+# with left pads (the prompted ladder's packing; its int8 prefill takes
+# the dequantized cross-attention path)
+GRAPH_CALLS = (("A", 3, [None] * 3), ("B", 2, [list(range(300, 311)), None]),
+               ("A", 3, [None] * 3), ("A", 3, [None] * 3))
+
+
+def decode_run(loop, K: int, xa, prompt_len: int, prompt, **kw) -> dict:
+    """One decode call timed by the host clock to a synchronize after it,
+    with the launches, decoder calls and DECODE_STEPS it added."""
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    dec.reset_decoder_calls()
+    dec.reset_decode_steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, stats = loop(xa, prompt_len, prompt, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = dict(dec.DECODE_STEPS)
+    return dict(tokens=tokens, lp=stats[:, :K], stats=stats,
+                launches=dict(kernels.LAUNCHES),
+                calls=dict(dec.DECODER_CALLS), steps=steps, wall=wall,
+                n=steps["eager"] + steps["replayed"])
+
+
+def check_graphed_call(label: str, e: dict, gr: dict, reused: bool) -> None:
+    """A graphed decode call against the eager loop on the same inputs:
+    tokens equal, sum_logprob within 1e-4, launches and decoder calls
+    equal, the same steps; a reused key's call captures nothing and runs
+    no step eagerly, a new key's captures three graphs and runs step 0
+    eagerly."""
+    st = gr["steps"]
+    diff = (e["lp"] - gr["lp"]).abs().max().item()
+    before = st["prefill_s"] + st["step0_s"] + st["capture_s"]
+    log(f"{label}: {'hit' if st['hits'] else 'miss'}, {gr['n']} steps, "
+        f"tokens equal {torch.equal(e['tokens'], gr['tokens'])}, "
+        f"sum_logprob max abs diff {diff:.3e} (tolerance 1e-4), launches "
+        f"equal {e['launches'] == gr['launches']}, decoder calls equal "
+        f"{e['calls'] == gr['calls']}; ms a call {gr['wall'] * 1e3:.2f} "
+        f"(eager {e['wall'] * 1e3:.2f}: {e['wall'] / e['n'] * 1e3:.2f} ms a "
+        f"step); host s before the first replayed step {before:.4f} "
+        f"(set-up {st['prefill_s']:.4f}, step 0 {st['step0_s']:.4f}, "
+        f"capture {st['capture_s']:.4f}; {st['captures']} graphs); "
+        + host_breakdown(st, gr["wall"]))
+    if not torch.equal(e["tokens"], gr["tokens"]) or not diff <= 1e-4:
+        raise AssertionError(f"{label}: the graphed decode differs from "
+                             "the eager loop")
+    if e["launches"] != gr["launches"] or e["calls"] != gr["calls"]:
+        raise AssertionError(f"{label}: launches {gr['launches']} / "
+                             f"{gr['calls']}, eager {e['launches']} / "
+                             f"{e['calls']}")
+    want = dict(captures=0, eager=0, hits=1) if reused else \
+        dict(captures=3, eager=1, misses=1)
+    if not (all(st[k] == v for k, v in want.items())
+            and gr["n"] == e["n"] > 1 and st["replayed"] == gr["n"]
+            - st["eager"]):
+        raise AssertionError(f"{label}: steps {st}, eager {e['steps']}")
+
+
+def check_sampled_reuse(model, tok, xa_all, max_new: int) -> None:
+    """A sampled rung of the fallback ladder (greedy, temperature 0.6,
+    fresh per-row generators, as transcribe's batched ladder makes them)
+    twice on one key of one decoder: each graphed call (a miss, then a
+    hit) draws what the eager loop draws from the same fresh
+    generators: tokens equal, scores within 1e-4, the generators' states
+    equal afterwards."""
+    from notsofar_tpu_torch.asr import decoding as dec
+    from notsofar_tpu_torch.asr.transcribe import fallback_generator
+    d = dec.GreedyDecoder(model, tok, dec.DecodeOptions(
+        max_new_tokens=max_new))
+    toks, pads, P = d._pack_prompts([[300, 301], None, [402]])
+    prompt = torch.from_numpy(toks).cuda()
+    pads = torch.from_numpy(pads).cuda()
+    for i, (w0, seeks) in enumerate(((0, (0, 3000, 6000)),
+                                     (3, (9000, 12000, 15000)))):
+        gens = {m: [fallback_generator(s, 3, torch.device("cuda"))
+                    for s in seeks] for m in ("eager", "graphed")}
+        runs = {m: decode_run(d._decode_loop, 1, xa_all[w0:w0 + 3], P,
+                              prompt, generator=None, temperature=0.6,
+                              pad_lens=pads, row_generators=gens[m],
+                              graph=None if m == "graphed" else False)
+                for m in ("eager", "graphed")}
+        e, gr = runs["eager"], runs["graphed"]
+        same_gens = all(torch.equal(a.get_state(), b.get_state())
+                        for a, b in zip(gens["eager"], gens["graphed"]))
+        check_graphed_call(f"graph sampled greedy call {i + 1} (3 rows, "
+                           "temperature 0.6, per-row generators)", e, gr,
+                           reused=i > 0)
+        log(f"graph sampled greedy call {i + 1}: generator states after "
+            f"the call equal {same_gens}")
+        if not same_gens:
+            raise AssertionError("graph sampled: the graphed call left its "
+                                 "generators elsewhere than the eager loop")
 
 
 FINISHED_EOT_SCALE = 4.0   # random weights alone rarely end a decode
@@ -2090,32 +2185,24 @@ def attn_step_traffic(label: str):
     chiprun_out/attn_step_traffic.json."""
     from collections import Counter
     from notsofar_tpu_torch.asr import decoding as dec
-    from notsofar_tpu_torch.models.whisper import WhisperModel
-    hist, last = Counter(), {}
-    loop, empty = dec.GreedyDecoder._decode_loop, WhisperModel.empty_kv_caches
-
-    def empty_kv_caches(self, *args, **kwargs):
-        caches = empty(self, *args, **kwargs)
-        last["ctx"] = caches[0][0].shape[1]
-        return caches
+    hist = Counter()
+    loop = dec.GreedyDecoder._decode_loop
 
     def decode_loop(self, xa, prompt_len, *args, **kwargs):
         st = dec.DECODE_STEPS
         n0 = st["eager"] + st["replayed"]
         out = loop(self, xa, prompt_len, *args, **kwargs)
+        ctx = self._lengths(prompt_len)[1]
         for pos in range(prompt_len, prompt_len + st["eager"]
                          + st["replayed"] - n0):
-            hist[(xa.shape[0], last["ctx"], pos)] += \
-                self.model.dims.n_text_layer
+            hist[(xa.shape[0], ctx, pos)] += self.model.dims.n_text_layer
         return out
 
     dec.GreedyDecoder._decode_loop = decode_loop
-    WhisperModel.empty_kv_caches = empty_kv_caches
     try:
         yield hist
     finally:
         dec.GreedyDecoder._decode_loop = loop
-        WhisperModel.empty_kv_caches = empty
     ATTN_STEP_TRAFFIC[label] = [[*k, n] for k, n in sorted(hist.items())]
     (OUT / "attn_step_traffic.json").write_text(json.dumps(ATTN_STEP_TRAFFIC))
     by = {}
@@ -2174,8 +2261,9 @@ def check_decode_launches(label: str, counts: dict, quant: bool) -> None:
 
 def decode_steps_line(label: str, decode_s: float) -> str:
     """The decode loops' step counts since the last reset (graph captures,
-    their seconds, replayed against eager steps), decode ms per step and
-    the loops' host seconds (host_breakdown) as shares of decode s."""
+    their seconds, replayed against eager steps), decode ms per step, the
+    workspaces (workspace_line) and the loops' host seconds
+    (host_breakdown) as shares of decode s."""
     from notsofar_tpu_torch.asr import decoding as dec
     st = dec.DECODE_STEPS
     n = st["eager"] + st["replayed"]
@@ -2183,28 +2271,48 @@ def decode_steps_line(label: str, decode_s: float) -> str:
             f"CUDA graphs, {st['eager']} eager), {st['captures']} graph "
             f"captures in {st['capture_s']:.3f} s, "
             f"{decode_s / max(n, 1) * 1e3:.2f} ms per step; "
-            + host_breakdown(st, decode_s))
+            + workspace_line() + "; " + host_breakdown(st, decode_s))
+
+
+def workspace_line() -> str:
+    """Decode calls since the last reset of asr.decoding.DECODE_STEPS,
+    those whose key had a workspace (hits) or needed one (misses), the
+    workspaces evicted for the budget, the bytes the workspaces held
+    after the last call, and the card's peak memory since the last reset
+    of its statistics."""
+    from notsofar_tpu_torch.asr import decoding as dec
+    st = dec.DECODE_STEPS
+    return (f"decode calls {st['calls']} (hits {st['hits']}, misses "
+            f"{st['misses']}, hit rate "
+            f"{st['hits'] / max(st['calls'], 1):.3f}), evictions "
+            f"{st['evictions']}, the workspaces holding "
+            f"{st['workspace_bytes'] / 2 ** 30:.3f} GiB after the last call "
+            f"(budget {dec.WORKSPACE_BUDGET / 2 ** 30:.0f} GiB); peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+            f"GiB, reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.2f}"
+            " GiB")
 
 
 def host_breakdown(st: dict, wall: float) -> str:
     """Where a decode loop's host time went (asr.decoding.DECODE_STEPS):
     each decode call's fixed cost (the set-up before its first step, step
-    0, eager, and the graph capture) as seconds and shares of `wall`; per
+    0 -- eager or replayed -- and the graph captures, which only a key's
+    first call makes) as seconds and shares of `wall` and per call; per
     replayed step the graph's launch, the counters and the wait on the
     finished.all() read, in ms; and what `wall` holds beyond them (work
     around the decode calls: the fallback ladder's packing, the results'
     copy to the host). Host clocks: a part's device work that runs on
     while the host goes on is counted where the host waits for it."""
     n = max(st["replayed"], 1)
-    calls = max(st["captures"], 1)     # a graphed decode call captures once
+    calls = max(st["calls"], 1)
     fixed = {k: st[k] for k in ("prefill_s", "step0_s", "capture_s")}
     per = {k: st[k] / n * 1e3 for k in ("launch_s", "count_s", "read_s")}
     n_all = st["eager"] + st["replayed"]
     rest = wall - sum(fixed.values()) - sum(
         st[k] for k in ("launch_s", "count_s", "read_s"))
     return (f"wall {wall:.4f} s, {wall / max(n_all, 1) * 1e3:.4f} ms per "
-            f"step; fixed ({st['captures']} graphed decode calls; s, share "
-            "of wall, s per call) " + ", ".join(
+            f"step; fixed ({st['calls']} decode calls, {st['misses']} "
+            "misses; s, share of wall, s per call) " + ", ".join(
                 f"{k} {v:.4f} ({v / max(wall, 1e-9):.4f}, {v / calls:.4f})"
                 for k, v in fixed.items())
             + f"; per replayed step (ms, {st['replayed']} steps) "
@@ -3548,7 +3656,11 @@ def check_train_step():
     inputs whose sign differs between the devices, and the same errors
     between the CPU and the CPU with the batch's two rows swapped (the
     same math, sums in another order)."""
+    from unittest import mock
+
+    from notsofar_tpu_torch.models import conformer
     from notsofar_tpu_torch.training import parity
+    from notsofar_tpu_torch.training import train as T
 
     cfg = recipe_config()
     lr = cfg.learning_rate
@@ -3561,6 +3673,15 @@ def check_train_step():
         ref, t_cpu, s_cpu = train_step_record(cfg, "cpu")
         swap, _, _ = train_step_record(cfg, "cpu", rows=(1, 0))
         bad, _, _ = train_step_record(cfg, "cuda", mutant=True)
+        # cuDNN's TF32 at PyTorch's default (on): the port's guard alone
+        # (utils.device.cudnn_f32 around the conv and the backward), then
+        # the guard bypassed
+        torch.backends.cudnn.allow_tf32 = True
+        guarded = train_step_record(cfg, "cuda")
+        with mock.patch.object(conformer, "cudnn_f32",
+                               contextlib.nullcontext), \
+                mock.patch.object(T, "cudnn_f32", contextlib.nullcontext):
+            allowed = train_step_record(cfg, "cuda")
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = tf32
@@ -3592,6 +3713,17 @@ def check_train_step():
             f"{k} {v:.3g}" for k, v in noise.items() if k != "tight"))
     log(f"train step mutant ({TRAIN_MUTANT}'s gradient negated): "
         f"{len(mut)} mismatches, e.g. {mut[:3]}")
+    for label, (rec, secs, signs) in (
+            ("cuDNN TF32 off for the step (as above)", (got, t_card, s_card)),
+            ("cuDNN TF32 on, the port's f32 guard", guarded),
+            ("cuDNN TF32 on, the guard bypassed", allowed)):
+        r = parity.error_ratios(ref, rec, rtol, lr, srtol)
+        n_flip = sum(int((a != b).sum()) for a, b in zip(signs, s_cpu))
+        log(f"train step TF32, {label}: card against CPU, gradients "
+            f"{100 * rtol * r['grad']:.3f}% and first moments "
+            f"{100 * rtol * r['exp_avg']:.3f}% of their scale, ReLU sign "
+            f"flips {n_flip} of {units}; loss {rec['scalars']['loss']!r}; "
+            f"card {secs:.3f} s")
     if mism:
         raise AssertionError(f"train step card vs CPU: {mism[:10]}")
     if not any(m.startswith(f"update {TRAIN_MUTANT}") for m in mut):
@@ -4012,6 +4144,7 @@ def run_validate(work: Path) -> dict:
     card, TF32's effect on MarbleNet and the MSDD (logged), and the two
     mutants. Returns the launches of the validator's run."""
     import os
+    from notsofar_tpu_torch.asr import decoding as dec
     from notsofar_tpu_torch.ops import kernels
     from notsofar_tpu_torch.tools import validate_real_weights as V
     from notsofar_tpu_torch.utils.profiling import trace
@@ -4046,11 +4179,15 @@ def run_validate(work: Path) -> dict:
     try:
         for name, fn in VALIDATE_CHECKS:
             setattr(V, fn, counted(name, saved[fn]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dec.reset_decode_steps()
         t0 = time.perf_counter()
         rc = V.main(["--models-dir", str(models), "--meetings-dir",
                      str(meetings), "--whisper-model", PIPELINE_WHISPER,
                      "--out-dir", str(work / "validate_out")])
         wall = time.perf_counter() - t0
+        log("validate: " + workspace_line())
         results = list(V.RESULTS)
         for name, fn in VALIDATE_CHECKS:
             setattr(V, fn, saved[fn])

@@ -1,12 +1,14 @@
 """Batched beam-search decoding for Whisper (beam_size=5 in the shipped
 config).
 
-Port of notsofar_tpu/asr/beam.py. A prefill, then one step function
-(GreedyDecoder._run_steps: step 0 eagerly, the later steps one CUDA graph
-replayed on the card); state is kept per (batch, beam) in tensors updated
-in place: cumulative logprobs, finished latches, per-beam timestamp-rule
-state, and the token buffer, which is reordered with the same gather as
-the state (no host-side genealogy backtracking).
+Port of notsofar_tpu/asr/beam.py. A set-up (the prompt's prefill), then
+one step function, in a workspace kept per key with three CUDA graphs
+replayed on the card (GreedyDecoder._run_call, _run_steps), as the JAX
+package's jitted _beam_scan is compiled once per shape; state is kept per
+(batch, beam) in tensors updated in place: cumulative logprobs, finished
+latches, per-beam timestamp-rule state, and the token buffer, which is
+reordered with the same gather as the state (no host-side genealogy
+backtracking).
 
 The self-attention cache is split: a prompt segment [B, P, D] written
 once at prefill and shared by each stream's K beams, and a generated
@@ -29,8 +31,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from notsofar_tpu_torch.asr.decoding import (DECODE_STEPS, NEG_INF,
-                                             DecodeOptions, GreedyDecoder)
+from notsofar_tpu_torch.asr.decoding import (NEG_INF, DecodeOptions,
+                                             DecodeWorkspace, GreedyDecoder)
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import WhisperModel
 
@@ -62,9 +64,9 @@ class BeamDecoder(GreedyDecoder):
                    graph: Optional[bool] = None):
         """xa: [B, 1500, D]; prompt_tokens: [B, P]. pad_lens: optional [B]
         left-pad widths for per-row prompts (see GreedyDecoder). graph: see
-        GreedyDecoder._run_steps (None: a CUDA graph on the card). Returns
-        (tokens [B, K, max_new], stats [B, 2K+1] = sum_lp || length ||
-        no_speech_prob)."""
+        GreedyDecoder._decode_loop (None: the key's CUDA graphs on the
+        card). Returns (tokens [B, K, max_new], stats [B, 2K+1] = sum_lp ||
+        length || no_speech_prob), tensors of their own."""
         t_call = time.perf_counter()
         model, tok = self.model, self.tok
         dev = xa.device
@@ -75,52 +77,81 @@ class BeamDecoder(GreedyDecoder):
         d = model.dims
         use_split = (self.split_cache and d.n_text_state % 128 == 0
                      and d.n_text_state // d.n_text_head in (64, 128))
-        max_new = min(self.opt.max_new_tokens, d.n_text_ctx - prompt_len)
+        max_new, cache_len = self._lengths(prompt_len)
         P = prompt_tokens.shape[1]
-        cross_kvs = self._cross_kvs(xa)
         sot_pos = self._sot_pos(prompt_len)
-        pad_k = pad_lens.repeat_interleave(K) if pad_lens is not None \
-            else None
         if use_split:
             # the prompt is identical across a stream's K beams: prefill at
             # batch B into the shared prompt segment
             G = -(-max_new // 64) * 64
-            prompt_caches = self._zeros_caches(B, P)
-            logits, prompt_caches, _ = self.model.decoder(
-                prompt_tokens, xa, 0, prompt_caches, cross_kvs=cross_kvs,
-                pad_lens=pad_lens)
-            nsp = torch.softmax(logits[:, sot_pos], dim=-1)[:, tok.no_speech]
-            cur_logits = logits[:, -1].repeat_interleave(K, dim=0)
-            anc = torch.zeros((B, K, G), dtype=torch.int32, device=dev)
-            caches = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
-                      in zip(prompt_caches, self._zeros_caches(BK, G))]
             pos0 = P
         else:
-            prompt_k = prompt_tokens.repeat_interleave(K, dim=0)
-            caches = self._zeros_caches(
-                BK, min(-(-(max_new + prompt_len) // 64) * 64, d.n_text_ctx))
-            logits, caches, _ = self.model.decoder(
-                prompt_k, xa, 0, caches, cross_kvs=cross_kvs, pad_lens=pad_k)
-            nsp = torch.softmax(logits[::K, sot_pos],
-                                dim=-1)[:, tok.no_speech]
-            cur_logits = logits[:, -1].contiguous()
-            pos0 = prompt_len
+            G, pos0 = cache_len, prompt_len
+        graph = xa.is_cuda if graph is None else bool(graph)
+        key = self._key(f"beam{K}", xa, graph, prompt_len, B, P, G, max_new,
+                        use_split, self.cache_dtype, pad_lens is not None)
 
-        # the loop's state: every tensor the steps update in place
-        st = self._init_state(BK)
-        tokens = torch.full((BK, max_new), self._eot, dtype=torch.long,
-                            device=dev)
-        sum_lp = torch.where(torch.arange(K, device=dev) == 0, 0.0,
-                             NEG_INF).repeat(B)
-        step_t = torch.zeros((), dtype=torch.long, device=dev)
-        eot_only = torch.full((V,), NEG_INF, device=dev)
-        eot_only[self._eot] = 0.0
-        # anc[:, :, step] = j: each beam owns the slot it writes
-        own_slot = torch.arange(K, dtype=torch.int32, device=dev)[
-            None, :, None].expand(B, K, 1).contiguous()
-        row0 = torch.arange(B, device=dev)[:, None] * K
+        def make() -> DecodeWorkspace:
+            if use_split:
+                anc = torch.zeros((B, K, G), dtype=torch.int32, device=dev)
+                caches = [(kp, vp, kg, vg, anc) for (kp, vp), (kg, vg)
+                          in zip(self._zeros_caches(B, P),
+                                 self._zeros_caches(BK, G))]
+            else:
+                caches = self._zeros_caches(BK, G)
+            eot_only = torch.full((V,), NEG_INF, device=dev)
+            eot_only[self._eot] = 0.0
+            return DecodeWorkspace(
+                dev, 0, self._init_state(BK), caches=caches,
+                tokens=torch.empty((BK, max_new), dtype=torch.long,
+                                   device=dev),
+                sum_lp=torch.empty(BK, dtype=torch.float32, device=dev),
+                sum_lp0=torch.where(torch.arange(K, device=dev) == 0, 0.0,
+                                    NEG_INF).repeat(B),
+                step_t=torch.empty((), dtype=torch.long, device=dev),
+                eot_only=eot_only,
+                # anc[:, :, step] = j: each beam owns the slot it writes
+                own_slot=torch.arange(K, dtype=torch.int32, device=dev)[
+                    None, :, None].expand(B, K, 1).contiguous(),
+                row0=torch.arange(B, device=dev)[:, None] * K)
+
+        ws, fresh = self._workspace(key, make)
+        ws.load(xa, prompt_tokens, pad_lens, ())
+        t, st, caches = ws.t, ws.st, ws.t["caches"]
+        tokens, sum_lp, step_t = t["tokens"], t["sum_lp"], t["step_t"]
+        eot_only, own_slot, row0 = t["eot_only"], t["own_slot"], t["row0"]
+        anc = caches[0][4] if use_split else None
+        pads = t["pads"] if pad_lens is not None else None
+
+        def setup() -> None:
+            cross = self._setup_cross(ws)
+            for cache in caches:
+                for c in cache:
+                    c.zero_()
+            pad_k = ws.into("pad_k", pads.repeat_interleave(K)) \
+                if pads is not None else None
+            if use_split:
+                logits, _, _ = model.decoder(
+                    t["prompt"], t["xa"], 0, [c[:2] for c in caches],
+                    cross_kvs=cross, pad_lens=pads)
+                ws.into("nsp", torch.softmax(logits[:, sot_pos],
+                                             dim=-1)[:, tok.no_speech])
+                ws.into("cur_logits",
+                        logits[:, -1].repeat_interleave(K, dim=0))
+            else:
+                logits, _, _ = model.decoder(
+                    t["prompt"].repeat_interleave(K, dim=0), t["xa"], 0,
+                    caches, cross_kvs=cross, pad_lens=pad_k)
+                ws.into("nsp", torch.softmax(logits[::K, sot_pos],
+                                             dim=-1)[:, tok.no_speech])
+                ws.into("cur_logits", logits[:, -1])
+            tokens.fill_(self._eot)
+            self._reset_state(st)
+            sum_lp.copy_(t["sum_lp0"])
+            step_t.zero_()
 
         def step(first: bool) -> None:
+            cur_logits = t["cur_logits"]
             lg = self._filter(cur_logits, st, 0 if first else 1)
             lp = torch.log_softmax(lg, dim=-1)                  # [BK, V]
             # finished beams: only eot, contributing zero logprob
@@ -156,18 +187,18 @@ class BeamDecoder(GreedyDecoder):
             for k, v in new.items():
                 st[k].copy_(v)
             sum_lp.copy_(top_lp.reshape(BK))
-            new_logits, _, _ = self.model.decoder(
-                next_tok[:, None], xa, pos0 + step_t, caches,
-                cross_kvs=cross_kvs, pad_lens=pad_k)
+            new_logits, _, _ = model.decoder(
+                next_tok[:, None], t["xa"], pos0 + step_t, caches,
+                cross_kvs=ws.cross, pad_lens=t.get("pad_k"))
             cur_logits.copy_(new_logits[:, 0])
             step_t.add_(1)
 
-        DECODE_STEPS["prefill_s"] += time.perf_counter() - t_call
-        self._run_steps(step, max_new, st["finished"], graph)
+        self._run_call(ws, setup, step, max_new, graph, t_call, ())
+        self._finish_call(ws, fresh, ())
         stats = torch.cat([sum_lp.reshape(B, K),
                            st["length"].reshape(B, K).float(),
-                           nsp[:, None]], dim=1)
-        return tokens.reshape(B, K, max_new), stats
+                           t["nsp"][:, None]], dim=1)
+        return tokens.reshape(B, K, max_new).clone(), stats
 
     # ------------------------------------------------------------------
     def decode(self, xa: torch.Tensor,

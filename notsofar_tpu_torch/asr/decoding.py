@@ -1,20 +1,31 @@
 """Batched Whisper decoding: greedy/sampled decode with whisper's logit
 filters, and word timestamps from a teacher-forced alignment pass.
 
-Port of notsofar_tpu/asr/decoding.py. The JAX package runs each decode as
-one jitted ``lax.while_loop``; here a decode is a prefill, then one step
-function whose state (caches, token buffer, filter state, scores, the
-step counter and cache position) lives in tensors it updates in place.
-Step 0 runs eagerly (its logit filters differ); on the card the later
-steps are one CUDA graph, captured once per decode call and replayed step
-after step (utils/cuda_graph.py); on the CPU the same function runs
-eagerly. The loop reads ``finished.all()`` every FINISHED_CHECK_EVERY
-steps, never past max_new_tokens, and keeps one step queued ahead of the
-host: the read of step i is copied to pinned host memory behind an event
-and waited on only once step i + 1 is enqueued, so at most one step runs
-past the one where every row finished. Rows that finished emit EOT and
-add 0 log-probability, so extra steps change nothing and the check only
-saves steps.
+Port of notsofar_tpu/asr/decoding.py. The JAX package compiles each
+decode call once per shape (``jit`` of the cross-K/V projection, the
+prompt's prefill and one ``lax.while_loop``) and runs the cached program
+at every later call of that shape. Here a decode call is a set-up (the
+state's reset, the cross-attention memory, the prompt's prefill and the
+no-speech probability), then one step function, step 0 with its own
+logit filters and the later steps alike; every tensor they read or write
+lives in a DecodeWorkspace kept per key (what the JAX program is
+compiled on: loop kind, rows, prompt length, cache length, max_new,
+sampling mode, dtype, int8 flags, pads, ...; the temperature is read
+from device memory, so one graph serves every rung of the fallback
+ladder). On the
+card the key's first call runs the set-up and step 0 eagerly and
+captures three CUDA graphs (set-up, step 0, step; utils/cuda_graph.py);
+every later call of the key copies its inputs into the workspace and
+replays them, capturing nothing. The workspaces sit in a least-recently-
+used cache bounded by WORKSPACE_BUDGET bytes. On the CPU the same
+functions run eagerly in the same workspaces. The loop reads
+``finished.all()`` every FINISHED_CHECK_EVERY steps, never past
+max_new_tokens, and keeps one step queued ahead of the host: the read of
+step i is copied to pinned host memory behind an event and waited on
+only once step i + 1 is enqueued, so at most one step runs past the one
+where every row finished. Rows that finished emit EOT and add 0
+log-probability, so extra steps change nothing and the check only saves
+steps.
 
 Logit filters (pure functions of a small per-row state):
 
@@ -49,7 +60,8 @@ from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import (  # noqa: F401 (re-exported)
     DECODER_CALLS, WhisperModel, reset_decoder_calls)
 from notsofar_tpu_torch.ops import kernels
-from notsofar_tpu_torch.utils.cuda_graph import StepGraph, capture_stream
+from notsofar_tpu_torch.utils.cuda_graph import (StepGraph, WorkspaceCache,
+                                                 capture_stream)
 
 NEG_INF = -1e30
 
@@ -111,21 +123,123 @@ class DecodeOptions:
     cross_kv_quant: bool = False
 
 
-# decode steps run eagerly and replayed from CUDA graphs, graph captures
-# and the seconds they took, in this process; and the loops' host seconds:
-# each call's set-up before its first step (caches, cross-attention
-# memory, the prompt's forward), step 0 (eager, the graphs' warm-up), the
-# replays' launches, the counters they bump, and the waits on
-# finished.all() reads
-DECODE_STEPS: Dict[str, float] = {"eager": 0, "replayed": 0, "captures": 0,
+# the bytes the decode workspaces of this process may hold (their tensors
+# and their graphs' pools) before the least recently used one goes; a
+# workspace weighs about 0.9 GB at large-v3, greedy, 3 rows in bf16, 1.4 GB
+# at beam 5 on 3 streams and 8-11 GB at the int8 pipeline's 45-48 rows, so
+# the int8 beam rung and two sampled rungs fit beside the models, the CSS
+# engine and TitaNet on an 80 GB card
+WORKSPACE_BUDGET = 24 << 30
+
+# the decode workspaces by (decoder, key)
+WORKSPACES = WorkspaceCache()
+
+# in this process: decode calls, the calls whose key had a workspace (hits)
+# or needed a new one (misses), the workspaces evicted for the budget and
+# the bytes the workspaces hold now; decode steps run eagerly and replayed
+# from CUDA graphs, the graphs captured (three at a key's first call on the
+# card) and the seconds they took; and the loops' host seconds: each
+# call's set-up before step 0 (the copy of its inputs, then the set-up
+# eagerly or its graph's replay), step 0 (eager, the graphs' warm-up, or
+# its graph's replay), the later steps' replays, the counters they bump,
+# and the waits on finished.all() reads
+DECODE_STEPS: Dict[str, float] = {"calls": 0, "hits": 0, "misses": 0,
+                                  "evictions": 0, "workspace_bytes": 0,
+                                  "eager": 0, "replayed": 0, "captures": 0,
                                   "capture_s": 0.0, "prefill_s": 0.0,
                                   "step0_s": 0.0, "launch_s": 0.0,
                                   "count_s": 0.0, "read_s": 0.0}
 
 
 def reset_decode_steps() -> None:
+    """Zero the counts; workspace_bytes reads what is held now."""
     for k in DECODE_STEPS:
         DECODE_STEPS[k] = 0
+    DECODE_STEPS["workspace_bytes"] = WORKSPACES.nbytes
+
+
+# what a graph of the decode loops counts in Python (see StepGraph)
+_COUNTERS = (kernels.LAUNCHES, DECODER_CALLS)
+
+
+class DecodeWorkspace:
+    """The tensors and CUDA graphs of one decode key, kept across calls.
+
+    t: every tensor the set-up, step 0 and the step read or write -- the
+    inputs (xa, prompt, pads), the caches, the cross-attention memory
+    (int8 and the products the int8 step reads where quantized), the
+    loop's state and constants -- allocated outside the graphs' captures:
+    the shapes known from the key when the workspace is made, the rest at
+    the key's first set-up, which runs eagerly (``into``). st: the logit
+    filters' state. gens: the generators the steps draw from; each call
+    loads its generators' states into them and hands the advanced states
+    back. On the card: the set-up graph and the (step 0, step) graphs,
+    captured at the key's first call into a pool of the workspace's own.
+    nbytes: the tensors' bytes and the pool's (measure())."""
+
+    def __init__(self, device: torch.device, n_gens: int, st: Dict,
+                 **tensors: torch.Tensor):
+        self.device = device
+        self.gens = [torch.Generator(device=device) for _ in range(n_gens)]
+        self.st = st
+        self.t: Dict = dict(tensors)
+        self.cross: List = []
+        self.setup_graph: Optional[StepGraph] = None
+        self.step_graphs: Optional[Tuple[StepGraph, StepGraph]] = None
+        self._pool = None
+        self.nbytes = 0
+
+    def into(self, name, value: torch.Tensor) -> torch.Tensor:
+        """Copy `value` into the workspace's tensor `name` (made like it at
+        the first call) and return that tensor."""
+        buf = self.t.get(name)
+        if buf is None:
+            buf = self.t[name] = torch.empty_like(
+                value, memory_format=torch.contiguous_format)
+        return buf.copy_(value)
+
+    def load(self, xa: torch.Tensor, prompt: torch.Tensor,
+             pads: Optional[torch.Tensor],
+             generators: Sequence[torch.Generator]) -> None:
+        """A call's inputs into the workspace."""
+        self.into("xa", xa)
+        self.into("prompt", prompt)
+        if pads is not None:
+            self.into("pads", pads)
+        for mine, theirs in zip(self.gens, generators):
+            mine.set_state(theirs.get_state())
+
+    def hand_back(self, generators: Sequence[torch.Generator]) -> None:
+        """The generators' states after the call, back to the caller's."""
+        for mine, theirs in zip(self.gens, generators):
+            theirs.set_state(mine.get_state())
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def measure(self) -> None:
+        seen, n = set(), 0
+        todo = [*self.t.values(), *self.st.values()]
+        while todo:
+            x = todo.pop()
+            if isinstance(x, (list, tuple)):
+                todo.extend(x)
+            elif isinstance(x, torch.Tensor) and \
+                    x.untyped_storage().data_ptr() not in seen:
+                seen.add(x.untyped_storage().data_ptr())
+                n += x.untyped_storage().nbytes()
+        graphs = [self.setup_graph, *(self.step_graphs or ())]
+        self.nbytes = n + sum(g.pool_bytes for g in graphs if g is not None)
+
+    def release(self) -> None:
+        """Drop the graphs and tensors (evicted). The card finishes what
+        it has queued first: a graph being replayed is not destroyed."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.setup_graph = self.step_graphs = self._pool = None
+        self.t, self.st, self.cross, self.nbytes = {}, {}, [], 0
 
 
 class _FinishedRead:
@@ -153,6 +267,24 @@ class _FinishedRead:
             self.event.synchronize()
             return bool(self.host)
         return self.value
+
+
+def set_temperature(buf: torch.Tensor, temperature: float) -> None:
+    """Write `temperature` into a sampled step's 0-d f32 tensor `buf`, the
+    form by_temperature reads: one graph then serves every temperature of
+    the fallback ladder. On the card the f32 reciprocal (PyTorch's CUDA
+    division by a host scalar is the product with its f32 reciprocal),
+    on the CPU the temperature itself."""
+    if buf.is_cuda:
+        buf.fill_(float(np.float32(1.0) / np.float32(temperature)))
+    else:
+        buf.fill_(temperature)
+
+
+def by_temperature(logits: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """``logits / temperature`` bit for bit, with the temperature read
+    from device memory (set_temperature)."""
+    return logits * buf if logits.is_cuda else logits / buf
 
 
 def gumbel_noise(shape, generator: torch.Generator,
@@ -204,6 +336,10 @@ class GreedyDecoder:
         self._is_text = vocab < self._eot
         self._vocab = vocab
         self._bad_first = ~self._is_ts | (vocab > self._max_initial_ts)
+        # their promoted parameters (LayerNorm._params_as) are host state a
+        # graph reads: a workspace's key holds what that cache is keyed on
+        self._layer_norms = [m for m in model.decoder.modules()
+                             if isinstance(m, torch.nn.LayerNorm)]
 
     # ------------------------------------------------------------------
     def _apply_timestamp_rules(self, logits, prev_was_ts, prev_prev_was_ts,
@@ -258,24 +394,118 @@ class GreedyDecoder:
             length=torch.zeros(rows, dtype=torch.long, device=dev),
             finished=torch.zeros(rows, dtype=torch.bool, device=dev))
 
-    def _cross_kvs(self, xa: torch.Tensor):
-        """The decode loop's cross-attention memory: projected once, and
-        quantized to int8 when the options ask for it."""
-        cross_kvs = self.model.precompute_cross_kv(xa)
-        if self.opt.cross_kv_quant:
-            cross_kvs = self.model.quantize_cross_kv(cross_kvs)
-        return cross_kvs
+    def _reset_state(self, st: Dict) -> None:
+        """_init_state's values, in place (a workspace's set-up)."""
+        for k in ("prev_was_ts", "prev_prev_was_ts", "any_ts", "length",
+                  "finished"):
+            st[k].zero_()
+        st["last_ts"].fill_(self._ts_begin)
+
+    def _key(self, kind: str, xa: torch.Tensor, graph: bool,
+             prompt_len: int, *shape) -> tuple:
+        """A decode call's workspace key: what the JAX package compiles
+        its decode program on (kind, prompt_len and `shape`: rows, cache
+        length, max_new, sampling mode, pads given, ...; not the
+        temperature, which the step reads from device memory),
+        the encoder output's shape and dtype, the model's dtype and int8
+        flags, the index the no-speech probability is read at, whether the
+        call is graphed, and what the layer norms' promoted parameters are
+        cached on (host state a graph reads)."""
+        m = self.model
+        norms = tuple((n.weight.data_ptr(), n.weight._version,
+                       n.bias.data_ptr(), n.bias._version)
+                      for n in self._layer_norms)
+        return (kind, prompt_len, *shape, tuple(xa.shape[1:]), xa.dtype,
+                xa.device, m.dtype, m.quant_decoder, self.opt.cross_kv_quant,
+                self._sot_pos(prompt_len), graph, norms)
+
+    def _workspace(self, key: tuple, make) -> Tuple[DecodeWorkspace, bool]:
+        """The workspace of `key` (made by make() where there is none, and
+        fitted into WORKSPACE_BUDGET); with whether it is new."""
+        DECODE_STEPS["calls"] += 1
+        ws = WORKSPACES.get(self, key)
+        if ws is not None:
+            DECODE_STEPS["hits"] += 1
+            return ws, False
+        DECODE_STEPS["misses"] += 1
+        ws = make()
+        ws.measure()
+        DECODE_STEPS["evictions"] += WORKSPACES.put(self, key, ws,
+                                                    WORKSPACE_BUDGET)
+        return ws, True
+
+    def _setup_cross(self, ws: DecodeWorkspace) -> List:
+        """The set-up's cross-attention memory: the k/v projections of the
+        workspace's xa, quantized to int8 when the options ask for it,
+        into the workspace one layer at a time (so that one layer's
+        temporaries are alive at once; the same operations in the same
+        order, so the same values, as projecting every layer first). The
+        int8 step's products of the memory's scales are made here too
+        (MHA.bind_q_scales)."""
+        model, cross = self.model, []
+        for i, blk in enumerate(model.decoder.blocks):
+            (k, v), = model.precompute_cross_kv(ws.t["xa"], layers=[i])
+            if self.opt.cross_kv_quant:
+                (*mem, s_valid), = model.quantize_cross_kv([(k, v)])
+                mem = [ws.into(("cross", i, j), x) for j, x in enumerate(mem)]
+                ws.t[("q", i)] = blk.cross_attn.bind_q_scales(
+                    mem[1], mem[3], ws.t.get(("q", i)))
+                cross.append((*mem, s_valid))
+            else:
+                cross.append((ws.into(("cross", i, 0), k),
+                              ws.into(("cross", i, 1), v)))
+            del k, v
+        ws.cross = cross
+        return cross
+
+    def _run_call(self, ws: DecodeWorkspace, setup, step, max_new: int,
+                  graph: bool, t_call: float, gens) -> None:
+        """A decode call in its workspace: the set-up, then the steps
+        (_run_steps). Graphed, the key's first call runs the set-up
+        eagerly on the capture stream and captures it; later calls replay
+        it. DECODE_STEPS takes the set-up's host seconds (from t_call) and
+        the capture's apart."""
+        if not graph:
+            setup()
+        elif ws.setup_graph is None:
+            cur, side = torch.cuda.current_stream(), capture_stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                setup()
+            cur.wait_stream(side)
+            t = time.perf_counter()
+            DECODE_STEPS["prefill_s"] += t - t_call
+            ws.setup_graph = StepGraph(setup, _COUNTERS, pool=ws.pool())
+            DECODE_STEPS["captures"] += 1
+            DECODE_STEPS["capture_s"] += ws.setup_graph.capture_s
+            t_call = time.perf_counter()
+        else:
+            ws.setup_graph.replay()
+        DECODE_STEPS["prefill_s"] += time.perf_counter() - t_call
+        self._run_steps(step, max_new, ws.st["finished"],
+                        ws if graph else False, gens)
+
+    def _finish_call(self, ws: DecodeWorkspace, fresh: bool, gens) -> None:
+        ws.hand_back(gens)
+        if fresh:
+            # the graphs' pool is known now
+            ws.measure()
+            DECODE_STEPS["evictions"] += WORKSPACES.fit(WORKSPACE_BUDGET)
+        DECODE_STEPS["workspace_bytes"] = WORKSPACES.nbytes
 
     def _run_steps(self, step, max_new: int, finished: torch.Tensor,
-                   graph: Optional[bool],
-                   generators: Sequence[torch.Generator] = ()) -> None:
+                   graph, generators: Sequence[torch.Generator] = ()
+                   ) -> None:
         """Decode steps 0 .. max_new - 1 through ``step(first)``, which
         updates the loop's state in place and advances its step counter;
-        stop early once ``finished`` is all true. Step 0 runs eagerly.
-        With ``graph`` (default: on a card) the later steps are one CUDA
-        graph of ``step(False)``, captured at the first of them and
-        replayed; without, they run eagerly (the CPU path, and the card's
-        comparison of the two).
+        stop early once ``finished`` is all true. graph: False runs every
+        step eagerly (the CPU path, and the card's comparison); else the
+        call's DecodeWorkspace: at its key's first call step 0 runs
+        eagerly on the capture stream (the warm-up), then ``step(True)``
+        and ``step(False)`` are captured into its step-0 and step graphs;
+        every later call replays step 0's graph; the later steps replay
+        the step graph. generators: the workspace's, registered with the
+        graphs.
 
         finished.all() is read after every FINISHED_CHECK_EVERY-th step:
         the read after step i is posted without blocking and waited on
@@ -285,8 +515,6 @@ class GreedyDecoder:
         to DECODE_STEPS."""
         if max_new <= 0:
             return
-        if graph is None:
-            graph = finished.is_cuda
         read, gate = _FinishedRead(finished), None
 
         def stop_after(i: int) -> bool:
@@ -308,41 +536,59 @@ class GreedyDecoder:
             return False
 
         t0 = time.perf_counter()
-        if graph:
+        if not graph:
+            step(True)
+            DECODE_STEPS["eager"] += 1
+        elif graph.step_graphs is None:
             # the warm-up on the capture stream: every kernel library is
-            # loaded and its attributes set before the capture
+            # loaded and its attributes set before the captures
             cur, side = torch.cuda.current_stream(), capture_stream()
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 step(True)
             cur.wait_stream(side)
+            DECODE_STEPS["eager"] += 1
+            DECODE_STEPS["step0_s"] += time.perf_counter() - t0
+            graph.step_graphs = tuple(
+                StepGraph(lambda first=first: step(first), _COUNTERS,
+                          generators, pool=graph.pool())
+                for first in (True, False))
+            DECODE_STEPS["captures"] += 2
+            DECODE_STEPS["capture_s"] += sum(g.capture_s
+                                             for g in graph.step_graphs)
+            t0 = time.perf_counter()
         else:
-            step(True)
-        DECODE_STEPS["eager"] += 1
+            graph.step_graphs[0].replay()
+            DECODE_STEPS["replayed"] += 1
         DECODE_STEPS["step0_s"] += time.perf_counter() - t0
-        captured = None
+        replay = graph.step_graphs[1] if graph else None
+        if replay is not None:
+            launch_s, count_s = replay.launch_s, replay.count_s
         try:
             if stop_after(0):
                 return
             for i in range(1, max_new):
-                if not graph:
+                if replay is None:
                     step(False)
                     DECODE_STEPS["eager"] += 1
                 else:
-                    if captured is None:
-                        captured = StepGraph(lambda: step(False),
-                                             (kernels.LAUNCHES,
-                                              DECODER_CALLS), generators)
-                        DECODE_STEPS["captures"] += 1
-                        DECODE_STEPS["capture_s"] += captured.capture_s
-                    captured.replay()
+                    replay.replay()
                     DECODE_STEPS["replayed"] += 1
                 if stop_after(i):
                     break
         finally:
-            if captured is not None:
-                DECODE_STEPS["launch_s"] += captured.launch_s
-                DECODE_STEPS["count_s"] += captured.count_s
+            if replay is not None:
+                DECODE_STEPS["launch_s"] += replay.launch_s - launch_s
+                DECODE_STEPS["count_s"] += replay.count_s - count_s
+
+    def _lengths(self, prompt_len: int) -> Tuple[int, int]:
+        """(max_new, cache_len) of a decode after a prompt_len-token
+        prompt: never past n_text_ctx; the self-KV cache sized to what the
+        decode can write (prompt + max_new rounded up to 64 slots), as
+        every step reads the whole cache."""
+        n_ctx = self.model.dims.n_text_ctx
+        max_new = min(self.opt.max_new_tokens, n_ctx - prompt_len)
+        return max_new, min(-(-(max_new + prompt_len) // 64) * 64, n_ctx)
 
     def _sot_pos(self, prompt_len: int) -> int:
         """Index of <|startoftranscript|> in a prompt that ends with the
@@ -364,53 +610,73 @@ class GreedyDecoder:
         temperature > 0 samples with the gumbel trick (whisper's fallback
         path) from ``generator`` ([B, V] noise per step) or, when given,
         from one generator per row ([V] noise per row per step, so a row
-        draws as a B=1 decode with that generator would); temperature 0 is
-        greedy argmax. pad_lens: optional [B] int32 — per-row prompts
+        draws as a B=1 decode with that generator would); the generators
+        are left as the draws advanced them. temperature 0 is greedy
+        argmax. pad_lens: optional [B] int32 — per-row prompts
         RIGHT-ALIGNED in the prompt_len bucket with pad_lens[b] masked
-        left-pad slots. graph: see _run_steps (None: a CUDA graph on the
-        card). Returns (tokens [B, max_new] int64, stats [B, 3] =
-        sum_logprob || length || no_speech_prob)."""
+        left-pad slots. graph: None replays the key's CUDA graphs on the
+        card (see _run_call, _run_steps); False runs eagerly. Returns
+        (tokens [B, max_new] int64, stats [B, 3] = sum_logprob || length
+        || no_speech_prob), tensors of their own."""
         t_call = time.perf_counter()
         model, tok = self.model, self.tok
         dev = xa.device
         B = xa.shape[0]
-        # the self-KV cache is sized to what this decode can write (prompt
-        # + max_new rounded up to 64): every step reads the whole cache
-        budget = min(self.opt.max_new_tokens,
-                     model.dims.n_text_ctx - prompt_len) + prompt_len
-        cache_len = min(-(-budget // 64) * 64, model.dims.n_text_ctx)
-        caches = model.empty_kv_caches(B, cache_len=cache_len)
-        cross_kvs = self._cross_kvs(xa)
-        logits, caches, _ = model.decoder(prompt_tokens, xa, 0, caches,
-                                          cross_kvs=cross_kvs,
-                                          pad_lens=pad_lens)
-        no_speech_prob = torch.softmax(
-            logits[:, self._sot_pos(prompt_len)], dim=-1)[:, tok.no_speech]
-
-        # never run the cache past n_text_ctx
-        max_new = min(self.opt.max_new_tokens,
-                      model.dims.n_text_ctx - prompt_len)
-        # the loop's state: every tensor the steps update in place
-        cur_logits = logits[:, -1].contiguous()
-        tokens_buf = torch.full((B, max_new), self._eot, dtype=torch.long,
-                                device=dev)
-        st = self._init_state(B)
-        sum_lp = torch.zeros(B, dtype=torch.float32, device=dev)
-        step_t = torch.zeros((), dtype=torch.long, device=dev)
+        max_new, cache_len = self._lengths(prompt_len)
         sample = temperature > 0 and (generator is not None
                                       or row_generators is not None)
-        gens = (list(row_generators) if row_generators is not None
-                else [generator]) if sample else []
+        per_row = sample and row_generators is not None
+        gens = (list(row_generators) if per_row else [generator]) \
+            if sample else []
+        graph = xa.is_cuda if graph is None else bool(graph)
+        # the temperature is read from device memory (set_temperature), so
+        # every rung of the fallback ladder shares a key
+        key = self._key("greedy", xa, graph, prompt_len, B, cache_len,
+                        max_new,
+                        ("rows" if per_row else "one") if sample else "none",
+                        pad_lens is not None)
+        ws, fresh = self._workspace(key, lambda: DecodeWorkspace(
+            dev, len(gens), self._init_state(B),
+            caches=model.empty_kv_caches(B, cache_len=cache_len),
+            tokens=torch.empty((B, max_new), dtype=torch.long, device=dev),
+            sum_lp=torch.empty(B, dtype=torch.float32, device=dev),
+            step_t=torch.empty((), dtype=torch.long, device=dev),
+            temperature=torch.empty((), dtype=torch.float32, device=dev)))
+        ws.load(xa, prompt_tokens, pad_lens, gens)
+        t, st = ws.t, ws.st
+        if sample:
+            set_temperature(t["temperature"], temperature)
+        tokens_buf, sum_lp, step_t = t["tokens"], t["sum_lp"], t["step_t"]
+        pads = t["pads"] if pad_lens is not None else None
+        sot_pos = self._sot_pos(prompt_len)
+
+        def setup() -> None:
+            cross = self._setup_cross(ws)
+            for ck, cv in t["caches"]:
+                ck.zero_()
+                cv.zero_()
+            logits, _, _ = model.decoder(t["prompt"], t["xa"], 0,
+                                         t["caches"], cross_kvs=cross,
+                                         pad_lens=pads)
+            ws.into("nsp", torch.softmax(logits[:, sot_pos],
+                                         dim=-1)[:, tok.no_speech])
+            ws.into("cur_logits", logits[:, -1])
+            tokens_buf.fill_(self._eot)
+            self._reset_state(st)
+            sum_lp.zero_()
+            step_t.zero_()
 
         def step(first: bool) -> None:
+            cur_logits = t["cur_logits"]
             lg = self._filter(cur_logits, st, 0 if first else 1)
             if sample:
-                if row_generators is not None:
+                if per_row:
                     g = torch.stack([gumbel_noise(lg.shape[-1], gen, dev)
-                                     for gen in row_generators])
+                                     for gen in ws.gens])
                 else:
-                    g = gumbel_noise(lg.shape, generator, dev)
-                next_tok = torch.argmax(lg / temperature + g, dim=-1)
+                    g = gumbel_noise(lg.shape, ws.gens[0], dev)
+                next_tok = torch.argmax(
+                    by_temperature(lg, t["temperature"]) + g, dim=-1)
             else:
                 next_tok = torch.argmax(lg, dim=-1)
             # score from the post-filter renormalized distribution
@@ -431,16 +697,15 @@ class GreedyDecoder:
             st["finished"].copy_(new_finished)
             tokens_buf.index_copy_(1, step_t.reshape(1), next_tok[:, None])
             new_logits, _, _ = model.decoder(
-                next_tok[:, None], xa, prompt_len + step_t, caches,
-                cross_kvs=cross_kvs, pad_lens=pad_lens)
+                next_tok[:, None], t["xa"], prompt_len + step_t,
+                t["caches"], cross_kvs=ws.cross, pad_lens=pads)
             cur_logits.copy_(new_logits[:, 0])
             step_t.add_(1)
 
-        DECODE_STEPS["prefill_s"] += time.perf_counter() - t_call
-        self._run_steps(step, max_new, st["finished"], graph, gens)
-        stats = torch.stack([sum_lp, st["length"].float(), no_speech_prob],
-                            dim=1)
-        return tokens_buf, stats
+        self._run_call(ws, setup, step, max_new, graph, t_call, ws.gens)
+        self._finish_call(ws, fresh, gens)
+        stats = torch.stack([sum_lp, st["length"].float(), t["nsp"]], dim=1)
+        return tokens_buf.clone(), stats
 
     # ------------------------------------------------------------------
     def _initial_tokens(self, prompt: Optional[Sequence[int]]) -> List[int]:

@@ -31,6 +31,7 @@ after embed_ln) with masks drawn from the `generator` passed to forward,
 and the conv module's batch norm on batch statistics (models/titanet.py
 BatchNorm, momentum 0.9).
 """
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -39,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from notsofar_tpu_torch.models.titanet import BatchNorm, Dense
+from notsofar_tpu_torch.utils.device import cudnn_f32
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -166,9 +168,12 @@ class ConvModule(nn.Module):
         b = x * self.pw1_w[1] + self.pw1_b[1]
         x = a * torch.sigmoid(b)
         pad = (self.kernel_size - 1) // 2
-        y = F.conv1d(x.to(self.dtype).transpose(1, 2),
-                     self.dw.weight.to(self.dtype), padding=pad,
-                     groups=x.shape[-1])
+        # in f32 with cuDNN's TF32 off, as the JAX package's f32 conv
+        with cudnn_f32() if self.dtype == torch.float32 else \
+                contextlib.nullcontext():
+            y = F.conv1d(x.to(self.dtype).transpose(1, 2),
+                         self.dw.weight.to(self.dtype), padding=pad,
+                         groups=x.shape[-1])
         x = y.transpose(1, 2) + self.dw.bias.to(self.dtype)
         x = torch.relu(self.bn(x))
         return dropout(self, x * self.pw2_w[0] + self.pw2_b[0], self.p,

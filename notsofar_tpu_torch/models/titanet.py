@@ -23,6 +23,7 @@ default). The depthwise convs of the mega blocks (kernel > 1, C % 128 ==
 ops.kernels.depthwise_conv1d: the CUDA kernel on the card, its plain
 version on the CPU.
 """
+import contextlib
 import math
 from dataclasses import dataclass
 from functools import lru_cache
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from notsofar_tpu_torch.asr.mel import mel_filterbank
 from notsofar_tpu_torch.ops.kernels import depthwise_conv1d
 from notsofar_tpu_torch.parallel.mesh import all_reduce_sum
-from notsofar_tpu_torch.utils.device import resolve_device
+from notsofar_tpu_torch.utils.device import cudnn_f32, resolve_device
 
 HOP = 160
 
@@ -215,8 +216,11 @@ class DepthwiseConv(nn.Module):
             return out.to(self.dtype)
         pad = (self.kernel - 1) // 2
         w = self.weight.to(self.dtype).t().unsqueeze(1)      # [C, 1, k]
-        out = F.conv1d(x.to(self.dtype).transpose(1, 2), w, padding=pad,
-                       groups=C)
+        # in f32 with cuDNN's TF32 off, as the JAX module's f32 lax.conv
+        with cudnn_f32() if self.dtype == torch.float32 else \
+                contextlib.nullcontext():
+            out = F.conv1d(x.to(self.dtype).transpose(1, 2), w, padding=pad,
+                           groups=C)
         return out.transpose(1, 2)
 
 

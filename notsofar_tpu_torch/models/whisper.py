@@ -36,7 +36,7 @@ xattn_int8 kernel reads.
 import math
 import re
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -406,6 +406,25 @@ class MHA(nn.Module):
             self._q_scale_cache = cached
         return cached[2:]
 
+    def bind_q_scales(self, k_s: torch.Tensor, v_s: torch.Tensor,
+                      out: Optional[Tuple[torch.Tensor, ...]] = None):
+        """_q_scales' products of the int8 memory's scales (k_s, v_s)
+        computed into `out` (made here when None) and cached as theirs.
+        A decode workspace keeps `out` and calls this in its set-up at
+        every call: a CUDA graph of the step reads the products from
+        `out`, so they must be this call's (the host cache alone would
+        hand a replay its capture's products). The same products as
+        _q_scales', bit for bit. Returns `out`."""
+        scale = (self.n_state // self.n_head) ** -0.25
+        if out is None:
+            out = (torch.full((1,), scale, dtype=torch.float32,
+                              device=k_s.device), torch.empty_like(k_s),
+                   torch.empty_like(v_s[:, 0]))
+        torch.mul(k_s, scale, out=out[1])
+        out[2].copy_(v_s[:, 0])
+        self._q_scale_cache = (k_s, v_s, *out)
+        return out
+
     def step_self(self, x, ln: nn.LayerNorm, kv_cache, cache_index, pads):
         """The self-attention of a fused single-token step: x [B, 1, D] the
         raw residual stream, ln its layer norm. One decode_gemv launch
@@ -515,10 +534,13 @@ class MHA(nn.Module):
             # prefill: one dequantized pass with the padding masked
             k = (k8.float() * k_s).to(dtype)
             v = (v8.float() * v_s).to(dtype)
+            # (the constants made on the device: a host tensor's copy
+            # would sync, which a decode set-up's CUDA graph capture
+            # cannot)
             mask = torch.where(
                 torch.arange(S, device=q.device) >= s_valid,
-                torch.tensor(-1e30, device=q.device),
-                torch.tensor(0.0, device=q.device))[None, None, None, :]
+                torch.full((), -1e30, device=q.device),
+                torch.zeros((), device=q.device))[None, None, None, :]
         else:
             if uses_xattn_step(B, T, precomputed_kv):
                 # decode steps: the kernel reads the bf16 memory once,
@@ -899,13 +921,18 @@ class WhisperModel(nn.Module):
                                   device=self.device) for _ in range(2))
                 for _ in range(d.n_text_layer)]
 
-    def precompute_cross_kv(self, xa: torch.Tensor):
+    def precompute_cross_kv(self, xa: torch.Tensor,
+                            layers: Optional[Sequence[int]] = None):
         """Per-layer cross-attention (k, v) projections of xa, hoisted out
         of the decode loop (they depend only on the encoder output). The
-        int8 decoder's QuantDense applies the key/value scales."""
+        int8 decoder's QuantDense applies the key/value scales. layers:
+        only these decoder layers' (a decode workspace projects one layer
+        at a time, so that one layer's temporaries are alive at once)."""
         xa_c = xa.to(self.dtype)
+        blocks = self.decoder.blocks
         return [(_lin(b.cross_attn.key, xa_c), _lin(b.cross_attn.value, xa_c))
-                for b in self.decoder.blocks]
+                for b in (blocks if layers is None
+                          else [blocks[i] for i in layers])]
 
     @staticmethod
     def quantize_cross_kv(cross_kvs):

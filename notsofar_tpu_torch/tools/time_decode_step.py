@@ -5,7 +5,7 @@ or (``--loops``) its whole decode loops.
         [--out FILE]
     python3 notsofar_tpu_torch/tools/time_decode_step.py --loops
         [--root DIR] [--dtype bfloat16|int8] [--calls 3] [--eot-scale 0]
-        [--out FILE]
+        [--max-new 224] [--out FILE]
 
 ``--root`` names the checkout whose ``notsofar_tpu_torch`` is imported
 and timed (default: the one holding this file); its kernels are built
@@ -44,15 +44,18 @@ every checkout since the decode step was graphed has
 counters ``asr.decoding.DECODE_STEPS``): Whisper large-v3 with seeded
 random weights in ``--dtype`` (bf16, or the int8 decoder with int8
 cross-attention K/V), 3 seeded mel windows through the encoder, then
-greedy (3 rows) and beam 5 (15 rows) decode calls of up to 224 new
-tokens (the shipped max), each call timed by the host clock from its
-start to a synchronize after it (the prefill, step 0, the graph capture
-and every step), ``--calls`` times after one warm-up call.
+greedy (3 rows) and beam 5 (15 rows) decode calls of up to ``--max-new``
+new tokens (default 224, the shipped max), each call timed by the host
+clock from its start to a synchronize after it (the set-up, step 0, the
+graph captures and every step): the first call of the loop's key
+reported apart, then ``--calls`` more, each with its host seconds before
+its first replayed step (set-up, step 0, capture) and whether its key
+had a decode workspace (None on a checkout without them).
 ``--eot-scale`` > 0 scales the model's EOT embedding row, so that rows
-end at different steps before 224 (random weights alone rarely end a
-decode). Prints, per loop, ms per call, the steps a call runs, ms per
-step, and the DECODE_STEPS keys the checkout has (its host seconds per
-part, where it counts them); last, the JSON object.
+end at different steps before max_new (random weights alone rarely end
+a decode). Prints, per loop, the first call, then ms per call, the steps
+a call runs and ms per step of the later calls, and each call; last,
+the JSON object.
 """
 import argparse
 import json
@@ -238,9 +241,13 @@ def xattn_step_times(iters: int) -> dict:
     return out
 
 
-def time_loops(dtype: str, calls: int, eot_scale: float) -> dict:
+def time_loops(dtype: str, calls: int, eot_scale: float,
+               max_new: int = 224) -> dict:
     """ms per call, steps per call and DECODE_STEPS per call of the
-    greedy and beam-5 loops (``--loops``; see the module's docstring)."""
+    greedy and beam-5 loops (``--loops``; see the module's docstring):
+    the first call of the loop's key apart, then ``calls`` more, each with
+    its own host seconds (set-up, step 0, capture) and whether its key had
+    a workspace (a checkout without the workspace cache: None)."""
     import numpy as np
     import torch
     from notsofar_tpu_torch.asr import decoding as dec
@@ -263,7 +270,7 @@ def time_loops(dtype: str, calls: int, eot_scale: float) -> dict:
                 emb[tok.eot] *= eot_scale
         with torch.no_grad():
             xa = model.encode(mel)
-        opts = dec.DecodeOptions(max_new_tokens=224,
+        opts = dec.DecodeOptions(max_new_tokens=max_new,
                                  cross_kv_quant=model.quant_decoder)
         for kind in ("greedy", "beam5"):
             d = BeamDecoder(model, tok, opts, beam_size=5) \
@@ -271,19 +278,31 @@ def time_loops(dtype: str, calls: int, eot_scale: float) -> dict:
             loop = d._beam_loop if kind == "beam5" else d._decode_loop
             initial = d._initial_tokens(None)
             prompt = torch.tensor(initial, device="cuda").repeat(3, 1)
-            loop(xa, len(initial), prompt)       # warm-up
-            torch.cuda.synchronize()
-            dec.reset_decode_steps()
-            t0 = time.perf_counter()
-            for _ in range(calls):
+            per_call = []
+            for _ in range(calls + 1):
+                torch.cuda.synchronize()
+                dec.reset_decode_steps()
+                t0 = time.perf_counter()
                 loop(xa, len(initial), prompt)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / calls
-            st = {k: v / calls for k, v in dec.DECODE_STEPS.items()}
-            steps = st["eager"] + st["replayed"]
-            out[kind] = dict(ms_per_call=wall * 1e3, steps=steps,
-                             ms_per_step=wall * 1e3 / steps,
-                             decode_steps=st)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                st = dict(dec.DECODE_STEPS)
+                steps = st["eager"] + st["replayed"]
+                per_call.append(dict(
+                    ms=wall * 1e3, steps=steps,
+                    hit=bool(st["hits"]) if "hits" in st else None,
+                    captures=st["captures"],
+                    host_s_before_replay=st["prefill_s"] + st["step0_s"]
+                    + st["capture_s"],
+                    **{k: st[k] for k in ("prefill_s", "step0_s",
+                                          "capture_s")}))
+            later = per_call[1:]
+            ms = float(np.mean([c["ms"] for c in later]))
+            steps = float(np.mean([c["steps"] for c in later]))
+            out[kind] = dict(first=per_call[0], ms_per_call=ms,
+                             steps=steps, ms_per_step=ms / steps,
+                             calls=later)
+            del d, loop
     finally:
         with torch.no_grad():
             emb[tok.eot].copy_(row)
@@ -302,6 +321,8 @@ def main(argv=None) -> int:
                     choices=("bfloat16", "int8"))
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--eot-scale", type=float, default=0.0)
+    ap.add_argument("--max-new", type=int, default=224,
+                    help="--loops: max_new_tokens of each decode call")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -317,15 +338,23 @@ def main(argv=None) -> int:
                            f"the checkout {root}")
     if args.loops:
         res = dict(root=str(root), card=card_line(), dtype=args.dtype,
-                   eot_scale=args.eot_scale,
-                   loops=time_loops(args.dtype, args.calls, args.eot_scale))
+                   eot_scale=args.eot_scale, max_new=args.max_new,
+                   loops=time_loops(args.dtype, args.calls, args.eot_scale,
+                                    args.max_new))
         print(f"device: {res['card']}; checkout {root}", flush=True)
         for kind, r in res["loops"].items():
-            parts = ", ".join(f"{k} {v:.4f}" for k, v in
-                              r["decode_steps"].items())
-            print(f"{kind}: {r['ms_per_call']:.2f} ms per call, "
-                  f"{r['steps']:.1f} steps, {r['ms_per_step']:.4f} ms per "
-                  f"step; per call: {parts}", flush=True)
+            def call(c):
+                return (f"{c['ms']:.2f} ms, {c['steps']} steps, hit "
+                        f"{c['hit']}, {c['captures']} captures, host s "
+                        f"before the first replayed step "
+                        f"{c['host_s_before_replay']:.4f} (set-up "
+                        f"{c['prefill_s']:.4f}, step 0 {c['step0_s']:.4f}, "
+                        f"capture {c['capture_s']:.4f})")
+            print(f"{kind} {args.dtype} max_new {args.max_new}: first call "
+                  f"of the key {call(r['first'])}; later calls "
+                  f"{r['ms_per_call']:.2f} ms per call, {r['steps']:.1f} "
+                  f"steps, {r['ms_per_step']:.4f} ms per step; each: "
+                  + "; ".join(call(c) for c in r["calls"]), flush=True)
         return _emit(res, args.out)
     res = dict(root=str(root), card=card_line(), steps={})
     print(f"device: {res['card']}; checkout {root}", flush=True)

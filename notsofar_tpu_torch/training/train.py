@@ -52,7 +52,7 @@ from notsofar_tpu_torch.training.dataset import (DataLoader, SegmentSplitter,
                                                  SimulatedDataset)
 from notsofar_tpu_torch.training.losses import css_loss
 from notsofar_tpu_torch.training.schedulers import make_schedule
-from notsofar_tpu_torch.utils.device import resolve_device
+from notsofar_tpu_torch.utils.device import cudnn_f32, resolve_device
 from notsofar_tpu_torch.utils.logging_def import get_logger
 
 _LOG = get_logger("train")
@@ -131,7 +131,10 @@ def make_train_step(model: CssModel, cfg: TrainCfg):
             batch = mic_shift_augment(batch, generator, shifts)
         loss, side = loss_of(batch, generator)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        # the f32 convs' backward in full f32 too (their forward runs in
+        # utils.device.cudnn_f32; autograd reads the flag when it runs)
+        with cudnn_f32():
+            loss.backward()
         average_gradients(params)
         grad_norm = clip_by_global_norm(params, cfg.clip_grad_norm)
         for group in state.optimizer.param_groups:

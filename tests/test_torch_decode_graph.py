@@ -1,7 +1,9 @@
 """The decode loops as CUDA graphs (asr/decoding.py, asr/beam.py,
-utils/cuda_graph.py): on the CPU every step runs eagerly; on the card the
-steps after the first are one captured graph, replayed, whose tokens,
-scores and counters must equal the eager loop's.
+utils/cuda_graph.py): on the CPU every step runs eagerly; on the card a
+key's first decode call captures its set-up, step 0 and step as graphs
+(step 0 runs eagerly first) and replays the step graph; every later call
+of the key replays all three and captures nothing. Tokens, scores and
+counters must equal the eager loop's.
 
 A small Whisper at kernel dims (dk 64, width 128, 2 decoder layers) with
 seeded random weights, f32. The `gpu`-marked tests skip without a card.
@@ -42,22 +44,25 @@ def model(device, quant: bool = False):
     return out
 
 
-def decode(m, kind: str, graph):
-    """One decode loop of 3 rows with per-row prompts; returns (tokens,
-    stats, the kernel launches and int8 decoder calls it made, its
-    DECODE_STEPS)."""
+def decoder(m, kind: str):
     tt = tokenizer()
-    dev = m.device
-    xa = torch.from_numpy(np.random.RandomState(9).randn(3, 96, 128)
-                          .astype(np.float32) * 0.2).to(dev)
     opts = tdec.DecodeOptions(max_new_tokens=40,
                               cross_kv_quant=m.quant_decoder)
-    prompts = [[5, 6], None, [40, 41, 42]]
     if kind.endswith("beam3"):
-        dec = tbeam.BeamDecoder(m, tt, opts, beam_size=3,
-                                cache_dtype=torch.float32)
-    else:
-        dec = tdec.GreedyDecoder(m, tt, opts)
+        return tbeam.BeamDecoder(m, tt, opts, beam_size=3,
+                                 cache_dtype=torch.float32)
+    return tdec.GreedyDecoder(m, tt, opts)
+
+
+def decode(m, kind: str, graph, dec=None, seed: int = 9, rows: int = 3):
+    """One decode loop of `rows` rows (of 3) with per-row prompts, by
+    `dec` (default: a new decoder); returns (tokens, stats, the kernel
+    launches and int8 decoder calls it made, its DECODE_STEPS)."""
+    dev = m.device
+    xa = torch.from_numpy(np.random.RandomState(seed).randn(3, 96, 128)
+                          .astype(np.float32) * 0.2)[:rows].to(dev)
+    prompts = [[5, 6], None, [40, 41, 42]][:rows]
+    dec = dec or decoder(m, kind)
     toks, pads, P = dec._pack_prompts(prompts)
     args = (xa, P, torch.from_numpy(toks).to(dev))
     pads = torch.from_numpy(pads).to(dev)
@@ -67,7 +72,8 @@ def decode(m, kind: str, graph):
     if kind.endswith("beam3"):
         out = dec._beam_loop(*args, pad_lens=pads, graph=graph)
     else:
-        gens = [ttr.fallback_generator(s, 2, dev) for s in (0, 3000, 6000)] \
+        gens = [ttr.fallback_generator(s, 2, dev)
+                for s in (0, 3000, 6000)[:rows]] \
             if kind == "sampled" else None
         out = dec._decode_loop(*args, None, 0.6 if gens else 0.0, pads,
                                gens, graph=graph)
@@ -156,17 +162,18 @@ def cuda():
     ("greedy", False), ("sampled", False), ("beam3", False),
     ("greedy", True), ("beam3", True)])
 def test_gpu_graphed_decode_equals_the_eager_loop(cuda, kind, quant):
-    """The loop's default on the card (step 0 eager, then one captured
+    """The loop's default on the card at a key's first call (set-up and
+    step 0 eager, the set-up, step-0 and step graphs captured, the step
     graph replayed) against the same loop run eagerly: equal tokens,
     scores within 1e-5 (f32; the same kernels on the same inputs), the
-    same kernel launches and int8 decoder calls, one capture, and every
+    same kernel launches and int8 decoder calls, three captures, and every
     step after the first replayed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     m = model(cuda, quant)
     tok_e, st_e, launch_e, calls_e, steps_e = decode(m, kind, False)
     tok_g, st_g, launch_g, calls_g, steps_g = decode(m, kind, None)
     assert steps_e["replayed"] == 0 and steps_e["captures"] == 0
-    assert steps_g["captures"] == 1 and steps_g["eager"] == 1
+    assert steps_g["captures"] == 3 and steps_g["eager"] == 1
     assert steps_g["replayed"] == steps_e["eager"] - 1 > 0
     assert torch.equal(tok_e, tok_g)
     assert (st_e - st_g).abs().max().item() <= 1e-5
@@ -200,10 +207,83 @@ def test_gpu_queued_graph_equals_the_strict_eager_loop(cuda, kind, quant,
     n = steps_e["eager"]
     n_q = min(n + 1, 40)
     assert 1 < n <= 40 and (n < 40 or kind == "sampled")
-    assert steps_g["captures"] == 1 and steps_g["eager"] == 1
+    assert steps_g["captures"] == 3 and steps_g["eager"] == 1
     assert steps_g["replayed"] == n_q - 1
     assert torch.equal(tok_e, tok_g)
     assert (st_e - st_g).abs().max().item() <= 1e-5
     kern = "attn_step_split" if kind == "beam3" else "attn_step"
     assert launch_e[kern] == DIMS.n_text_layer * n
     assert launch_g[kern] == DIMS.n_text_layer * n_q
+
+
+def check_equal(eager, graphed, replayed_all: bool = True):
+    """A graphed call against the eager loop on the same inputs: equal
+    tokens, scores within 1e-5, equal launches and int8 decoder calls;
+    with replayed_all, a reused key's call (no capture, no eager step,
+    every step replayed)."""
+    tok_e, st_e, launch_e, calls_e, steps_e = eager
+    tok_g, st_g, launch_g, calls_g, steps_g = graphed
+    assert torch.equal(tok_e, tok_g)
+    assert (st_e - st_g).abs().max().item() <= 1e-5
+    assert launch_e == launch_g and calls_e == calls_g
+    if replayed_all:
+        assert steps_g["captures"] == 0 and steps_g["eager"] == 0
+        assert steps_g["replayed"] == steps_e["eager"] > 1
+        assert steps_g["hits"] == 1 and steps_g["misses"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,quant", [
+    ("greedy", False), ("sampled", False), ("beam3", False),
+    ("greedy", True), ("beam3", True)])
+def test_gpu_reused_key_equals_the_eager_loop(cuda, kind, quant):
+    """Keys A (3 rows) and B (2 rows) on one decoder, graphed, in the order
+    A, B, A, A, each call on other inputs (seeded xa; sampled rows from
+    fresh generators): the calls after A's and B's first capture nothing
+    and replay every step, and each equals the eager loop on its own
+    inputs. Tensors one graph leaves for the next live in the workspace,
+    outside the graphs' pools, so interleaving keys changes nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = model(cuda, quant)
+    dec = decoder(m, kind)
+    for i, (seed, rows) in enumerate(((9, 3), (10, 2), (11, 3), (12, 3))):
+        eager = decode(m, kind, False, seed=seed, rows=rows)
+        graphed = decode(m, kind, None, dec, seed=seed, rows=rows)
+        check_equal(eager, graphed, replayed_all=i >= 2)
+        if i < 2:
+            assert graphed[4]["captures"] == 3 and \
+                graphed[4]["misses"] == 1
+
+
+@pytest.mark.gpu
+def test_gpu_evicted_key_is_captured_again(cuda, monkeypatch):
+    """With a budget below one workspace, A, B, A evicts A at B's call and
+    captures A again at its second call (a miss, three captures); every
+    call equals the eager loop."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = model(cuda)
+    monkeypatch.setattr(tdec, "WORKSPACE_BUDGET", 1)
+    calls = ((9, 3), (10, 2), (11, 3))
+    eager = [decode(m, "greedy", False, seed=seed, rows=rows)
+             for seed, rows in calls]
+    dec = decoder(m, "greedy")
+    for i, (seed, rows) in enumerate(calls):
+        graphed = decode(m, "greedy", None, dec, seed=seed, rows=rows)
+        check_equal(eager[i], graphed, replayed_all=False)
+        assert graphed[4]["misses"] == 1 and graphed[4]["captures"] == 3
+        # the other key's workspace went
+        assert graphed[4]["evictions"] >= int(i > 0)
+
+
+@pytest.mark.gpu
+def test_gpu_temperature_from_device_memory_divides_as_a_host_scalar(cuda):
+    """A sampled step reads its temperature from device memory
+    (set_temperature, by_temperature) so that one graph serves every rung
+    of the ladder: bit for bit the eager loop's ``logits / temperature``
+    with a host scalar."""
+    lg = torch.randn(15, 51866, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0)) * 8
+    buf = torch.empty((), device=cuda)
+    for t in (0.2, 0.4, 0.6, 0.8, 1.0):
+        tdec.set_temperature(buf, t)
+        assert torch.equal(tdec.by_temperature(lg, buf), lg / t)
