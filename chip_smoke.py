@@ -247,6 +247,7 @@ import math
 import re
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1405,9 +1406,14 @@ def check_decode_step_kernels(iters: int, record, randn) -> None:
     to its plain version within its error model and rejects the plain
     version with one memory row or one weight changed; library: SDPA on
     the bf16 memory, torch.matmul on pre-widened bf16 weights (calls the
-    port never makes). Cluster sizes R = 1-8 are logged (launch_sweep)."""
+    port never makes). Cluster sizes R = 1-8 are logged (launch_sweep).
+    xattn_step and SDPA are also timed as 32 launches in one CUDA graph
+    (graph_ms, library_graph_ms in its row), and xattn_step's phases
+    apart (tools/time_decode_step.py xattn_step_phases: the kernel built
+    with its stamps, on one memory and on 32 layers' memories)."""
     import torch.nn.functional as F
     from notsofar_tpu_torch.ops import kernels as K
+    from notsofar_tpu_torch.tools import time_decode_step as tds
 
     bf = torch.bfloat16
     B, S, D, dk = 3, 1500, 1280, 64
@@ -1439,6 +1445,15 @@ def check_decode_step_kernels(iters: int, record, randn) -> None:
             row=T == 1)
         plan = K.xattn_step_launch(B, T, S, D, dk, bf)
         log(f"kernel xattn_step Tq {T}: launch {plan_line(plan)} keys")
+        got["graph_ms"] = time_cuda_graph(
+            lambda: [K.xattn_step(q, k, v, dk) for _ in range(32)],
+            iters) / 32
+        got["library_graph_ms"] = time_cuda_graph(
+            lambda: [F.scaled_dot_product_attention(qh, kh, vh)
+                     for _ in range(32)], iters) / 32
+        log(f"kernel xattn_step Tq {T}: as 32 launches in one CUDA graph "
+            f"{got['graph_ms']:.4f} ms a launch, SDPA the same way "
+            f"{got['library_graph_ms']:.4f} ms")
 
         def step_c(R, out, q=q, T=T):
             return K.build.load("xattn_step").xattn_step(
@@ -1455,8 +1470,12 @@ def check_decode_step_kernels(iters: int, record, randn) -> None:
             xrow.update(beam5_ms=got["ms"], beam5_bound_ms=got["bound_ms"],
                         beam5_plain_ms=got["plain_ms"],
                         beam5_library_ms=got["library_ms"],
-                        beam5_max_abs_err=got["max_abs_err"])
+                        beam5_max_abs_err=got["max_abs_err"],
+                        beam5_graph_ms=got["graph_ms"],
+                        beam5_library_graph_ms=got["library_graph_ms"])
     del k, v, kh, vh
+    for label, r in tds.xattn_step_phases(ROOT, iters).items():
+        log(tds.phases_line(f"kernel xattn_step {label} phases", r))
 
     g = torch.Generator(device="cuda").manual_seed(99)
     emb8 = torch.randint(-127, 128, (51866, D), generator=g, device="cuda",
@@ -4238,7 +4257,12 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    # xattn_step with its phase stamps (phase 2) builds beside the kernels
+    from notsofar_tpu_torch.tools.time_decode_step import build_stamped
+    stamped = threading.Thread(target=build_stamped, args=(ROOT,))
+    stamped.start()
     logs = build.build_all()
+    stamped.join()
     (OUT / "kernel_build.log").write_text(
         "\n".join(f"== {n}\n{txt}" for n, txt in logs.items()))
     log(f"phase 2 kernels: built {sorted(logs)} in "

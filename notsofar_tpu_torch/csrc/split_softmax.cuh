@@ -12,10 +12,11 @@
 // arriving on a row chunk's mbarrier once its copies of the chunk have
 // landed (the key rows on one barrier per CH rows, so the logits of the
 // first rows start while later rows are on their way; the value rows on
-// one barrier). No TMA tensor map is built on the host: K/V pointers
-// change with every layer and the decode step is host-bound. (1-D
+// one barrier). No TMA: 2-D boxes of 32 rows through a tensor map, one
+// thread issuing them, were slower than these copies in xattn_step.cu at
+// Tq 1 and 5, on L2-resident and on cold memory (PERF.md), and 1-D
 // cp.async.bulk copies of one row each were slower at every cluster size
-// and shape tried: rows are only 64-512 bytes.) A row's 16-byte pieces
+// and shape tried (rows are only 64-512 bytes). A row's 16-byte pieces
 // land XOR-swizzled (slot), so that the lanes of a quarter-warp that read
 // one piece of eight neighbouring rows hit distinct banks.
 #pragma once

@@ -3,7 +3,7 @@
 //
 // Replaces no Pallas kernel: the JAX package runs this as two XLA einsums
 // (notsofar_tpu/models/whisper.py MHA._attend_precomputed, float branch,
-// :324-335) whose dtype conversions fuse into the operand reads. The
+// :321-335) whose dtype conversions fuse into the operand reads. The
 // port's matmul path widened the memory to f32 in device memory at every
 // step and layer instead (xattn_step_plain). Same function: for window b,
 // head h and query t (the beams of a window folded into the query axis,
@@ -16,39 +16,77 @@
 // What bounds it on an H100: bytes. Each (window, head) reads its S keys
 // and values once, 2 * S * dk * 2 bytes in bf16, and does 4 * Tq * dk FLOP
 // per key, ~Tq FLOP per byte: far below the ridge. At large-v3 (S 1500, D
-// 1280) and 3 windows a layer moves 23.0 MB, ~6.9 us at 3.35 TB/s.
+// 1280) and 3 windows a layer moves 23.0 MB, ~6.9 us at 3.35 TB/s. At that
+// size a block's chain of latencies weighs as much as the bytes: its keys'
+// arrival, the logits, two cluster barriers, the weights, p.v, the exchange
+// of partial outputs. In a decode step one launch's staged memory fills most
+// of the card's shared memory, so the next launch's blocks start only as
+// this one's end, and every microsecond of a block's life is paid in full.
 //
 // Design: the split-softmax skeleton of xattn_int8's few-rows path
 // (split_softmax.cuh). A (head, window) pair is a thread-block cluster of
-// R <= 8 blocks along x, grid (R, H, B), from the shapes alone (a launch
-// captured in a CUDA graph serves every step). Block r owns the contiguous
-// share of keys [r * ceil(S / R), ...); its first instructions put the
-// share's key rows (one mbarrier per 32 rows) and its value rows (one
-// mbarrier) in flight into shared memory as 16-byte cp.async copies. The
-// kernel is launched with programmatic dependence (launch_cluster_pdl):
-// the memory is fixed for a whole decode call, so those copies are issued
-// before griddepcontrol.wait, while the query's GEMV may still run; the
-// raw queries (1 KB at most), which that GEMV writes, are loaded after the
-// wait with plain loads (an asynchronous copy's mbarrier arrival would
-// also wait for the key and value rows issued before it), and then the
-// next kernel may launch. bf16 logits on the tensor cores: a warp takes 16 keys
-// at a time as they land, scales and rounds each key element in registers
-// (k * dk**-0.25 -> bf16, the reference's rounding point, so no scaled
-// copy of the memory is ever written) and multiplies them with the scaled
-// queries (mma.sync m16n8k16, the Tq <= 8 queries as the 8 columns, f32
-// accumulation); each lane reads 32 contiguous bytes of a key row. f32
-// logits (the parity model): one thread per key, f32 FMAs. The logits
-// stay in shared memory; (max, sum) are pushed to the peers and combined
-// in rank order after a cluster barrier; p is formed from the stored
-// logits with the global max and sum and rounded; the share's p.v runs in
-// f32 FMAs from the value rows, which landed meanwhile; the partial [Tq,
-// dk] outputs are pushed to their owners, summed in rank order and
-// rounded to the dtype.
+// R <= 8 blocks along x, grid (R, H, B). Block r owns the contiguous share
+// of keys [r * ceil(S / R), ...). The plan (ops/kernels.py
+// xattn_step_launch) is a function of the shapes alone (one launch
+// captured in a CUDA graph serves every step): R = 8 wherever S gives 8
+// shares of 32 keys, the fastest of R = 1-8 at 1-3 windows and Tq 1 and 5
+// (PERF.md). At large-v3's 3 windows x 20 heads: 480 blocks of ~50-55 KB,
+// four to an SM, one wave.
+//  * Staging: the block's first instructions put the share's key rows (one
+//    mbarrier per 32 rows) and value rows (one mbarrier) in flight into
+//    shared memory as 16-byte cp.async copies. (TMA boxes of 32 rows, one
+//    thread issuing them, measured slower at both Tq in a CUDA graph, on
+//    one memory and on 32 layers' memories: PERF.md.) The kernel is
+//    launched with programmatic dependence (launch_cluster_pdl): the memory
+//    is fixed for a whole decode call, so those copies are issued before
+//    griddepcontrol.wait, while the query's GEMV may still run; the raw
+//    queries (1 KB at most), which that GEMV writes, are loaded after the
+//    wait with plain loads, and then the next kernel may launch.
+//  * bf16 logits on the tensor cores: a warp takes 16 keys at a time as
+//    they land, scales and rounds each key element in registers (k *
+//    dk**-0.25 -> bf16, the reference's rounding point, so no scaled copy of
+//    the memory is ever written) and multiplies them with the scaled queries
+//    (mma.sync m16n8k16, the Tq <= 8 queries as the 8 columns, f32
+//    accumulation). f32 logits (the parity model): one thread per key, f32
+//    FMAs. The logits stay in shared memory; (max, sum) are pushed to the
+//    peers and combined in rank order after a cluster barrier; p is formed
+//    from the stored logits with the global max and sum and rounded, a
+//    key's Tq weights together.
+//  * bf16 p.v at Tq >= 2 on the tensor cores: out^T [dk x Tq] = V^T P^T,
+//    mma.sync m16n8k16 with 16 channels x 16 keys of V as the A operand
+//    (ldmatrix.trans from the staged rows) and P's 16 keys x 8 queries as B
+//    (zero past Tq and past the share). p is exact in bf16, so every
+//    product is exact in f32 and only the order of the f32 sums differs
+//    from the plain version. A warp owns 16 (dk 64) or 32 (dk 128) channels
+//    over the whole share, so no sum crosses warps inside a block; it loads
+//    the fragments of four 16-key tiles before their products, which run in
+//    two chains. At one query (7 of the mma's 8 columns empty) and for f32,
+//    f32 FMAs over the staged rows and a reduction through shared memory.
+//  * The R partial [Tq, dk] outputs are pushed to their owners over
+//    distributed shared memory, summed in rank order and rounded to the
+//    dtype.
+// Built with -DXATTN_STEP_STAMPS (tools/time_decode_step.py --phases
+// only), thread 0 of every block writes (clock64, globaltimer) at the
+// phase boundaries marked STAMP(i) into a buffer given as a last argument.
 #include <type_traits>
 
 #include "split_softmax.cuh"
 
 namespace cg = cooperative_groups;
+
+#ifdef XATTN_STEP_STAMPS
+#define STAMP_PARAM , unsigned long long* __restrict__ stamps
+#define STAMP_CPARAM , void* stamps
+#define STAMP_ARG , static_cast<unsigned long long*>(stamps)
+#define STAMP_PASS , stamps
+#define STAMP(i) stamp(stamps, i)
+#else
+#define STAMP_PARAM
+#define STAMP_CPARAM
+#define STAMP_ARG
+#define STAMP_PASS
+#define STAMP(i)
+#endif
 
 namespace {
 
@@ -57,12 +95,34 @@ namespace sp = nt::split;
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 
+#ifdef XATTN_STEP_STAMPS
+constexpr int NSTAMPS = 9;
+
+__device__ __forceinline__ void stamp(unsigned long long* st, int i) {
+  if (threadIdx.x == 0) {
+    const size_t blk =
+        blockIdx.x + gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z);
+    unsigned long long g;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    st[(blk * NSTAMPS + i) * 2] = (unsigned long long)clock64();
+    st[(blk * NSTAMPS + i) * 2 + 1] = g;
+  }
+}
+#endif
+
+// p.v on the tensor cores (else f32 FMAs)
+template <typename T, int TQ>
+struct TcPv {
+  static constexpr bool value =
+      std::is_same<T, __nv_bfloat16>::value && TQ > 1;
+};
+
 // byte offsets of a block's shared memory: mbarriers (values, then one per
 // 32 key rows), the raw queries [T][dk], key rows [per][dk] and value rows
 // [per][dk] in the memory's dtype (esize bytes), logits -> weights
-// [T][per] f32, the warps' partial outputs [NWARPS][T][dk], the peers'
-// partial outputs of this block's slice [R][ceil(T * dk / R)], the peers'
-// stats [R][T], global stats [T]
+// [T][per] f32, the warps' partial outputs [NWARPS][T][dk] (FMA p.v only),
+// the peers' partial outputs of this block's slice [R][ceil(T * dk / R)],
+// the peers' stats [R][T], global stats [T]
 struct Layout {
   int bars, qrows, ks, vs, lg, red, recv, peer, gstat, bytes;
 };
@@ -82,7 +142,7 @@ __host__ __device__ inline Layout layout(int per, int dk, int esize, int T,
   L.lg = o;
   o += T * per * 4;
   L.red = o;
-  o += NWARPS * T * dk * 4;
+  o += (esize == 4 || T == 1) ? NWARPS * T * dk * 4 : 0;
   L.recv = o;
   o += sp::align_up(R * ((T * dk + R - 1) / R) * 4, 16);
   L.peer = o;
@@ -93,7 +153,7 @@ __host__ __device__ inline Layout layout(int per, int dk, int esize, int T,
   return L;
 }
 
-// channels per thread in the p.v pass: Tq x C f32 sums stay <= 32
+// channels per thread in the FMA p.v pass: Tq x C f32 sums stay <= 32
 // registers
 template <int TQ>
 struct PV {
@@ -109,30 +169,16 @@ __device__ __forceinline__ uint32_t scaled_pair(uint32_t w, float sc) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// C consecutive elements of T from element e0 (a multiple of C) of staged
-// row i (pieces of 16 bytes, swizzled), as f32
-template <typename T, int C, int PPR>
-__device__ __forceinline__ void load_row(const unsigned char* rows, int i,
-                                         int e0, float* f) {
-  constexpr int EPP = 16 / (int)sizeof(T);   // elements of a piece
-  const unsigned char* row = rows + i * PPR * 16;
-  if constexpr (C >= EPP) {
-#pragma unroll
-    for (int j = 0; j < C / EPP; ++j)
-      nt::load16(reinterpret_cast<const T*>(
-                     row + sp::slot(i, e0 / EPP + j, PPR) * 16),
-                 f + j * EPP);
-  } else {
-    static_assert(std::is_same<T, __nv_bfloat16>::value && C == 4,
-                  "half pieces are four bf16 values");
-    const uint2 u = *reinterpret_cast<const uint2*>(
-        row + sp::slot(i, e0 / EPP, PPR) * 16 + (e0 % EPP) * 2);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    f[0] = a.x, f[1] = a.y, f[2] = b.x, f[3] = b.y;
-  }
+// four 8 x 8 bf16 matrices, transposed: lane l gives the address of row
+// l % 8 of matrix l / 8; a[j] is matrix j's fragment as mma.sync's A takes
+// it
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
@@ -144,9 +190,10 @@ template <typename T, int DK, int TQ>
 __global__ void __launch_bounds__(NTHREADS, 4)
 xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, int S, int D,
-                  float sc, int per) {
+                  float sc, int per STAMP_PARAM) {
   constexpr int RB = DK * (int)sizeof(T);   // bytes of a row
   constexpr int PPR = RB / 16;              // 16-byte pieces of a row
+  constexpr int EPP = 16 / (int)sizeof(T);  // elements of a piece
   constexpr int KS = DK / 16;               // mma k-steps over the channels
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   cg::cluster_group cluster = cg::this_cluster();
@@ -173,6 +220,7 @@ xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float2* gstat = reinterpret_cast<float2*>(smem + L.gstat);
   auto bar = [&](int i) { return sp::smem_u32(bars + i); };   // 0: values
 
+  STAMP(0);
   // the share's key rows and value rows in flight before anything else,
   // before the wait on the query's kernel (no kernel of a decode call
   // writes the memory); the queries after it
@@ -194,15 +242,22 @@ xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return v + mem + (size_t)r * D;
   });
   sp::cp_async_arrive(bar(0));
+  // the tensor-core p.v reads the share's last 16-key tile whole: its
+  // value rows past the share are zeros (their weights are zeros)
+  if constexpr (TcPv<T, TQ>::value)
+    for (int p = tid; p < ((len + 15) / 16 * 16 - len) * PPR; p += NTHREADS)
+      *reinterpret_cast<uint4*>(vsm + (len + p / PPR) * RB + (p % PPR) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
   sp::pdl_wait();
   for (int p = tid; p < TQ * PPR; p += NTHREADS) {
     const int t = p / PPR, kp = p % PPR;
     *reinterpret_cast<uint4*>(smem + L.qrows + t * RB + kp * 16) =
         *reinterpret_cast<const uint4*>(q + ((size_t)b * TQ + t) * D +
-                                        h * DK + kp * (16 / sizeof(T)));
+                                        h * DK + kp * EPP);
   }
   sp::pdl_launch_dependents();   // every load of the kernel issued
   __syncthreads();
+  STAMP(1);
 
   if constexpr (TC) {
     if (len > 0) {
@@ -294,97 +349,183 @@ xattn_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
+  STAMP(2);
 
   sp::cluster_wait();   // every peer has started: pushes may begin
   sp::push_stats<NTHREADS>(cluster, lg, per, len, TQ, peer, R, rank);
   cluster.sync();
   sp::combine_stats<NTHREADS>(peer, gstat, TQ, R);
-  // p = dtype(exp(s - m) / l) from the stored logits and the global m, l
-  for (int t = 0; t < TQ; ++t) {
-    const float2 gs = gstat[t];
-    for (int i = tid; i < len; i += NTHREADS)
-      lg[t * per + i] = nt::round_as(expf(lg[t * per + i] - gs.x) / gs.y,
-                                     static_cast<const T*>(nullptr));
-  }
+  STAMP(3);
+  // p = dtype(exp(s - m) / l) from the stored logits and the global m, l,
+  // a key's TQ weights together (independent chains); for the tensor
+  // cores, zeros up to the share's last 16-key tile
+  const int plen = TcPv<T, TQ>::value ? (len + 15) / 16 * 16 : len;
+  float2 gs[TQ];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) gs[t] = gstat[t];
+  for (int i = tid; i < plen; i += NTHREADS)
+#pragma unroll
+    for (int t = 0; t < TQ; ++t)
+      lg[t * per + i] =
+          i < len ? nt::round_as(expf(lg[t * per + i] - gs[t].x) / gs[t].y,
+                                 static_cast<const T*>(nullptr))
+                  : 0.f;
   __syncthreads();
+  STAMP(4);
 
-  // p.v over the share: C channels of a value row per thread, rows strided
-  // over the block's row groups
-  constexpr int C = PV<TQ>::C;
-  constexpr int LPR = DK / C;            // threads per value row
-  constexpr int NGR = NTHREADS / LPR;    // row groups
-  const int ch = tid % LPR, grp = tid / LPR;
-  float acc[TQ][C];
+  if constexpr (TcPv<T, TQ>::value) {
+    // out^T = V^T P^T over the share: warp w owns the 16-channel tiles
+    // w * MPW .. + MPW - 1; per 16 keys, lane l gives the address of key
+    // k0 + l % 8 + 8 * (l / 16) at channel m0 + 8 * (l / 8 % 2), so
+    // ldmatrix.trans hands it A = (channels g, g + 8) x (keys 2c4, 2c4 + 1,
+    // + 8, + 9); B holds query g's weights of the same keys (zero past Tq).
+    // The fragments of U tiles are loaded before their products, which run
+    // in two chains (even and odd tiles) summed at the end.
+    constexpr int MPW = DK / 16 / NWARPS;
+    constexpr int U = 4;
+    float acc[2][MPW][4];
 #pragma unroll
-  for (int t = 0; t < TQ; ++t)
+    for (int c = 0; c < 2; ++c)
 #pragma unroll
-    for (int e = 0; e < C; ++e) acc[t][e] = 0.f;
-  if (len > 0) sp::mbar_wait(bar(0), 0);
-  for (int i = grp; i < len; i += NGR) {
-    float vf[C];
-    load_row<T, C, PPR>(vsm, i, ch * C, vf);
+      for (int m = 0; m < MPW; ++m)
 #pragma unroll
-    for (int t = 0; t < TQ; ++t) {
-      const float pw = lg[t * per + i];
+        for (int e = 0; e < 4; ++e) acc[c][m][e] = 0.f;
+    if (len > 0) sp::mbar_wait(bar(0), 0);
+    STAMP(5);
+    const uint32_t vb = sp::smem_u32(vsm);
+    const int lrow = (lane & 7) + 8 * (lane >> 4), lch = 8 * ((lane >> 3) & 1);
+    const float* pg = lg + min(g, TQ - 1) * per + 2 * c4;
+    for (int k1 = 0; k1 < len; k1 += 16 * U) {
+      uint32_t a[U][MPW][4], bf[U][2];
 #pragma unroll
-      for (int e = 0; e < C; ++e) acc[t][e] = fmaf(pw, vf[e], acc[t][e]);
+      for (int u = 0; u < U; ++u) {
+        const int k0 = k1 + 16 * u;
+        bf[u][0] = bf[u][1] = 0u;
+        if (k0 < len) {
+          if (g < TQ) {
+            const float2 p0 = *reinterpret_cast<const float2*>(pg + k0);
+            const float2 p1 = *reinterpret_cast<const float2*>(pg + k0 + 8);
+            bf[u][0] = sp::pack_exact(p0.x, p0.y);
+            bf[u][1] = sp::pack_exact(p1.x, p1.y);
+          }
+          const int r = k0 + lrow;
+#pragma unroll
+          for (int m = 0; m < MPW; ++m)
+            ldsm_x4_trans(a[u][m],
+                          vb + r * RB +
+                              sp::slot(r, ((warp * MPW + m) * 16 + lch) / 8,
+                                       PPR) * 16);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k1 + 16 * u < len)
+#pragma unroll
+          for (int m = 0; m < MPW; ++m)
+            sp::mma_bf16(acc[u & 1][m], a[u][m][0], a[u][m][1], a[u][m][2],
+                         a[u][m][3], bf[u][0], bf[u][1]);
     }
-  }
-  // a warp's row groups by shuffles, then the warps through shared memory
+    STAMP(6);
+    // acc[c][m]: (channel m0 + g, query 2c4), (m0 + g, 2c4 + 1), (m0 + g +
+    // 8, 2c4), (m0 + g + 8, 2c4 + 1)
 #pragma unroll
-  for (int t = 0; t < TQ; ++t)
+    for (int m = 0; m < MPW; ++m)
 #pragma unroll
-    for (int e = 0; e < C; ++e)
+      for (int e = 0; e < 4; ++e) {
+        const int t = 2 * c4 + (e & 1);
+        const int ch = (warp * MPW + m) * 16 + g + 8 * (e >> 1);
+        if (t < TQ)
+          sp::push_partial(cluster, recv, t * DK + ch,
+                           acc[0][m][e] + acc[1][m][e], slice, rank);
+      }
+  } else {
+    // FMA p.v over the share: C channels of a value row per thread, rows
+    // strided over the block's row groups
+    constexpr int C = PV<TQ>::C;
+    constexpr int LPR = DK / C;            // threads per value row
+    constexpr int NGR = NTHREADS / LPR;    // row groups
+    const int ch = tid % LPR, grp = tid / LPR;
+    float acc[TQ][C];
 #pragma unroll
-      for (int o = LPR; o < 32; o <<= 1)
-        acc[t][e] += __shfl_xor_sync(nt::FULL_MASK, acc[t][e], o);
-  if (lane < LPR) {
+    for (int t = 0; t < TQ; ++t)
+#pragma unroll
+      for (int e = 0; e < C; ++e) acc[t][e] = 0.f;
+    if (len > 0) sp::mbar_wait(bar(0), 0);
+    STAMP(5);
+    for (int i = grp; i < len; i += NGR) {
+      float vf[C];
+#pragma unroll
+      for (int j = 0; j < C / EPP; ++j)
+        nt::load16(reinterpret_cast<const T*>(
+                       vsm + i * RB +
+                       sp::slot(i, ch * (C / EPP) + j, PPR) * 16),
+                   vf + EPP * j);
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const float pw = lg[t * per + i];
+#pragma unroll
+        for (int e = 0; e < C; ++e) acc[t][e] = fmaf(pw, vf[e], acc[t][e]);
+      }
+    }
+    // a warp's row groups by shuffles, then the warps through shared memory
 #pragma unroll
     for (int t = 0; t < TQ; ++t)
 #pragma unroll
       for (int e = 0; e < C; ++e)
-        red[(warp * TQ + t) * DK + ch * C + e] = acc[t][e];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nout; idx += NTHREADS) {
-    float o = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) o += red[w * nout + idx];
-    sp::push_partial(cluster, recv, idx, o, slice, rank);
+        for (int o = LPR; o < 32; o <<= 1)
+          acc[t][e] += __shfl_xor_sync(nt::FULL_MASK, acc[t][e], o);
+    if (lane < LPR) {
+#pragma unroll
+      for (int t = 0; t < TQ; ++t)
+#pragma unroll
+        for (int e = 0; e < C; ++e)
+          red[(warp * TQ + t) * DK + ch * C + e] = acc[t][e];
+    }
+    __syncthreads();
+    STAMP(6);
+    for (int idx = tid; idx < nout; idx += NTHREADS) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) o += red[w * nout + idx];
+      sp::push_partial(cluster, recv, idx, o, slice, rank);
+    }
   }
   cluster.sync();
+  STAMP(7);
 
   sp::sum_received<NTHREADS>(recv, nout, slice, R, rank, [&](int idx,
                                                              float o) {
     const int t = idx / DK, d = idx % DK;
     store_as(out + ((size_t)b * TQ + t) * D + h * DK + d, o);
   });
+  STAMP(8);
 }
 
 template <typename T, int DK, int TQ>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int D, float sc, int R, cudaStream_t st) {
+           int S, int D, float sc, int R, cudaStream_t st STAMP_CPARAM) {
   const int per = sp::share_rows(S, R);
   const size_t smem = layout(per, DK, (int)sizeof(T), TQ, R).bytes;
   return sp::launch_cluster_pdl<xattn_step_kernel<T, DK, TQ>>(
       R, D / DK, B, NTHREADS, smem, st, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, D, sc, per);
+      static_cast<T*>(out), S, D, sc, per STAMP_ARG);
 }
 
 template <typename T, int DK>
 int launch_tq(int Tq, const void* q, const void* k, const void* v, void* out,
-              int B, int S, int D, float sc, int R, cudaStream_t st) {
+              int B, int S, int D, float sc, int R,
+              cudaStream_t st STAMP_CPARAM) {
+#define XATTN_STEP_CASE(n)                                            \
+  case n:                                                             \
+    return launch<T, DK, n>(q, k, v, out, B, S, D, sc, R, st STAMP_PASS);
   switch (Tq) {
-    case 1: return launch<T, DK, 1>(q, k, v, out, B, S, D, sc, R, st);
-    case 2: return launch<T, DK, 2>(q, k, v, out, B, S, D, sc, R, st);
-    case 3: return launch<T, DK, 3>(q, k, v, out, B, S, D, sc, R, st);
-    case 4: return launch<T, DK, 4>(q, k, v, out, B, S, D, sc, R, st);
-    case 5: return launch<T, DK, 5>(q, k, v, out, B, S, D, sc, R, st);
-    case 6: return launch<T, DK, 6>(q, k, v, out, B, S, D, sc, R, st);
-    case 7: return launch<T, DK, 7>(q, k, v, out, B, S, D, sc, R, st);
-    case 8: return launch<T, DK, 8>(q, k, v, out, B, S, D, sc, R, st);
+    XATTN_STEP_CASE(1) XATTN_STEP_CASE(2) XATTN_STEP_CASE(3)
+    XATTN_STEP_CASE(4) XATTN_STEP_CASE(5) XATTN_STEP_CASE(6)
+    XATTN_STEP_CASE(7) XATTN_STEP_CASE(8)
   }
+#undef XATTN_STEP_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -394,25 +535,29 @@ int launch_tq(int Tq, const void* q, const void* k, const void* v, void* out,
 // else f32, contiguous and 16-byte aligned. 1 <= Tq <= 8, dk in {64, 128},
 // D % dk == 0, S >= 1; sc = dk**-0.25 as f32; R the cluster size (1..8).
 // The launch carries the programmatic-stream-serialization attribute.
-// Returns cudaGetLastError() of the launch.
+// Returns cudaGetLastError() of the launch. Stamped builds take the stamp
+// buffer [grid blocks][9][2] u64 last.
 extern "C" int xattn_step(const void* q, const void* k, const void* v,
                           void* out, int B, int Tq, int S, int D, int dk,
-                          float sc, int R, int is_bf16, void* stream) {
+                          float sc, int R, int is_bf16,
+                          void* stream STAMP_CPARAM) {
   if (R < 1 || R > sp::MAX_CLUSTER || S < 1 || D % dk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (dk == 64)
       return launch_tq<__nv_bfloat16, 64>(Tq, q, k, v, out, B, S, D, sc, R,
-                                          st);
+                                          st STAMP_PASS);
     if (dk == 128)
       return launch_tq<__nv_bfloat16, 128>(Tq, q, k, v, out, B, S, D, sc, R,
-                                           st);
+                                           st STAMP_PASS);
   } else {
     if (dk == 64)
-      return launch_tq<float, 64>(Tq, q, k, v, out, B, S, D, sc, R, st);
+      return launch_tq<float, 64>(Tq, q, k, v, out, B, S, D, sc, R,
+                                  st STAMP_PASS);
     if (dk == 128)
-      return launch_tq<float, 128>(Tq, q, k, v, out, B, S, D, sc, R, st);
+      return launch_tq<float, 128>(Tq, q, k, v, out, B, S, D, sc, R,
+                                   st STAMP_PASS);
   }
   return (int)cudaErrorInvalidValue;
 }

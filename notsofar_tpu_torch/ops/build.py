@@ -78,28 +78,33 @@ def nvcc_path() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, extra: Sequence[str] = ()) -> Path:
+    """csrc/<name>.cu's library built with NVCC_FLAGS + extra, named by a
+    hash of its sources and flags."""
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *extra]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names: Sequence[str] = KERNELS) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing, one nvcc per
-    source, all in parallel. Returns {name: nvcc output} for the ones
-    built; raises with the compiler's output if any build fails."""
-    todo = [n for n in names if not lib_path(n).exists()]
+def build_all(names: Sequence[str] = KERNELS,
+              extra: Sequence[str] = ()) -> Dict[str, str]:
+    """Compile every named kernel whose library (with the extra nvcc
+    flags) is missing, one nvcc per source, all in parallel. Returns
+    {name: nvcc output} for the ones built; raises with the compiler's
+    output if any build fails."""
+    todo = [n for n in names if not lib_path(n, extra).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for n in todo:
-        out = lib_path(n)
+        out = lib_path(n, extra)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

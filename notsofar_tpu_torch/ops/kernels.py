@@ -912,8 +912,6 @@ def xattn_onedot(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
 XATTN_STEP_MAX_TQ = 8        # folded query lengths the kernel serves
 XATTN_STEP_THREADS = 128     # threads per block of the CUDA kernel
-XATTN_STEP_CLUSTER = 4       # blocks per (head, window) (phase 2's sweep)
-XATTN_STEP_CLUSTER_T1 = 8    # the same for one query a window
 
 
 def xattn_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -939,10 +937,11 @@ def xattn_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def xattn_step_smem(per: int, dk: int, esize: int, T: int, R: int) -> int:
     """Bytes of shared memory of one block (csrc/xattn_step.cu layout):
     mbarriers, the raw queries, key rows, value rows, logits, the [4
-    warps, T, dk] partial outputs, the peers' partial outputs of its
-    slice, stats."""
+    warps, T, dk] partial outputs (the FMA p.v: f32, or one query), the
+    peers' partial outputs of its slice, stats."""
+    red = 4 * T * dk * 4 if esize == 4 or T == 1 else 0
     return (_align(8 * (1 + -(-per // 32)), 128) + T * dk * esize
-            + 2 * per * dk * esize + T * per * 4 + 4 * T * dk * 4
+            + 2 * per * dk * esize + T * per * 4 + red
             + _align(R * -(-T * dk // R) * 4, 16) + 8 * T * (R + 1))
 
 
@@ -951,14 +950,14 @@ def xattn_step_launch(B: int, T: int, S: int, D: int, dk: int,
     """Grid, cluster size, key shares and shared memory of the CUDA kernel
     from the shapes alone: a cluster of R blocks along x per (head,
     window) pair, grid (R, H, B), block r staging its share of the S keys'
-    key and value rows in shared memory. R = XATTN_STEP_CLUSTER_T1 for one
-    query a window, else XATTN_STEP_CLUSTER (of R = 2-8 as 32 launches in
-    one CUDA graph at 3 windows against 1500 frames, phase 2: R = 8 the
-    fastest at Tq 1, R = 4 at Tq 5), fewer where S gives fewer shares of
-    32 keys, more where a share would not fit a block's shared memory."""
+    key and value rows in shared memory. R = _cluster_size(S): 8 wherever
+    S gives 8 shares of 32 keys, fewer where it does not, more where a
+    share would not fit a block's shared memory. Of R = 1-8 as 32
+    launches in one CUDA graph against 1500 frames (phase 2's sweep at 3
+    windows, tools/time_decode_step.py's at 1, 2 and 3), R = 8 was the
+    fastest at Tq 1 and 5 at each of them."""
     esize = 2 if dtype == torch.bfloat16 else 4
-    R = min(XATTN_STEP_CLUSTER_T1 if T == 1 else XATTN_STEP_CLUSTER,
-            _cluster_size(S))
+    R = _cluster_size(S)
     while True:
         per = _share_rows(S, R)
         smem = xattn_step_smem(per, dk, esize, T, R)

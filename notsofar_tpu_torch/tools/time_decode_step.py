@@ -5,7 +5,9 @@ or (``--loops``) its whole decode loops.
         [--out FILE]
     python3 notsofar_tpu_torch/tools/time_decode_step.py --loops
         [--root DIR] [--dtype bfloat16|int8] [--calls 3] [--eot-scale 0]
-        [--max-new 224] [--out FILE]
+        [--max-new 224] [--windows 3] [--out FILE]
+    python3 notsofar_tpu_torch/tools/time_decode_step.py --phases
+        [--root DIR] [--out FILE]
 
 ``--root`` names the checkout whose ``notsofar_tpu_torch`` is imported
 and timed (default: the one holding this file); its kernels are built
@@ -33,21 +35,39 @@ into the cross-attention's queries) -- one single-token decoder call is:
 
 Then decode_gemv's dense mode (QuantDense int8, scale and bf16 bias;
 1280 -> 1280, 1280 -> 5120, 5120 -> 1280) and the int8 and bf16 logits
-at 3, 15 and 48 rows, and xattn_step at 3 windows x Tq 1 and 5 (S 1500,
-bf16): ms by CUDA events (L2 flushed) and as 32 launches in one CUDA
-graph, ms per launch. Prints one line per measurement and, last, a JSON
-object of them all (also written to ``--out``). Runs only on a CUDA card.
+at 3, 15 and 48 rows, and xattn_step at 1, 2 and 3 windows x Tq 1 and 5
+(S 1500, bf16): ms by CUDA events (L2 flushed) and as 32 launches in one
+CUDA graph, ms per launch, on one memory (after the first launch it sits
+in the 50 MB L2) and on 32 layers' memories (cold, as a decode step reads
+them), and on one memory at each cluster size R = 1-8 whose block fits.
+Prints one line per measurement and, last, a JSON object of them all
+(also written to ``--out``). Runs only on a CUDA card.
+
+``--phases`` times xattn_step's phases apart at 3 windows x Tq 1 and 5
+(S 1500, bf16): the checkout's csrc/xattn_step.cu built with
+-DXATTN_STEP_STAMPS (thread 0 of every block stamps clock64 and
+globaltimer at the kernel's STAMP(i) points, through ops/build.py's
+extra flags; a checkout without the stamps or those flags cannot be
+timed so), 32 launches in one CUDA graph on one memory and on
+32 layers' memories (also timed without the stamps, through the
+wrapper), the stamps of the last replay read back. Per phase
+(STAMP_PHASES), the mean over blocks and launches 2-32 of its
+microseconds (cycles over the clock rate that globaltimer gives), and
+the same for the block that ended last; per launch, the span from the
+first block's start to the last block's end, the spread of the blocks'
+starts, and the gap to the next launch's first start. The stamped
+output must equal the wrapper's bit for bit.
 
 ``--loops`` times whole decode calls instead, through entry points that
 every checkout since the decode step was graphed has
 (``GreedyDecoder._decode_loop``, ``BeamDecoder._beam_loop``, the
 counters ``asr.decoding.DECODE_STEPS``): Whisper large-v3 with seeded
 random weights in ``--dtype`` (bf16, or the int8 decoder with int8
-cross-attention K/V), 3 seeded mel windows through the encoder, then
-greedy (3 rows) and beam 5 (15 rows) decode calls of up to ``--max-new``
-new tokens (default 224, the shipped max), each call timed by the host
-clock from its start to a synchronize after it (the set-up, step 0, the
-graph captures and every step): the first call of the loop's key
+cross-attention K/V), ``--windows`` seeded mel windows (default 3)
+through the encoder, then greedy (a row a window) and beam 5 (five)
+decode calls of up to ``--max-new`` new tokens (default 224, the shipped
+max), each call timed by the host clock from its start to a synchronize
+after it (the set-up, step 0, the graph captures and every step): the first call of the loop's key
 reported apart, then ``--calls`` more, each with its host seconds before
 its first replayed step (set-up, step 0, capture) and whether its key
 had a decode workspace (None on a checkout without them).
@@ -58,6 +78,7 @@ a call runs and ms per step of the later calls, and each call; last,
 the JSON object.
 """
 import argparse
+import ctypes
 import json
 import time
 import sys
@@ -65,6 +86,11 @@ from collections import defaultdict
 from pathlib import Path
 
 D, DK, S, WINDOWS = 1280, 64, 1500, 3
+LAYERS = 32
+# what each stamp-to-stamp interval of csrc/xattn_step.cu holds
+STAMP_PHASES = ("issue + queries", "logits", "stats exchange",
+                "weights", "values wait", "p.v", "partial exchange",
+                "sum + store")
 
 
 def _setup(model, beams: int, seed: int = 3):
@@ -222,27 +248,174 @@ def gemv_times(iters: int) -> dict:
     return out
 
 
+def layer_memories(seed: int = 7):
+    """LAYERS seeded bf16 cross-attention memories (k, v) of WINDOWS x S x
+    D, as a decode step's layers hold them."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [tuple(torch.randn(WINDOWS, S, D, generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+            for _ in range(LAYERS)]
+
+
 def xattn_step_times(iters: int) -> dict:
+    """xattn_step at 1, 2 and 3 windows x Tq 1 and 5: the plan's R; ms by
+    events and as LAYERS launches in one graph (ms per launch) on one
+    memory and on LAYERS memories; and, through the checkout's C function,
+    as LAYERS launches in one graph at each cluster size R = 1-8 whose
+    block fits (sweep_graph_ms)."""
     import torch
     from notsofar_tpu_torch.ops import kernels as K
     from notsofar_tpu_torch.tools.common import time_cuda, time_cuda_graph
-    g = torch.Generator(device="cuda").manual_seed(7)
     bf = torch.bfloat16
-    k = torch.randn(WINDOWS, S, D, generator=g, device="cuda").to(bf)
-    v = torch.randn(WINDOWS, S, D, generator=g, device="cuda").to(bf)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mems = layer_memories()
+    lib = K.build.load("xattn_step")
     out = {}
-    for T in (1, 5):
-        q = torch.randn(WINDOWS, T, D, generator=g, device="cuda").to(bf)
-        out[f"xattn_step Tq {T}"] = dict(
-            ms=time_cuda(lambda: K.xattn_step(q, k, v, DK), iters),
-            graph_ms=time_cuda_graph(
-                lambda: [K.xattn_step(q, k, v, DK) for _ in range(32)],
-                iters) / 32)
+    for B in range(1, WINDOWS + 1):
+        k, v = (x[:B] for x in mems[0])
+        cold = [(kk[:B], vv[:B]) for kk, vv in mems]
+        for T in (1, 5):
+            q = torch.randn(B, T, D, generator=g, device="cuda").to(bf)
+            o = torch.empty(B, T, D, dtype=bf, device="cuda")
+
+            def launch(R, q=q, k=k, v=v, o=o, B=B, T=T):
+                return lib.xattn_step(q.data_ptr(), k.data_ptr(),
+                                      v.data_ptr(), o.data_ptr(), B, T, S, D,
+                                      DK, DK ** -0.25, R, 1, K._stream())
+
+            sweep = {}
+            for R in range(1, 9):
+                if launch(R) == 0:      # else past a block's shared memory
+                    sweep[R] = time_cuda_graph(
+                        lambda R=R: [launch(R) for _ in range(LAYERS)],
+                        iters) / LAYERS
+            out[f"xattn_step {B} windows Tq {T}"] = dict(
+                R=K.xattn_step_launch(B, T, S, D, DK, bf)["cluster"],
+                ms=time_cuda(lambda: K.xattn_step(q, k, v, DK), iters),
+                graph_ms=time_cuda_graph(
+                    lambda: [K.xattn_step(q, k, v, DK)
+                             for _ in range(LAYERS)], iters) / LAYERS,
+                graph_cold_ms=time_cuda_graph(
+                    lambda: [K.xattn_step(q, kk, vv, DK) for kk, vv in cold],
+                    iters) / LAYERS,
+                sweep_graph_ms=sweep)
     return out
 
 
+STAMPS = ("-DXATTN_STEP_STAMPS",)
+
+
+def build_stamped(root: Path) -> ctypes.CDLL:
+    """The checkout's csrc/xattn_step.cu built with STAMPS into its build
+    directory (ops/build.py's lib_path and build_all with extra flags);
+    its xattn_step takes the stamp buffer last."""
+    from notsofar_tpu_torch.ops import build
+    if Path(build.__file__).resolve().parents[2] != root.resolve():
+        raise RuntimeError(f"imported {build.__file__}, not the checkout "
+                           f"{root}")
+    build.build_all(["xattn_step"], STAMPS)
+    dll = ctypes.CDLL(str(build.lib_path("xattn_step", STAMPS)))
+    dll.xattn_step.argtypes = (list(build._ARGTYPES["xattn_step"][1])
+                               + [ctypes.c_void_p])
+    dll.xattn_step.restype = ctypes.c_int
+    return dll
+
+
+def stamp_summary(st) -> dict:
+    """Phases from the stamps [launches, blocks, 9, (clock64,
+    globaltimer)] of one replay (see the module's docstring)."""
+    import numpy as np
+    st = st.astype(np.float64)
+    clk, gt = st[..., 0], st[..., 1]
+    ns_per_cycle = ((gt[..., -1] - gt[..., 0]).sum()
+                    / (clk[..., -1] - clk[..., 0]).sum())
+    us = np.diff(clk, axis=-1) * ns_per_cycle / 1e3   # [launches, blocks, 8]
+    last = gt[..., -1].argmax(-1)                      # per launch
+    steady = slice(1, None)
+    span = (gt[..., -1].max(-1) - gt[..., 0].min(-1)) / 1e3
+    spread = (gt[..., 0].max(-1) - gt[..., 0].min(-1)) / 1e3
+    gap = (gt[1:, :, 0].min(-1) - gt[:-1, :, -1].max(-1)) / 1e3
+    crit = us[np.arange(len(us)), last]                # [launches, 8]
+    return dict(
+        ghz=1 / ns_per_cycle,
+        mean_us={p: float(us[steady, :, i].mean())
+                 for i, p in enumerate(STAMP_PHASES)},
+        last_block_us={p: float(crit[steady, i].mean())
+                       for i, p in enumerate(STAMP_PHASES)},
+        block_us=float(us[steady].sum(-1).mean()),
+        span_us=float(span[steady].mean()),
+        start_spread_us=float(spread[steady].mean()),
+        gap_us=float(gap[1:].mean()))
+
+
+def xattn_step_phases(root: Path, iters: int) -> dict:
+    """--phases: see the module's docstring."""
+    import numpy as np
+    import torch
+    from notsofar_tpu_torch.ops import kernels as K
+    from notsofar_tpu_torch.tools.common import time_cuda_graph
+    lib = build_stamped(root)
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mems = layer_memories()
+    res = {}
+    for T in (1, 5):
+        q = torch.randn(WINDOWS, T, D, generator=g, device="cuda").to(bf)
+        plan = K.xattn_step_launch(WINDOWS, T, S, D, DK, bf)
+        R = plan["cluster"]
+        nblk = R * (D // DK) * WINDOWS
+        row = dict(cluster=R, blocks=nblk, smem=plan["smem"])
+        for name, chain in (("hot", [mems[0]] * LAYERS), ("cold", mems)):
+            st = torch.zeros(LAYERS, nblk, 9, 2, dtype=torch.int64,
+                             device="cuda")
+            outs = torch.empty(LAYERS, WINDOWS, T, D, dtype=bf,
+                               device="cuda")
+
+            def run():
+                for i, (k, v) in enumerate(chain):
+                    rc = lib.xattn_step(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        outs[i].data_ptr(), WINDOWS, T, S, D, DK,
+                        DK ** -0.25, R, 1, K._stream(), st[i].data_ptr())
+                    if rc != 0:
+                        raise RuntimeError(f"stamped xattn_step: error {rc}")
+
+            ms = time_cuda_graph(run, iters) / LAYERS
+            torch.cuda.synchronize()
+            for i, (k, v) in enumerate(chain):
+                if not torch.equal(outs[i], K.xattn_step(q, k, v, DK)):
+                    raise AssertionError(f"stamped xattn_step Tq {T} {name}:"
+                                         " output differs from the kernel's")
+            plain = time_cuda_graph(
+                lambda: [K.xattn_step(q, k, v, DK) for k, v in chain],
+                iters) / LAYERS
+            row[name] = dict(graph_ms=plain, stamped_graph_ms=ms,
+                             **stamp_summary(st.cpu().numpy()))
+        res[f"Tq {T}"] = row
+    return res
+
+
+def phases_line(label: str, r: dict) -> str:
+    """One printable line of a xattn_step_phases row."""
+    def us(d):
+        return ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+    parts = [f"{label}: R {r['cluster']}, {r['blocks']} blocks, "
+             f"{r['smem']} B a block"]
+    for name in ("hot", "cold"):
+        x = r[name]
+        parts.append(
+            f"{name}: graph {x['graph_ms']:.4f} ms a launch (stamped "
+            f"{x['stamped_graph_ms']:.4f}), span "
+            f"{x['span_us']:.3f} us, starts spread {x['start_spread_us']:.3f}"
+            f" us, gap to the next {x['gap_us']:.3f} us, a block "
+            f"{x['block_us']:.3f} us at {x['ghz']:.3f} GHz; mean us "
+            f"[{us(x['mean_us'])}]; last block us [{us(x['last_block_us'])}]")
+    return "; ".join(parts)
+
+
 def time_loops(dtype: str, calls: int, eot_scale: float,
-               max_new: int = 224) -> dict:
+               max_new: int = 224, windows: int = WINDOWS) -> dict:
     """ms per call, steps per call and DECODE_STEPS per call of the
     greedy and beam-5 loops (``--loops``; see the module's docstring):
     the first call of the loop's key apart, then ``calls`` more, each with
@@ -260,7 +433,7 @@ def time_loops(dtype: str, calls: int, eot_scale: float,
         raise ValueError("--eot-scale scales a float embedding row; the "
                          "int8 decoder's embedding is quantized")
     mel = torch.from_numpy(np.random.RandomState(8).randn(3, 128, 3000)
-                           .astype(np.float32)).cuda()
+                           .astype(np.float32)[:windows]).cuda()
     emb = model.decoder.token_embedding.weight
     row = emb[tok.eot].clone()
     out = {}
@@ -277,7 +450,8 @@ def time_loops(dtype: str, calls: int, eot_scale: float,
                 if kind == "beam5" else dec.GreedyDecoder(model, tok, opts)
             loop = d._beam_loop if kind == "beam5" else d._decode_loop
             initial = d._initial_tokens(None)
-            prompt = torch.tensor(initial, device="cuda").repeat(3, 1)
+            prompt = torch.tensor(initial, device="cuda").repeat(windows,
+                                                                 1)
             per_call = []
             for _ in range(calls + 1):
                 torch.cuda.synchronize()
@@ -317,12 +491,15 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--window", type=int, default=10)
     ap.add_argument("--loops", action="store_true")
+    ap.add_argument("--phases", action="store_true")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "int8"))
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--eot-scale", type=float, default=0.0)
     ap.add_argument("--max-new", type=int, default=224,
                     help="--loops: max_new_tokens of each decode call")
+    ap.add_argument("--windows", type=int, default=WINDOWS,
+                    help="--loops: mel windows a decode call decodes")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -336,11 +513,19 @@ def main(argv=None) -> int:
     if Path(K.__file__).resolve().parents[2] != root:
         raise RuntimeError(f"time_decode_step: imported {K.__file__}, not "
                            f"the checkout {root}")
+    if args.phases:
+        res = dict(root=str(root), card=card_line(),
+                   phases=xattn_step_phases(root, args.iters))
+        print(f"device: {res['card']}; checkout {root}", flush=True)
+        for label, r in res["phases"].items():
+            print(phases_line(f"xattn_step {label}", r), flush=True)
+        return _emit(res, args.out)
     if args.loops:
         res = dict(root=str(root), card=card_line(), dtype=args.dtype,
                    eot_scale=args.eot_scale, max_new=args.max_new,
+                   windows=args.windows,
                    loops=time_loops(args.dtype, args.calls, args.eot_scale,
-                                    args.max_new))
+                                    args.max_new, args.windows))
         print(f"device: {res['card']}; checkout {root}", flush=True)
         for kind, r in res["loops"].items():
             def call(c):
@@ -350,7 +535,8 @@ def main(argv=None) -> int:
                         f"{c['host_s_before_replay']:.4f} (set-up "
                         f"{c['prefill_s']:.4f}, step 0 {c['step0_s']:.4f}, "
                         f"capture {c['capture_s']:.4f})")
-            print(f"{kind} {args.dtype} max_new {args.max_new}: first call "
+            print(f"{kind} {args.dtype} max_new {args.max_new}, "
+                  f"{args.windows} windows: first call "
                   f"of the key {call(r['first'])}; later calls "
                   f"{r['ms_per_call']:.2f} ms per call, {r['steps']:.1f} "
                   f"steps, {r['ms_per_step']:.4f} ms per step; each: "
@@ -377,8 +563,11 @@ def main(argv=None) -> int:
     res["gemv"] = gemv_times(args.iters)
     res["xattn_step"] = xattn_step_times(args.iters)
     for k, v in {**res["gemv"], **res["xattn_step"]}.items():
-        print(f"{k}: " + ", ".join(f"{a} {b:.4f}" for a, b in v.items()),
-              flush=True)
+        print(f"{k}: " + ", ".join(
+            f"{a} {b:.4f}" if isinstance(b, float) else
+            f"{a} { {r: round(x, 4) for r, x in b.items()} }"
+            if isinstance(b, dict) else f"{a} {b}"
+            for a, b in v.items()), flush=True)
     return _emit(res, args.out)
 
 

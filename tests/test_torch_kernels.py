@@ -1075,32 +1075,155 @@ def test_decode_gemv_wrapper_raises_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("D,dk", [(1280, 64), (256, 128), (128, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_xattn_step_plan_covers_the_keys_once(D, dk, dtype):
-    """xattn_step_launch over T 1-8 and S 1-64 and to Whisper's 1500
-    frames: R <= 8 shares covering [0, S) once (empty shares allowed) each
-    within the block's capacity, grid (R, H, B) from the shapes, a block's
-    shared memory within SMEM_LIMIT, at S 1500 R = XATTN_STEP_CLUSTER_T1
-    for one query and XATTN_STEP_CLUSTER for five; the wrapper raises past
-    8 queries."""
+    """xattn_step_launch over T 1-8 and S 1-64, ragged S and Whisper's
+    1500 frames: R <= 8 nonempty shares covering [0, S) once, each within
+    the block's capacity (a multiple of 16 keys), grid (R, H, B) from the
+    shapes, a block's shared memory within SMEM_LIMIT; R the split-softmax
+    cluster size of S, grown only where a smaller R does not fit; at
+    large-v3's 20 heads against 1500 frames R = 8 at Tq 1 and 5 for 1-4
+    windows (one window: transcribe and the fallback ladder's subsets;
+    three: the smoke's session); the wrapper raises past 8 queries."""
+    esize = 2 if dtype == torch.bfloat16 else 4
     for T in range(1, 9):
-        for S in list(range(1, 65)) + [100, 448, 1500, 1504]:
+        for S in list(range(1, 65)) + [100, 448, 1499, 1500, 1501, 1504]:
             plan = tk.xattn_step_launch(3, T, S, D, dk, dtype)
-            R = plan["cluster"]
+            R, cap = plan["cluster"], plan["per"]
             assert 1 <= R <= 8 and plan["grid"] == (R, D // dk, 3)
+            assert cap % 16 == 0 and cap >= -(-S // R)
             assert covers_once(plan["shares"], S)
-            assert max(n for _, n in plan["shares"]) <= plan["per"]
+            assert all(0 < n <= cap for _, n in plan["shares"])
+            assert plan["smem"] == tk.xattn_step_smem(cap, dk, esize, T, R)
             assert plan["smem"] <= tk.SMEM_LIMIT
+            assert R >= min(8, -(-S // 32))
+            for R2 in range(min(8, -(-S // 32)), R):
+                cap2 = -(-(-(-S // R2)) // 16) * 16
+                assert tk.xattn_step_smem(cap2, dk, esize, T, R2) > \
+                    tk.SMEM_LIMIT
+    if (D, dk) == (1280, 64):
+        for B in (1, 2, 3, 4):
+            for T in (1, 5):
+                plan = tk.xattn_step_launch(B, T, 1500, D, dk, dtype)
+                assert plan["cluster"] == 8 and plan["grid"] == (8, 20, B)
     q = torch.empty(3, 9, D, dtype=dtype)
     k = torch.empty(3, 1500, D, dtype=dtype)
     with pytest.raises(ValueError):
         tk._xattn_step_plan(q, k, k, dk)
     with pytest.raises(ValueError):
         tk._xattn_step_plan(q[:, :5], k, k.half(), dk)
-    R = tk._xattn_step_plan(q[:, :5], k, k, dk)["cluster"]
-    assert R == tk.XATTN_STEP_CLUSTER or (dtype == torch.float32 and
-                                          dk == 128 and R > 4)
-    # one query a window: the cluster size that was fastest in a graph
-    assert tk._xattn_step_plan(q[:, :1], k, k, dk)["cluster"] == \
-        tk.XATTN_STEP_CLUSTER_T1
+    assert tk._xattn_step_plan(q[:, :5], k, k, dk) == \
+        tk.xattn_step_launch(3, 5, 1500, D, dk, dtype)
+
+
+def pv_fragment_walk(p, v, len_):
+    """A numpy model of csrc/xattn_step.cu's bf16 p.v over one share: the
+    share's value rows staged as the copies land (row i at i * dk * 2 bytes,
+    its 16-byte piece k in slot k ^ (i % 8), zeros from the share's end to
+    its last 16-key tile's), each warp's 16-channel tiles walked 16 keys at
+    a time, batches of four tiles in two chains: lane l gives the
+    address of key k0 + l % 8 + 8 (l / 16) at channel m0 + 8 (l / 8 % 2),
+    ldmatrix.trans hands lane (g, c4) (row 2c4, col g) and (2c4 + 1, g) of
+    each 8 x 8 matrix, P's B fragment holds query g's weights of keys k0 +
+    2c4, + 1, + 8, + 9 (zero past Tq); mma.sync's A (16 x 16) and B (16 x
+    8) reassembled from the lanes' fragments, D = A B accumulated in each
+    lane's four registers (float64: every product and sum exact for the
+    integer-valued inputs). p [T, len_], v [len_, dk] -> out [T, dk]."""
+    T, dk = p.shape[0], v.shape[1]
+    rows = -(-len_ // 16) * 16
+    ppr = dk // 8                              # 16-byte pieces of a row
+    smem = np.full((rows * dk,), np.nan)       # in bf16 elements
+
+    def piece(i, kp):                          # element offset
+        return i * dk + ((kp ^ (i & 7)) << 3)
+
+    for i in range(rows):
+        for kp in range(ppr):
+            off = piece(i, kp)
+            smem[off:off + 8] = (v[i, kp * 8:kp * 8 + 8] if i < len_
+                                 else 0.0)
+    lane = np.arange(32)
+    g, c4 = lane // 4, lane % 4
+    lrow, lch = (lane & 7) + 8 * (lane >> 4), 8 * ((lane >> 3) & 1)
+    pz = np.zeros((8, -(-len_ // 16) * 16))
+    pz[:T, :len_] = p
+    out = np.zeros((T, dk))
+    mpw = dk // 16 // 4
+    for warp in range(4):
+        for m in range(mpw):
+            m0 = (warp * mpw + m) * 16
+            acc = np.zeros((2, 32, 4))
+            for k0 in range(0, len_, 16):
+                key, ch = k0 + lrow, m0 + lch
+                addr = piece(key, ch // 8)
+                mats = [np.stack([smem[addr[8 * j + r]:addr[8 * j + r] + 8]
+                                  for r in range(8)]) for j in range(4)]
+                a = np.stack([np.stack([mt[2 * c4, g], mt[2 * c4 + 1, g]], 1)
+                              for mt in mats])            # [4, lanes, 2]
+                b0 = np.stack([pz[g, k0 + 2 * c4], pz[g, k0 + 2 * c4 + 1]],
+                              1)
+                b1 = np.stack([pz[g, k0 + 8 + 2 * c4],
+                               pz[g, k0 + 9 + 2 * c4]], 1)
+                A = np.full((16, 16), np.nan)
+                B = np.full((16, 8), np.nan)
+                for e in range(2):
+                    A[g, 2 * c4 + e] = a[0][:, e]
+                    A[g + 8, 2 * c4 + e] = a[1][:, e]
+                    A[g, 8 + 2 * c4 + e] = a[2][:, e]
+                    A[g + 8, 8 + 2 * c4 + e] = a[3][:, e]
+                    B[2 * c4 + e, g] = b0[:, e]
+                    B[8 + 2 * c4 + e, g] = b1[:, e]
+                Dm = A @ B
+                acc[k0 // 16 % 2] += np.stack(
+                    [Dm[g, 2 * c4], Dm[g, 2 * c4 + 1], Dm[g + 8, 2 * c4],
+                     Dm[g + 8, 2 * c4 + 1]], 1)
+            acc = acc[0] + acc[1]
+            for e in range(4):
+                t = 2 * c4 + (e & 1)
+                chn = m0 + g + 8 * (e >> 1)
+                keep = t < T
+                out[t[keep], chn[keep]] = acc[keep, e]
+    return out
+
+
+@pytest.mark.parametrize("dk", [64, 128])
+@pytest.mark.parametrize("T", range(2, 9))
+def test_xattn_step_pv_fragment_walk_reassembles_p_v(T, dk):
+    """The tensor-core p.v's fragment walk (pv_fragment_walk; bf16 at Tq >=
+    2, one query takes the FMA pass) over the
+    shares of the plan (Whisper's 1500 frames at the plan's R, and a ragged
+    53 keys in shares of 27 and 26) puts every product p[t, s] v[s, c] into
+    out[t, c] exactly once: integer-valued p and v give p @ v exactly. On
+    xattn_step_plain's own bf16 weights and bf16 values, the shares' sums
+    in rank order, rounded to bf16, are xattn_step_plain's output within
+    one bf16 ulp (its f32 p.v sums in another order)."""
+    rng = np.random.RandomState(T * 7 + dk)
+    for S, R in ((1500, tk.xattn_step_launch(1, T, 1500, dk, dk,
+                                             torch.bfloat16)["cluster"]),
+                 (53, 2)):
+        shares = tk.split_shares(S, R)
+        pi = rng.randint(-8, 9, (T, S)).astype(np.float64)
+        vi = rng.randint(-8, 9, (S, dk)).astype(np.float64)
+        got = sum(pv_fragment_walk(pi[:, c0:c0 + n], vi[c0:c0 + n], n)
+                  for c0, n in shares)
+        np.testing.assert_array_equal(got, pi @ vi)
+        if S != 1500:
+            continue
+        q = bf16_round(rng.randn(1, T, dk).astype(np.float32) * 2)
+        k = bf16_round(rng.randn(1, S, dk).astype(np.float32))
+        v = bf16_round(rng.randn(1, S, dk).astype(np.float32))
+        qt, kt = (t(x[0]).bfloat16() * dk ** -0.25 for x in (q, k))
+        w = torch.softmax(qt.float() @ kt.float().T, -1)   # as the plain
+        pw = w.to(torch.bfloat16).double().numpy()
+        model = np.zeros((T, dk))
+        for c0, n in shares:
+            model = model + pv_fragment_walk(pw[:, c0:c0 + n],
+                                             v[0, c0:c0 + n].astype(
+                                                 np.float64), n)
+        want = tk.xattn_step_plain(t(q).bfloat16(), t(k).bfloat16(),
+                                   t(v).bfloat16(), dk).float().numpy()[0]
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(model), 1e-30)))
+                      - 7)
+        assert (np.abs(bf16_round(model.astype(np.float32)) - want)
+                <= ulp + 1e-30).all()
 
 
 @pytest.mark.parametrize("B,S,D,dk", [(24, 1504, 1280, 64), (2, 96, 384, 64),
@@ -1469,7 +1592,19 @@ def test_gpu_attn_step_split_bias_kernel(cuda, B, K, Pp, G, D, dk, dtype,
     (2, 8, 256, 128, 96, torch.bfloat16), (2, 3, 384, 64, 77, torch.float32),
     # the shares: S not a multiple of R; S < R (empty shares); S = 1
     (3, 2, 128, 64, 1499, torch.bfloat16), (2, 4, 256, 128, 5, torch.float32),
-    (1, 1, 128, 64, 1, torch.bfloat16), (1, 7, 128, 64, 33, torch.bfloat16)])
+    (1, 1, 128, 64, 1, torch.bfloat16), (1, 7, 128, 64, 33, torch.bfloat16),
+    # 6 and 8 queries, a ragged last share, heads of 128 (two channel
+    # tiles a warp), 160 pairs in more than one wave, one and two windows
+    # (transcribe, the fallback ladder's subsets)
+    (3, 6, 1280, 64, 1500, torch.bfloat16),
+    (3, 8, 1280, 64, 1500, torch.bfloat16),
+    (3, 8, 1280, 64, 1500, torch.float32),
+    (3, 5, 1280, 64, 1501, torch.bfloat16),
+    (3, 5, 1280, 128, 1500, torch.bfloat16),
+    (8, 5, 1280, 64, 1500, torch.bfloat16),
+    (1, 1, 1280, 64, 1500, torch.bfloat16),
+    (1, 5, 1280, 64, 1500, torch.bfloat16),
+    (2, 5, 1280, 64, 1500, torch.bfloat16)])
 def test_gpu_xattn_step_kernel(cuda, B, T, D, dk, S, dtype):
     """The CUDA kernel against its plain version, per output within
     xattn_step_tolerance without the JAX scale (both round dtype(q s) and

@@ -368,6 +368,66 @@ def test_time_decode_step_loops_mode_raises_without_a_card(monkeypatch):
                                "int8", "--calls", "1"])
 
 
+def test_time_decode_step_phases_mode_raises_without_a_card(monkeypatch):
+    """--phases times xattn_step's phases apart, on the card only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        time_decode_step.main(["--phases", "--root", str(REPO)])
+
+
+def test_build_extra_flags_name_their_own_library(monkeypatch, tmp_path):
+    """ops/build.py: a library built with extra nvcc flags (the stamped
+    xattn_step) gets a name of its own and those flags on its nvcc line;
+    without them the name is the kernels' usual one. nvcc is stubbed by a
+    script that writes its -o file."""
+    from notsofar_tpu_torch.ops import build
+    stamps = time_decode_step.STAMPS
+    assert build.lib_path("xattn_step", ()) == build.lib_path("xattn_step")
+    assert build.lib_path("xattn_step", stamps) != \
+        build.lib_path("xattn_step")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "$@"\nwhile [ "$1" != -o ]; do shift; '
+                    'done\ntouch "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    logs = build.build_all(["xattn_step"], stamps)
+    assert build.lib_path("xattn_step", stamps).exists()
+    assert not build.lib_path("xattn_step").exists()
+    assert stamps[0] in logs["xattn_step"].split()
+    assert build.build_all(["xattn_step"], stamps) == {}
+
+
+def test_stamp_summary_reads_phases_from_the_stamps():
+    """xattn_step's phase stamps [launches, blocks, 9, (clock64,
+    globaltimer)] -> per-phase microseconds (cycles over the clock rate
+    that globaltimer gives), the block that ended last, each launch's
+    span, spread of starts and gap to the next; launch 1 (cold) left out.
+    Synthetic: a 2 GHz clock, phase i of block b lasting (i + 1 + b)
+    microseconds, block b starting b us after its launch, launches 20 us
+    apart."""
+    L, B = 3, 2
+    st = np.zeros((L, B, 9, 2), dtype=np.int64)
+    for n in range(L):
+        for b in range(B):
+            t = 20.0 * n + b
+            for i in range(9):
+                st[n, b, i] = (round(t * 2000), round(t * 1000))
+                if i < 8:
+                    t += i + 1 + b
+    r = time_decode_step.stamp_summary(st)
+    assert r["ghz"] == pytest.approx(2.0)
+    phases = time_decode_step.STAMP_PHASES
+    assert list(r["mean_us"]) == list(phases)
+    for i, p in enumerate(phases):
+        assert r["mean_us"][p] == pytest.approx(i + 1.5)
+        assert r["last_block_us"][p] == pytest.approx(i + 2)
+    assert r["block_us"] == pytest.approx(36 + 4)
+    assert r["span_us"] == pytest.approx(1 + 36 + 8)
+    assert r["start_spread_us"] == pytest.approx(1.0)
+    assert r["gap_us"] == pytest.approx(20 - 45)
+
+
 @pytest.mark.parametrize("kernels,share", [
     ([("a", 0.0, 10.0)], 1.0),
     ([("a", 0.0, 4.0), ("b", 6.0, 10.0)], 0.8),          # a gap of 2
