@@ -35,6 +35,7 @@ from notsofar_tpu_torch.asr.decoding import (NEG_INF, DecodeOptions,
                                              DecodeWorkspace, GreedyDecoder)
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import WhisperModel
+from notsofar_tpu_torch.utils.profiling import span
 
 
 class BeamDecoder(GreedyDecoder):
@@ -88,8 +89,6 @@ class BeamDecoder(GreedyDecoder):
         else:
             G, pos0 = cache_len, prompt_len
         graph = xa.is_cuda if graph is None else bool(graph)
-        key = self._key(f"beam{K}", xa, graph, prompt_len, B, P, G, max_new,
-                        use_split, self.cache_dtype, pad_lens is not None)
 
         def make() -> DecodeWorkspace:
             if use_split:
@@ -115,8 +114,12 @@ class BeamDecoder(GreedyDecoder):
                     None, :, None].expand(B, K, 1).contiguous(),
                 row0=torch.arange(B, device=dev)[:, None] * K)
 
-        ws, fresh = self._workspace(key, make)
-        ws.load(xa, prompt_tokens, pad_lens, ())
+        with span("stage.decode.prepare"):
+            key = self._key(f"beam{K}", xa, graph, prompt_len, B, P, G,
+                            max_new, use_split, self.cache_dtype,
+                            pad_lens is not None)
+            ws, fresh = self._workspace(key, make)
+            ws.load(xa, prompt_tokens, pad_lens, ())
         t, st, caches = ws.t, ws.st, ws.t["caches"]
         tokens, sum_lp, step_t = t["tokens"], t["sum_lp"], t["step_t"]
         eot_only, own_slot, row0 = t["eot_only"], t["own_slot"], t["row0"]
@@ -209,11 +212,12 @@ class BeamDecoder(GreedyDecoder):
             return self._concat_results([
                 self.decode(xa[c0:c0 + cap], prompt)
                 for c0 in range(0, B, cap)])
-        initial = self._initial_tokens(prompt)
-        prompt_tokens = torch.tensor(initial, dtype=torch.long,
-                                     device=xa.device).repeat(B, 1)
+        with span("stage.decode.prepare"):
+            initial = self._initial_tokens(prompt)
+            prompt_tokens = torch.tensor(initial, dtype=torch.long,
+                                         device=xa.device).repeat(B, 1)
         tokens, stats = self._beam_loop(xa, len(initial), prompt_tokens)
-        return self._unpack_beam(tokens.cpu().numpy(), stats.cpu().numpy())
+        return self._read_back_and_unpack(tokens, stats)
 
     def _unpack_beam(self, tokens: np.ndarray, stats: np.ndarray) -> Dict:
         B, K = tokens.shape[:2]
@@ -248,9 +252,16 @@ class BeamDecoder(GreedyDecoder):
                 self.decode_prompted(xa[c0:c0 + cap],
                                      list(prompts)[c0:c0 + cap])
                 for c0 in range(0, B, cap)])
-        toks, pads, P_pad = self._pack_prompts(prompts)
-        dev = xa.device
-        tokens, stats = self._beam_loop(
-            xa, P_pad, torch.from_numpy(toks).to(dev),
-            pad_lens=torch.from_numpy(pads).to(dev))
-        return self._unpack_beam(tokens.cpu().numpy(), stats.cpu().numpy())
+        with span("stage.decode.prepare"):
+            toks, pads, P_pad = self._pack_prompts(prompts)
+            toks = torch.from_numpy(toks).to(xa.device)
+            pads = torch.from_numpy(pads).to(xa.device)
+        tokens, stats = self._beam_loop(xa, P_pad, toks, pad_lens=pads)
+        return self._read_back_and_unpack(tokens, stats)
+
+    def _read_back_and_unpack(self, tokens: torch.Tensor,
+                              stats: torch.Tensor) -> Dict:
+        with span("stage.decode.readback"):
+            tokens, stats = tokens.cpu().numpy(), stats.cpu().numpy()
+        with span("stage.decode.unpack"):
+            return self._unpack_beam(tokens, stats)

@@ -62,6 +62,7 @@ from notsofar_tpu_torch.models.whisper import (  # noqa: F401 (re-exported)
 from notsofar_tpu_torch.ops import kernels
 from notsofar_tpu_torch.utils.cuda_graph import (StepGraph, WorkspaceCache,
                                                  capture_stream)
+from notsofar_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 
@@ -142,13 +143,15 @@ WORKSPACES = WorkspaceCache()
 # call's set-up before step 0 (the copy of its inputs, then the set-up
 # eagerly or its graph's replay), step 0 (eager, the graphs' warm-up, or
 # its graph's replay), the later steps' replays, the counters they bump,
-# and the waits on finished.all() reads
+# and the waits on finished.all() reads; and the windows the word-timing
+# pass aligned (find_word_timestamps_batch)
 DECODE_STEPS: Dict[str, float] = {"calls": 0, "hits": 0, "misses": 0,
                                   "evictions": 0, "workspace_bytes": 0,
                                   "eager": 0, "replayed": 0, "captures": 0,
                                   "capture_s": 0.0, "prefill_s": 0.0,
                                   "step0_s": 0.0, "launch_s": 0.0,
-                                  "count_s": 0.0, "read_s": 0.0}
+                                  "count_s": 0.0, "read_s": 0.0,
+                                  "align_windows": 0}
 
 
 def reset_decode_steps() -> None:
@@ -464,26 +467,30 @@ class GreedyDecoder:
         (_run_steps). Graphed, the key's first call runs the set-up
         eagerly on the capture stream and captures it; later calls replay
         it. DECODE_STEPS takes the set-up's host seconds (from t_call) and
-        the capture's apart."""
-        if not graph:
-            setup()
-        elif ws.setup_graph is None:
-            cur, side = torch.cuda.current_stream(), capture_stream()
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
+        the capture's apart. The spans stage.decode.setup and
+        stage.decode.steps lie around the set-up and the steps, outside
+        what the graphs capture."""
+        with span("stage.decode.setup"):
+            if not graph:
                 setup()
-            cur.wait_stream(side)
-            t = time.perf_counter()
-            DECODE_STEPS["prefill_s"] += t - t_call
-            ws.setup_graph = StepGraph(setup, _COUNTERS, pool=ws.pool())
-            DECODE_STEPS["captures"] += 1
-            DECODE_STEPS["capture_s"] += ws.setup_graph.capture_s
-            t_call = time.perf_counter()
-        else:
-            ws.setup_graph.replay()
+            elif ws.setup_graph is None:
+                cur, side = torch.cuda.current_stream(), capture_stream()
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    setup()
+                cur.wait_stream(side)
+                t = time.perf_counter()
+                DECODE_STEPS["prefill_s"] += t - t_call
+                ws.setup_graph = StepGraph(setup, _COUNTERS, pool=ws.pool())
+                DECODE_STEPS["captures"] += 1
+                DECODE_STEPS["capture_s"] += ws.setup_graph.capture_s
+                t_call = time.perf_counter()
+            else:
+                ws.setup_graph.replay()
         DECODE_STEPS["prefill_s"] += time.perf_counter() - t_call
-        self._run_steps(step, max_new, ws.st["finished"],
-                        ws if graph else False, gens)
+        with span("stage.decode.steps"):
+            self._run_steps(step, max_new, ws.st["finished"],
+                            ws if graph else False, gens)
 
     def _finish_call(self, ws: DecodeWorkspace, fresh: bool, gens) -> None:
         ws.hand_back(gens)
@@ -631,21 +638,23 @@ class GreedyDecoder:
         graph = xa.is_cuda if graph is None else bool(graph)
         # the temperature is read from device memory (set_temperature), so
         # every rung of the fallback ladder shares a key
-        key = self._key("greedy", xa, graph, prompt_len, B, cache_len,
-                        max_new,
-                        ("rows" if per_row else "one") if sample else "none",
-                        pad_lens is not None)
-        ws, fresh = self._workspace(key, lambda: DecodeWorkspace(
-            dev, len(gens), self._init_state(B),
-            caches=model.empty_kv_caches(B, cache_len=cache_len),
-            tokens=torch.empty((B, max_new), dtype=torch.long, device=dev),
-            sum_lp=torch.empty(B, dtype=torch.float32, device=dev),
-            step_t=torch.empty((), dtype=torch.long, device=dev),
-            temperature=torch.empty((), dtype=torch.float32, device=dev)))
-        ws.load(xa, prompt_tokens, pad_lens, gens)
+        with span("stage.decode.prepare"):
+            key = self._key("greedy", xa, graph, prompt_len, B, cache_len,
+                            max_new, ("rows" if per_row else "one")
+                            if sample else "none", pad_lens is not None)
+            ws, fresh = self._workspace(key, lambda: DecodeWorkspace(
+                dev, len(gens), self._init_state(B),
+                caches=model.empty_kv_caches(B, cache_len=cache_len),
+                tokens=torch.empty((B, max_new), dtype=torch.long,
+                                   device=dev),
+                sum_lp=torch.empty(B, dtype=torch.float32, device=dev),
+                step_t=torch.empty((), dtype=torch.long, device=dev),
+                temperature=torch.empty((), dtype=torch.float32,
+                                        device=dev)))
+            ws.load(xa, prompt_tokens, pad_lens, gens)
+            if sample:
+                set_temperature(ws.t["temperature"], temperature)
         t, st = ws.t, ws.st
-        if sample:
-            set_temperature(t["temperature"], temperature)
         tokens_buf, sum_lp, step_t = t["tokens"], t["sum_lp"], t["step_t"]
         pads = t["pads"] if pad_lens is not None else None
         sot_pos = self._sot_pos(prompt_len)
@@ -736,15 +745,18 @@ class GreedyDecoder:
         outs = []
         for c0 in range(0, B, cap):
             xa_c = xa[c0:c0 + cap]
-            prompt_tokens = torch.tensor(initial, dtype=torch.long,
-                                         device=xa.device
-                                         ).repeat(xa_c.shape[0], 1)
+            with span("stage.decode.prepare"):
+                prompt_tokens = torch.tensor(initial, dtype=torch.long,
+                                             device=xa.device
+                                             ).repeat(xa_c.shape[0], 1)
             t, s = self._decode_loop(xa_c, len(initial), prompt_tokens,
                                      generator, float(temperature))
-            outs.append((t.cpu().numpy(), s.cpu().numpy()))
-        tokens = np.concatenate([t for t, _ in outs])
-        stats = np.concatenate([s for _, s in outs])
-        return self._unpack_decode(tokens, stats)
+            with span("stage.decode.readback"):
+                outs.append((t.cpu().numpy(), s.cpu().numpy()))
+        with span("stage.decode.unpack"):
+            tokens = np.concatenate([t for t, _ in outs])
+            stats = np.concatenate([s for _, s in outs])
+            return self._unpack_decode(tokens, stats)
 
     def _unpack_decode(self, tokens: np.ndarray, stats: np.ndarray) -> Dict:
         sum_lp, length, nsp = stats[:, 0], stats[:, 1], stats[:, 2]
@@ -806,16 +818,19 @@ class GreedyDecoder:
                     list(generators)[c0:c0 + cap]
                     if generators is not None else None)
                 for c0 in range(0, B, cap)])
-        toks, pads, P_pad = self._pack_prompts(prompts)
         if temperature > 0 and generator is None and generators is None:
             generator = torch.Generator(device=xa.device).manual_seed(0)
-        dev = xa.device
+        with span("stage.decode.prepare"):
+            toks, pads, P_pad = self._pack_prompts(prompts)
+            toks = torch.from_numpy(toks).to(xa.device)
+            pads = torch.from_numpy(pads).to(xa.device)
         tokens, stats = self._decode_loop(
-            xa, P_pad, torch.from_numpy(toks).to(dev), generator,
-            float(temperature), pad_lens=torch.from_numpy(pads).to(dev),
+            xa, P_pad, toks, generator, float(temperature), pad_lens=pads,
             row_generators=generators)
-        return self._unpack_decode(tokens.cpu().numpy(),
-                                   stats.cpu().numpy())
+        with span("stage.decode.readback"):
+            tokens, stats = tokens.cpu().numpy(), stats.cpu().numpy()
+        with span("stage.decode.unpack"):
+            return self._unpack_decode(tokens, stats)
 
 
 # --------------------------------------------------------------------------
@@ -1079,28 +1094,33 @@ def find_word_timestamps_batch(model: WhisperModel,
     for pad_to, bucket in sorted(buckets.items()):
         for c0 in range(0, len(bucket), max_bs):
             chunk = bucket[c0:c0 + max_bs]
-            B = len(chunk)
-            toks = np.full((B, pad_to), eot, np.int64)
-            n_real = np.zeros(B, np.int64)
-            for j, (_, i, full, L) in enumerate(chunk):
-                toks[j, :L] = full
-                n_real[j] = L
-            xa = torch.cat([xa_list[i] for _, i, _, _ in chunk], dim=0)
-            dev = xa.device
-            matrix, probs = _alignment_pass(
-                model, heads_key, eot, torch.from_numpy(toks).to(dev), xa,
-                torch.from_numpy(n_real).to(dev))
-            # DTW rows: the text-token slice of each item's matrix
-            rows = (-matrix[:, sot_len:-1]).cpu().numpy()
-            probs = probs.cpu().numpy()
+            with span("stage.word_ts.pass"):
+                B = len(chunk)
+                toks = np.full((B, pad_to), eot, np.int64)
+                n_real = np.zeros(B, np.int64)
+                for j, (_, i, full, L) in enumerate(chunk):
+                    toks[j, :L] = full
+                    n_real[j] = L
+                xa = torch.cat([xa_list[i] for _, i, _, _ in chunk], dim=0)
+                dev = xa.device
+                matrix, probs = _alignment_pass(
+                    model, heads_key, eot, torch.from_numpy(toks).to(dev),
+                    xa, torch.from_numpy(n_real).to(dev))
+                # DTW rows: the text-token slice of each item's matrix
+                rows = -matrix[:, sot_len:-1]
+            with span("stage.word_ts.readback"):
+                rows, probs = rows.cpu().numpy(), probs.cpu().numpy()
             for j, (_, i, full, L) in enumerate(chunk):
                 n_text = len(text_tokens_list[i])
-                tstart = dtw_token_starts(rows[j], L - sot_len - 1,
-                                          num_frames_list[i] // 2)
-                results[i] = _finish_word_timestamps(
-                    tstart[:n_text], probs[j], tokenizer,
-                    text_tokens_list[i], num_frames_list[i],
-                    time_offsets[i], merge)
+                with span("stage.word_ts.dtw"):
+                    tstart = dtw_token_starts(rows[j], L - sot_len - 1,
+                                              num_frames_list[i] // 2)
+                with span("stage.word_ts.words"):
+                    results[i] = _finish_word_timestamps(
+                        tstart[:n_text], probs[j], tokenizer,
+                        text_tokens_list[i], num_frames_list[i],
+                        time_offsets[i], merge)
+                DECODE_STEPS["align_windows"] += 1
     return results
 
 

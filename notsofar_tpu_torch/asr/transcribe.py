@@ -47,7 +47,7 @@ from notsofar_tpu_torch.asr.mel import (HOP_LENGTH, N_FRAMES, N_SAMPLES,
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import WhisperModel
 from notsofar_tpu_torch.utils.logging_def import get_logger
-from notsofar_tpu_torch.utils.profiling import StageTimer
+from notsofar_tpu_torch.utils.profiling import StageTimer, span
 
 _LOG = get_logger("transcribe")
 
@@ -451,9 +451,11 @@ class WhisperTranscriber:
                 result = self._sampler.decode(
                     xa, prompt, temperature=t,
                     generator=fallback_generator(salt, ti, xa.device))
-            if not self._needs_fallback(result["tokens"][0],
-                                        float(result["avg_logprob"][0]),
-                                        float(result["no_speech_prob"][0])):
+            with span("stage.decode.gates"):
+                needs = self._needs_fallback(
+                    result["tokens"][0], float(result["avg_logprob"][0]),
+                    float(result["no_speech_prob"][0]))
+            if not needs:
                 break
         return result, t
 
@@ -483,16 +485,17 @@ class WhisperTranscriber:
                 res = self._sampler.decode_prompted(
                     xa_sub, sub_prompts, temperature=t, generators=gens)
             still = []
-            for r, j in enumerate(todo):
-                results[j] = dict(
-                    tokens=[res["tokens"][r]],
-                    avg_logprob=res["avg_logprob"][r:r + 1],
-                    no_speech_prob=res["no_speech_prob"][r:r + 1])
-                temps[j] = t
-                if self._needs_fallback(res["tokens"][r],
-                                        float(res["avg_logprob"][r]),
-                                        float(res["no_speech_prob"][r])):
-                    still.append(j)
+            with span("stage.decode.gates"):
+                for r, j in enumerate(todo):
+                    results[j] = dict(
+                        tokens=[res["tokens"][r]],
+                        avg_logprob=res["avg_logprob"][r:r + 1],
+                        no_speech_prob=res["no_speech_prob"][r:r + 1])
+                    temps[j] = t
+                    if self._needs_fallback(res["tokens"][r],
+                                            float(res["avg_logprob"][r]),
+                                            float(res["no_speech_prob"][r])):
+                        still.append(j)
             todo = still
             if not todo:
                 break

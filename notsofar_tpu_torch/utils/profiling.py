@@ -4,15 +4,18 @@ notsofar_tpu/utils/profiling.py).
 * `trace(log_dir)` — a torch.profiler scope over the CPU and, where there
   is one, the card; writes a Chrome trace (view in Perfetto or
   chrome://tracing) into log_dir.
-* `StageTimer` — per-stage wall-clock + RTFx accounting. PyTorch launches
-  CUDA work asynchronously, so a host clock read right after a stage's
-  last call measures the enqueue, not the work. Every stage therefore
-  ends with ``torch.cuda.synchronize()`` when CUDA is in use — the
-  counterpart of the JAX package's ``block_until_ready`` at the stage
-  ends of asr/transcribe.py.
+* `span(name)` — a named range on torch.profiler's timeline, on the
+  clock of the card's kernel events, while a profiler records; otherwise
+  one boolean check and nothing else. The program's spans are named
+  ``stage.<stage>[.<part>]``.
+* `StageTimer` — wall-clock seconds per stage, each stage also a span
+  ``stage.<name>``. PyTorch launches CUDA work asynchronously, so a host
+  clock read right after a stage's last call measures the enqueue, not
+  the work. Every stage therefore ends with ``torch.cuda.synchronize()``
+  when CUDA is in use — the counterpart of the JAX package's
+  ``block_until_ready`` at the stage ends of asr/transcribe.py.
 """
 import contextlib
-import json
 import os
 import time
 from dataclasses import dataclass, field
@@ -45,37 +48,33 @@ def trace(log_dir: str):
         _LOG.info(f"profiler trace written to {path}")
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named `name` while torch.profiler records (on its
+    timeline, beside the kernels the range launches); else a shared no-op
+    context: no clock read, no allocation, no synchronise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 @dataclass
 class StageTimer:
-    """Accumulates wall time per pipeline stage and reports RTFx."""
-    audio_seconds: float = 0.0
+    """Accumulates wall time per pipeline stage; each stage is also the
+    span ``stage.<name>``."""
     stage_seconds: Dict[str, float] = field(default_factory=dict)
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + dt
-
-    def add_audio(self, seconds: float):
-        self.audio_seconds += seconds
-
-    def report(self) -> Dict:
-        total = sum(self.stage_seconds.values())
-        return {
-            "audio_seconds": round(self.audio_seconds, 2),
-            "wall_seconds": round(total, 2),
-            "rtfx": round(self.audio_seconds / total, 2) if total else None,
-            "stages": {k: dict(seconds=round(v, 2),
-                               rtfx=round(self.audio_seconds / v, 2)
-                               if v else None)
-                       for k, v in self.stage_seconds.items()},
-        }
-
-    def log(self):
-        _LOG.info(f"RTFx report: {json.dumps(self.report())}")
+        with span(f"stage.{name}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                self.stage_seconds[name] = \
+                    self.stage_seconds.get(name, 0.0) + dt
