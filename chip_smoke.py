@@ -63,6 +63,13 @@ Phases (any failure raises and exits non-zero):
              xattn_onedot's cluster sizes (R = 1: a block per row, the
              first design's grid) and masked_scm's ring of
              1-8 buffers in flight (1: the first design's schedule).
+             Last the word-timing pass's reduction align_reduce (also
+             XLA-fused in the JAX package) over large-v3's 320 alignment
+             heads at T 256 and 150-160 real rows, 12 windows (the row)
+             and one (logged): over the real rows within 1e-5 of the
+             plain matrix's largest value, one weight raised in the plain
+             version outside it, rows past the real ones zero; kernel,
+             plain and bound timed.
 3. reference a small Whisper on the card against the same weights on the
              CPU (plain paths): encoder output (bf16 and f32), greedy
              and beam-3 decode tokens (f32, TF32 off), and the same for
@@ -100,7 +107,8 @@ Phases (any failure raises and exits non-zero):
              full width, bf16, beam 5, word timestamps,
              condition_on_previous_text, seeded random weights.
              Launch counts are reset before the call and read after it:
-             encoder_mha and attn_step_split must be > 0, xattn_step
+             encoder_mha and attn_step_split must be > 0, align_reduce
+             too where the pass aligned a window, xattn_step
              launch 32 times per decoder call counted under it and
              decode_gemv 193 times per fused step (6 a layer and the
              logits) and 257 per call run layer by layer (prefill at up
@@ -114,7 +122,8 @@ Phases (any failure raises and exits non-zero):
              length, pos), which must account for every counted launch.
 5. asr greedy the same session with beam_size=None (greedy + fallback
              ladder); counted the same way: encoder_mha and attn_step
-             must be > 0; its steps logged as phase 4's.
+             must be > 0 (align_reduce as in phase 4); its steps logged
+             as phase 4's.
 6. diarization the shipped word_nmesc config (6 scales, dedup,
              TitaNet-large at full width in bf16, seeded random weights)
              on the ASR dataframes of phases 4 and 5 as two sessions,
@@ -226,7 +235,7 @@ Phase 2 also holds masked_scm at the MVDR shape (32 windows, 257 bins,
 card against the CPU (masks in f32 and bf16, one short engine pass with
 the kernel against the CPU's plain path).
 
-The line before the last is {"kernels": [...]}, all eleven kernels, with
+The line before the last is {"kernels": [...]}, all twelve kernels, with
 each kernel's launches summed over phases 4-11 and split by phase in
 "launches_by_path" (phase 6b as "diarization_time", phase 9 as "tools",
 phase 10 as "train", where every count is 0, phase 11 as "validate");
@@ -1392,7 +1401,56 @@ def check_kernels(iters: int):
     log(f"kernel masked_scm: launch {K.masked_scm_launch(Bm, Fm, Km, Mm)}")
     check_decode_step_kernels(iters, record, randn)
     check_tool_kernels(iters, record, randn)
+    check_align_reduce(iters, record)
     return rows
+
+
+def check_align_reduce(iters: int, record) -> None:
+    """Phase 2 for the word-timing pass's reduction align_reduce (work the
+    JAX package leaves to XLA fusion), through check_kernels' record: all
+    20 heads of layers 16-31 of large-v3's f32 cross-attention over 1500
+    frames, T 256 (a beam-5 cell's ~155 real rows padded), at 12 windows
+    (a chunk of the batched pass; the row) and at one (the serial paths;
+    logged). Compared over the real rows only (the kernel writes zeros past
+    them), within 1e-5 of the plain matrix's largest value there, the
+    plain version with one attention weight of one head raised outside it.
+    Bound: the real rows' bytes read once plus the output written."""
+    from notsofar_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    T, Fr, layers = 256, 1500, range(16, 32)
+    heads = [(l, h) for l in layers for h in range(20)]
+    for B, row in ((12, True), (1, False)):
+        cross = [torch.empty(0, device="cuda")] * 32
+        for l in layers:
+            cross[l] = torch.randn(B, 20, T, Fr, generator=g,
+                                   device="cuda").mul_(3).softmax(-1)
+        n_real = torch.randint(150, 161, (B,), generator=g, device="cuda")
+        real = (torch.arange(T, device="cuda")[None, :, None]
+                < n_real[:, None, None])
+        ref = K.align_reduce_plain(cross, heads, n_real).where(real, 0.0)
+        mut = list(cross)
+        mut[23] = cross[23].clone()
+        mut[23][0, 5, 40, 700] += 0.5      # one weight of one head raised
+        mutant = K.align_reduce_plain(mut, heads, n_real).where(real, 0.0)
+        del mut
+        out = K.align_reduce(cross, heads, n_real)
+        torch.cuda.synchronize()
+        if out.where(~real, 0.0).any():
+            raise AssertionError("align_reduce: rows past n_real not zero")
+        nbytes = 4 * Fr * (len(heads) * int(n_real.sum()) + B * T)
+        record("align_reduce", "notsofar_tpu/asr/decoding.py:599-616, "
+               ":722-741 (XLA-fused)", out.where(real, 0.0), ref,
+               1e-5 * ref.abs().max().item(), mutant,
+               lambda: K.align_reduce(cross, heads, n_real),
+               lambda: K.align_reduce_plain(cross, heads, n_real), None,
+               nbytes, 0.0, peak_flops=PEAK_F32_FLOPS,
+               label=f"align_reduce {B} window{'s' * (B > 1)}", row=row)
+        log(f"kernel align_reduce {B} window{'s' * (B > 1)}: launch "
+            f"{K.align_reduce_launch(B, T, Fr)}, real rows "
+            f"{n_real.tolist()}")
+        del cross, ref, mutant, out
+        torch.cuda.empty_cache()
 
 
 def check_decode_step_kernels(iters: int, record, randn) -> None:
@@ -2555,6 +2613,8 @@ def run_asr(session, work: Path, beam_size, label, needs):
         f"{dict(dec.DECODER_CALLS)}")
     check_traffic(f"asr {label}", traffic, counts)
     missing = [n for n in needs if counts[n] <= 0]
+    if dec.DECODE_STEPS["align_windows"] and counts["align_reduce"] <= 0:
+        missing.append("align_reduce")
     if missing:
         raise AssertionError(f"asr {label}: never launched {missing}")
     check_decode_launches(f"asr {label}", counts, quant=False)

@@ -38,11 +38,12 @@ Logit filters (pure functions of a small per-row state):
 * eot latching.
 
 Word timestamps use whisper's approach: a teacher-forced pass collecting
-cross-attention from alignment heads, reduced on device (head selection,
-per-frame z-norm over the real token rows, width-7 median filter, head
-mean). The DTW runs on the host in float64 (the JAX package ran it on
-device only to avoid its TPU host link): only the reduced [T, 1500]
-matrix per window leaves the card.
+cross-attention from alignment heads, reduced on device by one
+hand-written kernel, ops.kernels.align_reduce (head selection, per-frame
+z-norm over the real token rows, width-7 median filter, head mean, in one
+pass over the heads). The DTW runs on the host in float64 (the JAX
+package ran it on device only to avoid its TPU host link): only the
+reduced [T, 1500] matrix per window leaves the card.
 
 Model weights live in the ``WhisperModel`` (an ``nn.Module``), so the
 decoders take no ``variables`` argument.
@@ -60,6 +61,8 @@ from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models.whisper import (  # noqa: F401 (re-exported)
     DECODER_CALLS, WhisperModel, reset_decoder_calls)
 from notsofar_tpu_torch.ops import kernels
+from notsofar_tpu_torch.ops.kernels import (  # noqa: F401 (re-exported)
+    median_filter)
 from notsofar_tpu_torch.utils.cuda_graph import (StepGraph, WorkspaceCache,
                                                  capture_stream)
 from notsofar_tpu_torch.utils.profiling import span
@@ -956,32 +959,6 @@ def merge_punctuations(words: List[Dict],
     return [w for w in ws if w["word"]]
 
 
-def median_filter(x: torch.Tensor, width: int = 7) -> torch.Tensor:
-    """Median filter along the last axis with edge padding. The width must
-    be odd (whisper's filter widths are): torch.median takes the lower of
-    two middle values where numpy averages them."""
-    if width <= 1 or x.shape[-1] == 0:
-        return x
-    if width % 2 == 0:
-        raise ValueError(f"median filter width {width} is even")
-    pad = width // 2
-    xp = torch.cat([x[..., :1].expand(*x.shape[:-1], pad), x,
-                    x[..., -1:].expand(*x.shape[:-1], pad)], dim=-1)
-    return xp.unfold(-1, width, 1).median(dim=-1).values
-
-
-def _znorm_median(w: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
-    """w [B, H, T, F]: z-norm per (head, frame) over each row's real token
-    rows, width-7 median along frames, summed over heads -> [B, T, F]."""
-    mask = (torch.arange(w.shape[-2], device=w.device)[None, :]
-            < n_real[:, None])[:, None, :, None]
-    cnt = n_real.clamp_min(1).float()[:, None, None, None]
-    mean = torch.where(mask, w, 0.0).sum(-2, keepdim=True) / cnt
-    var = torch.where(mask, (w - mean) ** 2, 0.0).sum(-2, keepdim=True) / cnt
-    wn = (w - mean) / (torch.sqrt(var) + 1e-9)
-    return median_filter(wn).sum(dim=1)
-
-
 @torch.no_grad()
 def _alignment_pass(model: WhisperModel, heads_key, eot: int,
                     toks: torch.Tensor, xa: torch.Tensor,
@@ -990,30 +967,19 @@ def _alignment_pass(model: WhisperModel, heads_key, eot: int,
     """Batched teacher-forced alignment pass, reduced on device: the
     decoder's cross-attention from the selected heads, z-normed per
     (head, frame) over the real token rows, width-7 median filtered per
-    head, averaged over heads; plus each next token's probability under
-    the text-vocabulary softmax. The median filter sees the full
-    1500-frame width, as in the JAX package.
+    head, averaged over heads (kernels.align_reduce); plus each next
+    token's probability under the text-vocabulary softmax. The median
+    filter sees the full 1500-frame width, as in the JAX package.
 
     toks [B, L]; xa [B, 1500, D]; n_real [B]. Returns (matrix [B, L, F]
-    f32, next-token probabilities [B, L-1])."""
+    f32, next-token probabilities [B, L-1]); on the card a window's rows
+    from n_real on are zeros."""
     kind, sel = heads_key
     logits, _, cross = model.decoder(toks, xa, 0, None,
                                      return_cross_attn=True)
-    if kind == "heads":
-        per_layer: Dict[int, List[int]] = {}
-        for l, h in sel:
-            per_layer.setdefault(l, []).append(h)
-        acc = 0.0
-        for l, hs in per_layer.items():
-            acc = acc + _znorm_median(cross[l][:, hs], n_real)
-        matrix = acc / len(sel)
-    else:
-        acc = 0.0
-        n_heads = 0
-        for i in sel:
-            acc = acc + _znorm_median(cross[i], n_real)
-            n_heads += cross[i].shape[1]
-        matrix = acc / n_heads
+    heads = sel if kind == "heads" else \
+        [(l, h) for l in sel for h in range(cross[l].shape[1])]
+    matrix = kernels.align_reduce(cross, heads, n_real)
     probs = torch.softmax(logits[..., :eot], dim=-1)
     nxt = toks[:, 1:].clamp(0, eot - 1)
     tok_probs = probs[:, :-1].gather(2, nxt[..., None])[..., 0]

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d",
            "masked_scm", "xattn_int8", "xattn_stream", "xattn_onedot",
-           "attn_step_split_bias", "xattn_step", "decode_gemv")
+           "attn_step_split_bias", "xattn_step", "decode_gemv",
+           "align_reduce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -52,6 +53,8 @@ _ARGTYPES = {
                                   _I, _I, _P]),
     "decode_gemv": ("decode_gemv", [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _P]),
+    "align_reduce": ("align_reduce", [_P, _P, _P, _I, _I, _I, _I,
+                                      ctypes.c_longlong, _I, _P]),
 }
 
 

@@ -1,9 +1,10 @@
 """The port's kernels (the ASR path's attention kernels, the int8
 decoder's cross-attention, the TitaNet depthwise conv, MVDR's masked
 covariance, the three variants that the kernel-decomposition tools time:
-xattn_stream, xattn_onedot, attn_step_split_bias; and two kernels for
-work the JAX package leaves to XLA fusion on the decode step: the float
-cross-attention xattn_step and the weight-only GEMV decode_gemv): CUDA
+xattn_stream, xattn_onedot, attn_step_split_bias; and three kernels for
+work the JAX package leaves to XLA fusion: on the decode step the float
+cross-attention xattn_step and the weight-only GEMV decode_gemv, in the
+word-timing pass the alignment heads' reduction align_reduce): CUDA
 wrappers, plain versions and launch counters.
 
 Each function here has three parts:
@@ -1407,3 +1408,160 @@ def decode_qkv(x: torch.Tensor, ln: Optional[GemvLN],
     LAUNCHES["decode_gemv"] += 1
     _check_rc("decode_gemv", rc)
     return q_eff
+
+
+# ---------------------------------------------------------------------------
+# align_reduce (the word-timing pass's reduction of the alignment heads,
+# XLA-fused in the JAX package: notsofar_tpu/asr/decoding.py:599-616,
+# :722-741)
+# ---------------------------------------------------------------------------
+
+def median_filter(x: torch.Tensor, width: int = 7) -> torch.Tensor:
+    """Median filter along the last axis with edge padding. The width must
+    be odd (whisper's filter widths are): torch.median takes the lower of
+    two middle values where numpy averages them."""
+    if width <= 1 or x.shape[-1] == 0:
+        return x
+    if width % 2 == 0:
+        raise ValueError(f"median filter width {width} is even")
+    pad = width // 2
+    xp = torch.cat([x[..., :1].expand(*x.shape[:-1], pad), x,
+                    x[..., -1:].expand(*x.shape[:-1], pad)], dim=-1)
+    return xp.unfold(-1, width, 1).median(dim=-1).values
+
+
+def _znorm_median(w: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
+    """w [B, H, T, F]: z-norm per (head, frame) over each row's real token
+    rows, width-7 median along frames, summed over heads -> [B, T, F]."""
+    mask = (torch.arange(w.shape[-2], device=w.device)[None, :]
+            < n_real[:, None])[:, None, :, None]
+    cnt = n_real.clamp_min(1).float()[:, None, None, None]
+    mean = torch.where(mask, w, 0.0).sum(-2, keepdim=True) / cnt
+    var = torch.where(mask, (w - mean) ** 2, 0.0).sum(-2, keepdim=True) / cnt
+    wn = (w - mean) / (torch.sqrt(var) + 1e-9)
+    return median_filter(wn).sum(dim=1)
+
+
+def align_reduce_plain(cross: Sequence[torch.Tensor],
+                       heads: Sequence[Tuple[int, int]],
+                       n_real: torch.Tensor) -> torch.Tensor:
+    """cross: the decoder's cross-attention weights a layer, [B, H, T, F]
+    f32; heads: the selected (layer, head) pairs; n_real [B] the real token
+    rows of each window. -> [B, T, F] f32: each selected head z-normed per
+    frame over its window's real rows, width-7 median filtered along frames
+    (edge replicated), summed a layer at a time in the order the layers
+    first appear, over the number of heads. Rows t >= n_real[b] carry the
+    same arithmetic on the padding rows."""
+    per_layer: Dict[int, list] = {}
+    for l, h in heads:
+        per_layer.setdefault(l, []).append(h)
+    acc = 0.0
+    for l, hs in per_layer.items():
+        w = cross[l]
+        acc = acc + _znorm_median(
+            w if hs == list(range(w.shape[1])) else w[:, hs], n_real)
+    return acc / len(heads)
+
+
+ALIGN_THREADS = 256          # threads per block of the CUDA kernel
+ALIGN_TILE = 8               # frames a block covers (csrc/align_reduce.cu
+                             # says why 8 at every shape)
+ALIGN_HALO = 4               # frames staged on each side of a tile
+ALIGN_STAGES = 2             # heads staged at once (double buffer)
+ALIGN_FRAMES = 4             # frames of a row a thread takes
+ALIGN_ROWS_PER_PASS = ALIGN_THREADS // (ALIGN_TILE // ALIGN_FRAMES)
+ALIGN_ITEMS = (1, 2, 4)      # rows a thread, as built
+
+
+def align_reduce_smem(T: int) -> int:
+    """Bytes of shared memory of one block (csrc/align_reduce.cu layout):
+    ALIGN_STAGES heads' [T, ALIGN_TILE + 2 * ALIGN_HALO] staged rows, the
+    column sums' row groups, the columns' means and denominators."""
+    cs = ALIGN_TILE + 2 * ALIGN_HALO
+    return 4 * (ALIGN_STAGES * T * cs + (ALIGN_THREADS // cs) * cs + 2 * cs)
+
+
+def align_reduce_launch(B: int, T: int, F: int) -> dict:
+    """Grid, rows a thread and shared memory of the CUDA kernel from the
+    shapes: a block of ALIGN_THREADS per (tile of ALIGN_TILE frames,
+    window), grid (ceil(F / ALIGN_TILE), B), a thread taking ALIGN_FRAMES
+    frames of rows r, r + ALIGN_ROWS_PER_PASS, ... (`items` rows, 4
+    accumulators each). Raises ValueError where T passes what the threads
+    accumulate (512 rows; the decoder's context is 448) or the staged rows
+    pass SMEM_LIMIT."""
+    rows = -(-T // ALIGN_ROWS_PER_PASS)
+    items = next((i for i in ALIGN_ITEMS if i >= rows), None)
+    smem = align_reduce_smem(T)
+    if items is None or smem > SMEM_LIMIT:
+        raise ValueError(f"align_reduce: T={T} token rows exceed what the "
+                         "block's threads accumulate")
+    return dict(grid=(-(-F // ALIGN_TILE), B), threads=ALIGN_THREADS,
+                items=items, smem=smem)
+
+
+def _align_reduce_plan(cross: Sequence[torch.Tensor],
+                       heads: Sequence[Tuple[int, int]],
+                       n_real: torch.Tensor) -> dict:
+    """The wrapper's checks of what the CUDA kernel takes (the selected
+    layers f32, contiguous, 16-byte aligned, of one shape [B, H, T, F]
+    with F a multiple of 4; heads inside it; n_real int64 [B]), raising
+    ValueError; returns the launch plan."""
+    if not heads:
+        raise ValueError("align_reduce: no heads selected")
+    layers = sorted({l for l, _ in heads})
+    if not 0 <= layers[0] <= layers[-1] < len(cross):
+        raise ValueError(f"align_reduce: layers {layers} outside the "
+                         f"{len(cross)} layers given")
+    ws = [cross[l] for l in layers]
+    if any(w.dim() != 4 or w.shape != ws[0].shape for w in ws):
+        raise ValueError("align_reduce: the selected layers' cross-"
+                         "attention must share one shape [B, H, T, F]")
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("align_reduce: the cross-attention must be f32")
+    if any(not w.is_contiguous() or w.data_ptr() % 16 for w in ws):
+        raise ValueError("align_reduce: tensors must be contiguous and "
+                         "16-byte aligned")
+    B, H, T, F = ws[0].shape
+    if F % 4:
+        raise ValueError(f"align_reduce: F={F} frames, not a multiple of 4 "
+                         "(the kernel stages 16 bytes at a time)")
+    if not all(0 <= h < H for _, h in heads):
+        raise ValueError(f"align_reduce: a head outside [0, {H})")
+    if n_real.shape != (B,) or n_real.dtype != torch.int64:
+        raise ValueError("align_reduce: n_real must be int64 [B]")
+    if min(B, T, F) == 0 or B > 65535:
+        raise ValueError(f"align_reduce: B={B}, T={T}, F={F}")
+    return align_reduce_launch(B, T, F)
+
+
+def align_reduce(cross: Sequence[torch.Tensor],
+                 heads: Sequence[Tuple[int, int]],
+                 n_real: torch.Tensor) -> torch.Tensor:
+    """The word-timing pass's reduction of the alignment heads.
+
+    cross: the decoder's cross-attention weights a layer, [B, H, T, F] f32
+    (only the selected layers are read, in place); heads: the selected
+    (layer, head) pairs; n_real: int64 [B], each window's real token rows.
+    Returns [B, T, F] f32: per head, z-norm per frame over the real rows,
+    width-7 median along frames with edge replication, then the mean over
+    the heads (align_reduce_plain). On the card rows t >= n_real[b] are
+    zeros: no caller reads them (the DTW reads a window's first
+    n_real - sot_len - 1 text rows)."""
+    sel = [cross[l] for l in sorted({l for l, _ in heads})
+           if 0 <= l < len(cross)]
+    if not _on_card("align_reduce", *sel, n_real):
+        return align_reduce_plain(cross, heads, n_real)
+    plan = _align_reduce_plan(cross, heads, n_real)
+    B, H, T, F = sel[0].shape
+    # each head's window-0 slab; the table goes up behind the stream's work
+    ptrs = torch.tensor([cross[l].data_ptr() + 4 * h * T * F
+                         for l, h in heads], dtype=torch.int64)
+    ptrs = ptrs.pin_memory().to(n_real.device, non_blocking=True)
+    out = torch.empty((B, T, F), dtype=torch.float32, device=n_real.device)
+    lib = build.load("align_reduce")
+    rc = lib.align_reduce(ptrs.data_ptr(), n_real.data_ptr(), out.data_ptr(),
+                          len(heads), B, T, F, H * T * F, plan["items"],
+                          _stream())
+    LAUNCHES["align_reduce"] += 1
+    _check_rc("align_reduce", rc)
+    return out

@@ -227,6 +227,48 @@ def test_word_timestamps_match_jax(pair):  # noqa: F811
                 assert abs(a["probability"] - b["probability"]) < 1e-4
 
 
+@pytest.mark.parametrize("heads_key", [
+    ("layers", (1,)), ("layers", (0, 1)),
+    ("heads", ((1, 1), (0, 0), (1, 0))), ("heads", ((0, 0), (0, 1), (1, 1)))])
+def test_alignment_pass_on_cpu_is_the_plain_reduction(pair,  # noqa: F811
+                                                      heads_key):
+    """On the CPU _alignment_pass takes align_reduce's plain version (no
+    kernel launch) and gives, bit for bit, the matrix of the reduction it
+    ran before the kernel: each selected layer's heads z-normed and median
+    filtered (_znorm_median), summed a layer at a time, over the head
+    count; next-token probabilities as well."""
+    from notsofar_tpu_torch.ops import kernels as tk
+    _, _, tm = pair
+    rng = np.random.RandomState(11)
+    xa = torch.from_numpy(rng.randn(2, 1500, 128).astype(np.float32) * 0.05)
+    toks = torch.from_numpy(rng.randint(0, 1800, (2, 32)))
+    n_real = torch.tensor([9, 32])
+    before = dict(tk.LAUNCHES)
+    matrix, probs = tdec._alignment_pass(tm, heads_key, 1800, toks, xa,
+                                         n_real)
+    assert tk.LAUNCHES == before
+    logits, _, cross = tm.decoder(toks, xa, 0, None, return_cross_attn=True)
+    kind, sel = heads_key
+    if kind == "heads":
+        per_layer = {}
+        for l, h in sel:
+            per_layer.setdefault(l, []).append(h)
+        acc = 0.0
+        for l, hs in per_layer.items():
+            acc = acc + tk._znorm_median(cross[l][:, hs], n_real)
+        want = acc / len(sel)
+    else:
+        acc, n_heads = 0.0, 0
+        for i in sel:
+            acc = acc + tk._znorm_median(cross[i], n_real)
+            n_heads += cross[i].shape[1]
+        want = acc / n_heads
+    assert torch.equal(matrix, want)
+    p = torch.softmax(logits[..., :1800], dim=-1)[:, :-1].gather(
+        2, toks[:, 1:].clamp(0, 1799)[..., None])[..., 0]
+    assert torch.equal(probs, p)
+
+
 @pytest.mark.parametrize("width", [1, 3, 7, 11])
 def test_median_filter_matches_jax(width):
     """median_filter along the last axis, edge padded, equal to the JAX

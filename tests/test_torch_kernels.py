@@ -1258,6 +1258,137 @@ def test_masked_scm_plan_fits_the_ring(K, M):
         assert plan["smem"] <= tk.SMEM_LIMIT
 
 
+def median7_network(w):
+    """csrc/align_reduce.cu's median of 7 (the JAX package's
+    _median7_network) over numpy arrays: odd-even transposition, 7 passes
+    of compare-exchanges, then the middle lane."""
+    w = list(w)
+    for p in range(7):
+        for i in range(p % 2, 6, 2):
+            w[i], w[i + 1] = np.minimum(w[i], w[i + 1]), \
+                np.maximum(w[i], w[i + 1])
+    return w[3]
+
+
+def align_reduce_block_walk(ws, n_real, tile=tk.ALIGN_TILE):
+    """A numpy model of csrc/align_reduce.cu's blocks: block (tile, window
+    b) stages each head's n real rows of frames [f0 - HALO, f0 + tile +
+    HALO), a frame outside [0, F) as the nearest edge frame, takes each
+    staged column's mean and variance over the rows, normalises, and gives
+    frame f the median network of the staged columns of frames f - 3 ..
+    f + 3; the sum over the heads over their number; rows from n on are
+    zeros. ws: the heads' [B, T, F] f32 arrays."""
+    B, T, F = ws[0].shape
+    halo = tk.ALIGN_HALO
+    out = np.zeros((B, T, F), np.float32)
+    for b in range(B):
+        n = min(max(int(n_real[b]), 0), T)
+        cnt = np.float32(max(int(n_real[b]), 1))
+        for f0 in range(0, F, tile):
+            cols = np.clip(np.arange(f0 - halo, f0 + tile + halo), 0, F - 1)
+            fl = np.arange(f0, min(f0 + tile, F))
+            idx = fl[:, None] + np.arange(-3, 4) - (f0 - halo)
+            acc = np.zeros((n, len(fl)), np.float32)
+            for w in ws:
+                x = w[b, :n][:, cols]
+                mean = x.sum(0, dtype=np.float32) / cnt
+                var = ((x - mean) ** 2).sum(0, dtype=np.float32) / cnt
+                z = (x - mean) / (np.sqrt(var) + np.float32(1e-9))
+                acc += median7_network(np.moveaxis(z[:, idx], -1, 0))
+            out[b, :n, f0:f0 + len(fl)] = acc / np.float32(len(ws))
+    return out
+
+
+def test_median7_network_is_the_median_of_every_permutation():
+    """The kernel's 21 compare-exchanges give torch.median's element on
+    all 5040 orders of 7 distinct values."""
+    import itertools
+    perms = np.array(list(itertools.permutations(range(7))), np.float32)
+    vals = np.float32([-3.5, -1.0, 0.25, 0.5, 2.0, 7.0, 11.0])[
+        perms.astype(int)]
+    got = median7_network(vals.T)
+    want = torch.from_numpy(vals).median(dim=-1).values.numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("F", [1500, 1504, 36, 12, 8, 4])
+def test_align_reduce_block_walk_matches_plain(F):
+    """The kernel's tiling (halo staging with the edge frames repeated off
+    the edges, each staged column's own statistics, a ragged last tile at
+    1500 and 36 frames, one tile with both halos off the edges at 8, fewer
+    frames than the median's width at 4) against align_reduce_plain over
+    the real rows, within 1e-5 of its largest value; windows of 1, 5 and
+    T real rows; two layers, heads taken in another order than the
+    layers."""
+    rng = np.random.RandomState(F)
+    B, H, T = 3, 3, 32
+    cross = [torch.from_numpy(rng.randn(B, H, T, F).astype(np.float32))
+             .mul(2).softmax(-1) for _ in range(2)]
+    heads = [(1, 2), (0, 0), (1, 0), (0, 2)]
+    n_real = torch.tensor([1, 5, T])
+    want = tk.align_reduce_plain(cross, heads, n_real).numpy()
+    got = align_reduce_block_walk([cross[l][:, h].numpy() for l, h in heads],
+                                  n_real.numpy())
+    for b, n in enumerate(n_real.tolist()):
+        err = np.abs(got[b, :n] - want[b, :n]).max()
+        assert err <= 1e-5 * np.abs(want[b, :n]).max() + 1e-12, (b, err)
+        assert not got[b, n:].any()
+
+
+@pytest.mark.parametrize("T", [32, 64, 128, 256, 448])
+def test_align_reduce_plan_fits_and_fills_the_card(T):
+    """align_reduce_launch at every padded token length of the word-timing
+    pass and 1500 frames: the staged rows and sums within SMEM_LIMIT, the
+    threads' accumulators covering the T rows with the fewest items that
+    do, grid (ceil(1500 / 8), B) at one window (the serial paths), 12 (a
+    chunk of the batched pass over all heads of 16 layers) and 24 (a chunk
+    over a sidecar's heads); one window's grid of 188 blocks fills the
+    H100's 132 SMs."""
+    for B in (1, 12, 24):
+        plan = tk.align_reduce_launch(B, T, 1500)
+        items = plan["items"]
+        assert items in tk.ALIGN_ITEMS
+        assert plan["threads"] == tk.ALIGN_THREADS
+        assert items * tk.ALIGN_ROWS_PER_PASS >= T
+        assert items == tk.ALIGN_ITEMS[0] \
+            or tk.ALIGN_ITEMS[tk.ALIGN_ITEMS.index(items) - 1] \
+            * tk.ALIGN_ROWS_PER_PASS < T
+        assert plan["smem"] == tk.align_reduce_smem(T)
+        assert plan["smem"] <= tk.SMEM_LIMIT
+        assert plan["grid"] == (-(-1500 // tk.ALIGN_TILE), B)
+    assert tk.align_reduce_launch(1, T, 1500)["grid"][0] >= 132
+
+
+def test_align_reduce_wrapper_raises_what_the_kernel_does_not_take():
+    """The wrapper's checks (before any launch): f64, non-contiguous,
+    misaligned or differently shaped selected layers, frames not a
+    multiple of 4, a head or layer outside the input, n_real int32 or of
+    another length, no heads, more token rows than the threads accumulate
+    (513); an unselected layer of another shape passes."""
+    B, H, T, F = 2, 4, 32, 64
+    cross = [torch.zeros(B, H, T, F) for _ in range(3)]
+    n = torch.tensor([5, 32])
+    heads = [(1, 0), (2, 3)]
+    assert tk._align_reduce_plan([torch.zeros(1)] + cross[1:], heads, n) \
+        == tk.align_reduce_launch(B, T, F)
+    other = torch.zeros(B, H, T, 2 * F)
+    shifted = torch.zeros(B * H * T * F + 1)[1:].view(B, H, T, F)
+    bad = [([cross[0], cross[1].double(), cross[2]], heads, n),
+           ([cross[0], other[..., ::2], cross[2]], heads, n),
+           ([cross[0], shifted, cross[2]], heads, n),
+           ([torch.zeros(B, H, T, 61)] * 3, heads, n),
+           ([cross[0], cross[1], torch.zeros(B, H, 2 * T, F)], heads, n),
+           (cross, [(1, H)], n),
+           (cross, [(3, 0)], n),
+           (cross, heads, n.int()),
+           (cross, heads, n[:1]),
+           (cross, [], n),
+           ([torch.zeros(1, 1, 513, 8)], [(0, 0)], n[:1])]
+    for cr, hs, nr in bad:
+        with pytest.raises(ValueError):
+            tk._align_reduce_plan(cr, hs, nr)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -2045,3 +2176,89 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tk.decode_gemv(x1, w8, torch.bfloat16, sc, sc, logits=True)
     with pytest.raises(ValueError):                    # f64 scale
         tk.decode_gemv(x1, w8, torch.bfloat16, sc.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [32, 64, 256, 448])
+@pytest.mark.parametrize("kind,B", [("layers", 1), ("layers", 12),
+                                    ("heads", 1), ("heads", 12),
+                                    ("heads", 24)])
+def test_gpu_align_reduce_kernel(cuda, kind, B, T):
+    """align_reduce against align_reduce_plain on the card over each
+    window's real rows, within 1e-5 of the plain matrix's largest value:
+    all 20 heads of layers 16-31 (the shipped default, up to 12 windows a
+    chunk) and a sidecar's 6 heads (up to 24), softmax rows over 1500
+    frames, windows of 1 and T real rows among others; rows from n_real on
+    are zeros; one launch; one window's grid at least the card's SMs."""
+    g = torch.Generator(device=cuda).manual_seed(T * 100 + B)
+    layers = range(16, 32) if kind == "layers" else (17, 20, 26)
+    cross = [torch.empty(0, device=cuda)] * 32
+    for l in layers:
+        cross[l] = torch.randn(B, 20, T, 1500, generator=g,
+                               device=cuda).mul_(3).softmax(-1)
+    heads = [(l, h) for l in layers for h in range(20)] \
+        if kind == "layers" else [(26, 3), (17, 0), (20, 19), (17, 7),
+                                  (26, 11), (20, 2)]
+    n_real = torch.randint(2, T + 1, (B,), generator=g, device=cuda)
+    if B == 1:
+        n_real[0] = T
+    else:
+        n_real[0], n_real[1] = 1, T
+    if B == 1:
+        assert tk.align_reduce_launch(B, T, 1500)["grid"][0] >= \
+            torch.cuda.get_device_properties(cuda).multi_processor_count
+    before = tk.LAUNCHES["align_reduce"]
+    got = tk.align_reduce(cross, heads, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["align_reduce"] == before + 1
+    want = tk.align_reduce_plain(cross, heads, n_real)
+    rows = torch.arange(T, device=cuda)[None, :, None] < n_real[:, None, None]
+    scale = want.abs().where(rows, 0.0).max().item()
+    err = (got - want).abs().where(rows, 0.0).max().item()
+    assert err <= 1e-5 * scale, (err, scale)
+    assert not got.where(~rows, 0.0).any()
+
+
+@pytest.mark.gpu
+def test_gpu_align_reduce_median_network_and_edges(cuda):
+    """The kernel's median network on all 5040 orders of 7 distinct values:
+    block k of 7 frames holds order k in row 0 and its rotations below, so
+    every frame's column holds the same 7 values and the same statistics,
+    and the middle frame of block k sees order k; each output equal to
+    align_reduce_plain's (torch.median) within 1e-5, each middle frame to
+    the z-normed median value. Then frames 0-2 and 1497-1499 of 1500
+    against the median of their windows with the edge frame repeated."""
+    import itertools
+    vals = torch.tensor([0.0, 1.0, 2.0, 5.0, 9.0, 14.0, 20.0], device=cuda)
+    perms = torch.tensor(list(itertools.permutations(range(7))),
+                         device=cuda)                       # [5040, 7]
+    rot = (perms[None] + torch.arange(7, device=cuda)[:, None, None]) % 7
+    F = 7 * perms.shape[0]
+    w = torch.zeros(1, 1, 32, F, device=cuda)
+    w[0, 0, :7] = vals[rot].reshape(7, F)
+    n_real = torch.tensor([7], device=cuda)
+    got = tk.align_reduce([w], [(0, 0)], n_real)
+    want = tk.align_reduce_plain([w], [(0, 0)], n_real)
+    assert (got[0, :7] - want[0, :7]).abs().max().item() <= 1e-5 * \
+        want[0, :7].abs().max().item()
+    z5 = (5.0 - vals.mean()) / (vals.var(unbiased=False).sqrt() + 1e-9)
+    mid = got[0, 0, 3::7]
+    assert (mid - z5).abs().max().item() <= 1e-5
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn(2, 20, 64, 1500, generator=g, device=cuda).softmax(-1)
+    n_real = torch.tensor([40, 64], device=cuda)
+    got = tk.align_reduce([w], [(0, 4)], n_real)
+    x = w[:, 4]
+    mask = (torch.arange(64, device=cuda)[None, :]
+            < n_real[:, None])[..., None]
+    cnt = n_real.float()[:, None, None]
+    mean = x.where(mask, 0.0).sum(1, keepdim=True) / cnt
+    var = ((x - mean) ** 2).where(mask, 0.0).sum(1, keepdim=True) / cnt
+    z = (x - mean) / (var.sqrt() + 1e-9)
+    for f in (0, 1, 2, 1497, 1498, 1499):
+        idx = torch.arange(f - 3, f + 4, device=cuda).clamp(0, 1499)
+        med = z[..., idx].sort(dim=-1).values[..., 3]
+        for b, n in enumerate(n_real.tolist()):
+            err = (got[b, :n, f] - med[b, :n]).abs().max().item()
+            assert err <= 1e-5 * z[b, :n].abs().max().item(), (f, b, err)
