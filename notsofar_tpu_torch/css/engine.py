@@ -18,8 +18,22 @@ A batch of sessions padded to a common segment bucket runs as one pass:
   as jnp.round).
 
 Big tensors keep the [.., S, F, T] layout of the JAX package.
+
+The device stages are profiler spans ``stage.<stage>`` (StageTimer's
+stages, also without a timer), and the host work has spans of its own
+(``utils.profiling.span``): ``stage.css.prepare`` (``prepare_sessions``),
+``stage.css.upload``, ``stage.stitch.chain`` (the loss matrices' read and
+the permutation chain) and ``stage.css.readback`` (the scales' read and
+the streams' host copy). The host buffers of the audio in and the streams
+out are pinned on a card and come from PyTorch's caching host allocator,
+so a pass touches no fresh host pages but its returned streams.
+``CSS_COUNTS`` counts the passes and their work. ``CssEngine.taps``, None
+unless set, is the benchmark check's only entry into a pass: it is called
+with each pass's intermediates, per chunk (``"chunk"``: the first window,
+features, masks, separated STFT), after the chain (``"stitch"``: loss
+matrices, permutations) and after gating (``"gate"``: mean stitched
+masks, gates).
 """
-import contextlib
 import itertools
 import math
 from dataclasses import dataclass
@@ -33,7 +47,18 @@ from notsofar_tpu_torch.ops.mvdr import mvdr_beamform
 from notsofar_tpu_torch.ops.pit import BASE_LOSSES
 from notsofar_tpu_torch.ops.stft import num_frames
 from notsofar_tpu_torch.utils.morphology import dilate, erode
-from notsofar_tpu_torch.utils.profiling import StageTimer
+from notsofar_tpu_torch.utils.profiling import StageTimer, span
+
+# calls: passes of the engine; sessions; windows: real windows; padded:
+# windows run (the bucket's padding included); chunks; systems: MVDR
+# solves, one a (window, speaker, bin)
+CSS_COUNTS: Dict[str, int] = {"calls": 0, "sessions": 0, "windows": 0,
+                              "padded": 0, "chunks": 0, "systems": 0}
+
+
+def reset_css_counts() -> None:
+    for k in CSS_COUNTS:
+        CSS_COUNTS[k] = 0
 
 
 @dataclass
@@ -102,19 +127,31 @@ def build_weight_matrix(num_seg_real: int, num_seg_bucket: int,
     return wg
 
 
-def _quantize_int16(mix: np.ndarray) -> np.ndarray:
-    """float [C, N] -> int16 at 32768 per unit (pre-scaled to peak 1.0
-    when the input exceeds it)."""
-    peak = float(np.abs(mix).max()) if mix.size else 0.0
-    scaled = mix * (32768.0 / peak if peak > 1.0 else 32768.0)
-    q = np.rint(scaled, out=scaled)
-    np.clip(q, -32768, 32767, out=q)
-    return q.astype(np.int16)
+def _quantize_into(out: np.ndarray, mix: np.ndarray,
+                   block: int = 1 << 16) -> None:
+    """Quantise a session, float [N, C] (samples, mics), into int16 `out`
+    [C, L]: 32768 per unit (pre-scaled to peak 1.0 when the input exceeds
+    it), zeros past N. Works through blocks of `block` samples, so no
+    temporary grows with the session."""
+    n = min(mix.shape[0], out.shape[1])
+    x = mix[:n]
+    peak = max(float(x.max()), -float(x.min())) if n else 0.0
+    scale = 32768.0 / peak if peak > 1.0 else 32768.0
+    buf = np.empty((min(block, n), mix.shape[1]), mix.dtype)
+    for s in range(0, n, block):
+        q = buf[:min(block, n - s)]
+        np.multiply(x[s:s + block], scale, out=q)
+        np.rint(q, out=q)
+        np.clip(q, -32768, 32767, out=q)
+        out[:, s:s + q.shape[0]] = q.T
+    out[:, n:] = 0
 
 
 class CssEngine:
     """Binds a CssModel (weights on its device) and a config into a
     session separator."""
+
+    taps = None
 
     def __init__(self, model: CssModel, cfg: CssCfg):
         self.model = model
@@ -151,13 +188,14 @@ class CssEngine:
         scales [Sb, S], mask_stitched [Sb, S, F, Tpad] (empty without
         side info), activity [Sb, S, Tpad] bool), all on the device.
         timer: optional StageTimer for the stages stft, features,
-        conformer, mvdr, stitch and istft."""
+        conformer, mvdr, stitch and istft; without one each stage is the
+        span stage.<name> alone (no synchronise)."""
         cfg = self.cfg
         model = self.model
 
         def stage(name):
             return timer.stage(name) if timer is not None \
-                else contextlib.nullcontext()
+                else span(f"stage.{name}")
 
         Sb, C, _ = wav_pad.shape
         T = seg_frames
@@ -181,6 +219,12 @@ class CssEngine:
         mask_floor = 10.0 ** (mask_floor_db / 20.0) \
             if np.isfinite(mask_floor_db) else 0.0
         use_mvdr = C > 1 and cfg.mc_mvdr
+        CSS_COUNTS["calls"] += 1
+        CSS_COUNTS["padded"] += total_seg
+        CSS_COUNTS["chunks"] += total_seg // chunk
+        if use_mvdr:
+            CSS_COUNTS["systems"] += total_seg * S * F
+        taps = self.taps
 
         # every window is an adjacent pair of hop-wide slots
         assert T == 2 * hop_frames and Tpad == (num_seg + 1) * hop_frames
@@ -197,7 +241,8 @@ class CssEngine:
             with stage("features"):
                 feat = model.features(seg_c if C > 1 else seg_c[..., 0])
             with stage("conformer"):
-                masks = model.masks_from_feature(feat)
+                masks = model.masks_graphed(feat) if feat.is_cuda \
+                    else model.masks_from_feature(feat)
             spk_m, noi_m = masks["spk_masks"], masks["noise_masks"]
             with stage("mvdr"):
                 if use_mvdr:
@@ -209,6 +254,9 @@ class CssEngine:
                 sep = seg_for_masking * clipped.to(seg_for_masking.dtype)
                 separated[c0:c0 + chunk] = sep.permute(0, 3, 1, 2)
                 spk_masks[c0:c0 + chunk] = spk_m.permute(0, 3, 1, 2)
+            if taps is not None:
+                taps("chunk", first=c0, features=feat, masks=masks,
+                     separated=sep)
         separated = separated.reshape(Sb, num_seg, S, F, T)
         spk_masks = spk_masks.reshape(Sb, num_seg, S, F, T)
 
@@ -227,9 +275,13 @@ class CssEngine:
             lm_elem = BASE_LOSSES[cfg.stitching_loss](
                 stitch_in[:, :-1, :, None, :, -overlap:],
                 stitch_in[:, 1:, None, :, :, :overlap])
-            lm_all = lm_elem.mean(dim=(4, 5)).cpu().numpy()  # [Sb,n-1,S,S]
+            lm_dev = lm_elem.mean(dim=(4, 5))                # [Sb,n-1,S,S]
             del lm_elem
-            perms = torch.from_numpy(_pit_chain(lm_all, S)).to(dev)
+            with span("stage.stitch.chain"):
+                lm_all = lm_dev.cpu().numpy()
+                perms = torch.from_numpy(_pit_chain(lm_all, S)).to(dev)
+            if taps is not None:
+                taps("stitch", losses=lm_dev, perms=perms)
             idx = perms[:, :, :, None, None].expand(Sb, num_seg, S, F, T)
             separated = torch.gather(separated, 2, idx)
             spk_masks = torch.gather(spk_masks, 2, idx)
@@ -248,6 +300,8 @@ class CssEngine:
             activity = mask_stitched.mean(dim=2)           # [Sb, S, Tpad]
             act = erode(dilate(activity >= cfg.activity_th, dilation, 2),
                         erosion, 2)
+            if taps is not None:
+                taps("gate", activity=activity, gate=act)
             gated = torch.where(act[:, :, None, :], stft_stitched,
                                 torch.zeros((), dtype=stft_stitched.dtype,
                                             device=dev))
@@ -268,6 +322,11 @@ class CssEngine:
                          ) -> Dict:
         """Host-side batch prep: int16 quantization, padding to the
         common segment bucket, OLA weight matrices. Pure numpy."""
+        with span("stage.css.prepare"):
+            return self._prepare_sessions(speech_mixes, fs)
+
+    def _prepare_sessions(self, speech_mixes: List[np.ndarray], fs: int
+                          ) -> Dict:
         cfg = self.cfg
         geo = self.seg_geometry(fs)
         T, hop = geo["seg_frames"], geo["hop_frames"]
@@ -282,32 +341,38 @@ class CssEngine:
 
         B = len(speech_mixes)
         C = speech_mixes[0].shape[2]
-        wav_pad = np.zeros((B, C, n_pad), np.int16)
+        # on a card the audio is quantised straight into pinned memory,
+        # a block that PyTorch's caching host allocator hands out again
+        # every call once its copy to the card is done
+        wav_host = torch.empty((B, C, n_pad), dtype=torch.int16,
+                               pin_memory=self.device.type == "cuda")
+        wav_pad = wav_host.numpy()
         wgs = np.zeros((B, num_seg, T), np.float32)
         valid = np.zeros(B, np.int64)
         for b, mix in enumerate(speech_mixes):
-            q = _quantize_int16(mix[0].T[:, :n_pad])
-            wav_pad[b, :, :q.shape[1]] = q
+            _quantize_into(wav_pad[b], mix[0])
             valid[b] = infos[b]
             nseg_real = int(np.ceil((infos[b] - overlap) / hop))
             wgs[b] = build_weight_matrix(nseg_real, num_seg, T,
                                          geo["m0"], geo["m1"])
+            CSS_COUNTS["windows"] += nseg_real
+        CSS_COUNTS["sessions"] += B
         n_reals = [(mf - 1) * self.frame_hop + self.frame_len for mf in infos]
-        return dict(wav_pad=wav_pad, wgs=wgs, valid=valid, num_seg=num_seg,
-                    T=T, hop=hop, geo=geo, n_reals=n_reals)
+        return dict(wav_pad=wav_pad, wav_host=wav_host, wgs=wgs,
+                    valid=valid, num_seg=num_seg, T=T, hop=hop, geo=geo,
+                    n_reals=n_reals)
 
     def upload_sessions(self, prep: Dict) -> Dict:
-        """Copy a prepared batch to the device: one pinned, non-blocking
-        copy of the int16 audio (on a card), plus the weights and frame
-        counts. Any other keys of `prep` ride along."""
+        """Copy a prepared batch to the device: one non-blocking copy of
+        the int16 audio from prepare_sessions' pinned tensor (on a card),
+        plus the weights and frame counts. Any other keys of `prep` ride
+        along."""
         up = dict(prep)
-        del up["wav_pad"], up["wgs"], up["valid"]
-        wav = torch.from_numpy(prep["wav_pad"])
-        if self.device.type == "cuda":
-            wav = wav.pin_memory()
-        up["wav"] = wav.to(self.device, non_blocking=True)
-        up["wg"] = torch.from_numpy(prep["wgs"]).to(self.device)
-        up["valid"] = torch.from_numpy(prep["valid"]).to(self.device)
+        del up["wav_pad"], up["wav_host"], up["wgs"], up["valid"]
+        with span("stage.css.upload"):
+            up["wav"] = prep["wav_host"].to(self.device, non_blocking=True)
+            up["wg"] = torch.from_numpy(prep["wgs"]).to(self.device)
+            up["valid"] = torch.from_numpy(prep["valid"]).to(self.device)
         return up
 
     def separate_uploaded(self, up: Dict,
@@ -333,7 +398,9 @@ class CssEngine:
         the scales read and does not compete with the next batch's
         upload."""
         wav_dev, scales_dev = self.separate_uploaded(up, timer=timer)
-        out = _LazyHostWavs(wav_dev, scales_dev.cpu().numpy(), up["n_reals"],
+        with span("stage.css.readback"):
+            scales = scales_dev.cpu().numpy()
+        out = _LazyHostWavs(wav_dev, scales, up["n_reals"],
                             self.cfg.num_spks)
         return out, (wav_dev, scales_dev, up["n_reals"])
 
@@ -467,11 +534,20 @@ class _LazyHostWavs:
 
     def _materialize(self):
         if self._host is None:
-            wav_i16 = self._wav_dev.cpu().numpy()
-            self._host = [
-                [(wav_i16[b, i, :n].astype(np.float32) / self._scales[b, i])
-                 for i in range(self._num_spks)]
-                for b, n in enumerate(self._n_reals)]
+            with span("stage.css.readback"):
+                wav = self._wav_dev
+                if wav.is_cuda:
+                    # into pinned memory that the caching host allocator
+                    # keeps: no fresh pages a call
+                    host = torch.empty(wav.shape, dtype=wav.dtype,
+                                       pin_memory=True)
+                    wav = host.copy_(wav)
+                wav_i16 = wav.numpy()
+                self._host = [
+                    [np.divide(wav_i16[b, i, :n], self._scales[b, i],
+                               dtype=np.float32)
+                     for i in range(self._num_spks)]
+                    for b, n in enumerate(self._n_reals)]
         return self._host
 
     def __getitem__(self, b):

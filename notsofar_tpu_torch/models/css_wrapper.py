@@ -13,6 +13,8 @@ ConformerCssWrapper) with the same tensor contracts:
 eval mode without gradients; `train()` turns on dropout, batch statistics
 and gradients (the JAX package's deterministic=False,
 use_running_average=False), and the forward pass then keeps its graph.
+On a card, `masks_graphed` runs the eval network as a CUDA graph captured
+once per input shape (the CSS engine's chunks).
 """
 import contextlib
 from dataclasses import dataclass, field
@@ -68,6 +70,7 @@ class CssModel:
         self.module.to(dev).eval().requires_grad_(False)
         self.num_spks = n.num_spks
         self.num_nois = n.num_nois
+        self._graphs: Dict[tuple, _MaskGraph] = {}
 
     def train(self, mode: bool = True) -> "CssModel":
         """Train mode (dropout, batch statistics, gradients on) or, with
@@ -108,6 +111,22 @@ class CssModel:
         return {"spk_masks": all_masks[..., :self.num_spks],
                 "noise_masks": all_masks[..., self.num_spks:]}
 
+    def masks_graphed(self, feat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """masks_from_feature in eval mode on a card, with the network run
+        as a CUDA graph, captured at the first call of each input shape and
+        replayed after: the same kernels on the same operands (the same
+        masks, bit for bit), launched once instead of op by op (~2400
+        launches a chunk of 32 windows at full width)."""
+        if self.module.training:
+            raise RuntimeError("masks_graphed runs the eval network only")
+        key = (tuple(feat.shape), feat.dtype)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = _MaskGraph(self.module, feat)
+        all_masks = graph.run(feat)
+        return {"spk_masks": all_masks[..., :self.num_spks],
+                "noise_masks": all_masks[..., self.num_spks:]}
+
     def separate(self, stft_c: torch.Tensor, generator=None
                  ) -> Dict[str, torch.Tensor]:
         """stft_c: complex [B,F,T,Mics] (MC) or [B,F,T] (SC) -> mask
@@ -124,6 +143,38 @@ class CssModel:
             "greater than 1 — model misconfiguration?")
         s = mix[:, :, 0] if is_sc else mix
         return self.separate(self.stft(s), generator)
+
+
+class _MaskGraph:
+    """The eval network captured for one input shape
+    (utils.cuda_graph.StepGraph): run(feat) copies feat into the graph's
+    input, replays it and returns a copy of its output (the next replay
+    overwrites the output)."""
+
+    @torch.no_grad()
+    def __init__(self, module: ConformerCSS, feat: torch.Tensor):
+        from notsofar_tpu_torch.utils.cuda_graph import (StepGraph,
+                                                         capture_stream)
+        self.x = feat.clone()
+        # capture launches nothing: one eager run on the capture stream
+        # first loads every library the network calls
+        stream = capture_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            module(self.x)
+        torch.cuda.current_stream().wait_stream(stream)
+        self.out = None
+
+        def step():
+            self.out = module(self.x)
+
+        self.graph = StepGraph(step)
+
+    @torch.no_grad()
+    def run(self, feat: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(feat)
+        self.graph.replay()
+        return self.out.clone()
 
 
 def make_css_model(cfg: Optional[ConformerCssConfig] = None,

@@ -21,10 +21,14 @@ The +1e-15 on the trace denominator lands at frequency 0 only, as in the
 reference. Divisions by a real scalar are done on the real and imaginary
 parts, and the complex num/den by Smith's algorithm, the arithmetic the
 JAX package's complex division lowers to.
+
+Profiler spans: ``stage.mvdr.scm`` (the winner-take-all masks and the
+covariances) and ``stage.mvdr.solve`` (the solve and the weights).
 """
 import torch
 
 from notsofar_tpu_torch.ops.kernels import masked_scm as masked_scm_kernel
+from notsofar_tpu_torch.utils.profiling import span
 
 
 def make_wta(spk_masks: torch.Tensor, noise_masks: torch.Tensor
@@ -97,11 +101,19 @@ def mvdr_beamform(spk_masks: torch.Tensor, noise_masks: torch.Tensor,
     complex64 -> [B,F,T,S] complex beamformed STFT per speaker.
     use_pallas selects the masked-SCM kernel (ops.kernels.masked_scm)."""
     S = spk_masks.shape[-1]
-    wta = make_wta(spk_masks, noise_masks)             # [B,F,T,S+1]
-    if use_pallas:
-        scm = masked_scm_kernel(wta.contiguous(), stft_c.contiguous())
-    else:
-        scm = masked_scm(wta, stft_c)                  # [B,S+1,F,M,M]
+    with span("stage.mvdr.scm"):
+        wta = make_wta(spk_masks, noise_masks)         # [B,F,T,S+1]
+        if use_pallas:
+            scm = masked_scm_kernel(wta.contiguous(), stft_c.contiguous())
+        else:
+            scm = masked_scm(wta, stft_c)              # [B,S+1,F,M,M]
+    with span("stage.mvdr.solve"):
+        W = _weights(scm, S, stft_c.dtype)
+    return torch.einsum("bsfm,bftm->bfts", W.conj(), stft_c)
+
+
+def _weights(scm: torch.Tensor, S: int, dtype) -> torch.Tensor:
+    """scm [B,S+1,F,M,M] -> MVDR weights [B,S,F,M] of each speaker."""
     spk_scm = scm[:, :S]
     # noise + the other speakers, summed rather than total - target: where
     # one source wins every frame of a bin the others carry 1e-10 weights,
@@ -116,8 +128,7 @@ def mvdr_beamform(spk_masks: torch.Tensor, noise_masks: torch.Tensor,
     noi_n = _div_real(noi_scm, noi_tr[..., None, None])
     spk_n = _div_real(spk_scm, spk_tr[..., None, None])
     num = solve_complex(noi_n.to(torch.complex128),
-                        spk_n.to(torch.complex128)).to(stft_c.dtype)
+                        spk_n.to(torch.complex128)).to(dtype)
     den = torch.diagonal(num, dim1=-2, dim2=-1).sum(-1)   # [B,S,F]
     den = torch.cat([den[:, :, :1] + 1e-15, den[:, :, 1:]], dim=2)
-    W = _cdiv(num[..., 0], den[..., None])             # [B,S,F,M]
-    return torch.einsum("bsfm,bftm->bfts", W.conj(), stft_c)
+    return _cdiv(num[..., 0], den[..., None])          # [B,S,F,M]

@@ -21,6 +21,7 @@ from notsofar_tpu.css.engine import CssCfg as JCssCfg
 from notsofar_tpu.css.engine import CssEngine as JCssEngine
 from notsofar_tpu_torch.css import inference as tinf
 from notsofar_tpu_torch.css.engine import (CssCfg, CssEngine,
+                                           _quantize_into,
                                            build_weight_matrix,
                                            calc_segment_weight)
 from notsofar_tpu_torch.models import conformer as tc
@@ -106,6 +107,24 @@ def test_engine_matches_jax_engine_and_oracle(mode, use_pallas_scm):
             assert np.abs(wavs[s][:m]).max() < 50 * scale
         else:
             assert d.max() < 2e-2, (s, d.max())
+
+
+@pytest.mark.parametrize("n,length,gain", [
+    (1000, 1200, 0.5),      # zeros past the session
+    (1000, 700, 0.5),       # the session cut at the buffer's end
+    (2 * 64 + 3, 2 * 64 + 3, 3.0),  # peak above 1: pre-scaled; block edges
+    (0, 5, 1.0)])
+def test_quantize_into_a_used_buffer_is_the_engines_rule(n, length, gain):
+    """_quantize_into, block by block into a buffer holding old values,
+    writes the int16 that quantize_like_engine's whole-array rule gives."""
+    rng = np.random.RandomState(n)
+    mix = (rng.randn(n, 7) * gain).astype(np.float32)
+    out = rng.randint(-30000, 30000, size=(7, length)).astype(np.int16)
+    _quantize_into(out, mix, block=64)
+    want = np.zeros((7, length), np.float32)
+    m = min(n, length)
+    want[:, :m] = quantize_like_engine(mix[:m].T) * 32768.0
+    np.testing.assert_array_equal(out, want.astype(np.int16))
 
 
 def test_short_session_single_segment():
