@@ -41,15 +41,19 @@ Word timestamps use whisper's approach: a teacher-forced pass collecting
 cross-attention from alignment heads, reduced on device by one
 hand-written kernel, ops.kernels.align_reduce (head selection, per-frame
 z-norm over the real token rows, width-7 median filter, head mean, in one
-pass over the heads). The DTW runs on the host in float64 (the JAX
-package ran it on device only to avoid its TPU host link): only the
-reduced [T, 1500] matrix per window leaves the card.
+pass over the heads). The DTW runs on the host in float64, in the native
+core native/dtw.cpp (the JAX package ran it on device only to avoid its
+TPU host link): only the reduced [T, 1500] matrix per window leaves the
+card.
 
 Model weights live in the ``WhisperModel`` (an ``nn.Module``), so the
 decoders take no ``variables`` argument.
 """
 import base64
+import ctypes
 import gzip
+import os
+import subprocess
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -65,6 +69,7 @@ from notsofar_tpu_torch.ops.kernels import (  # noqa: F401 (re-exported)
     median_filter)
 from notsofar_tpu_torch.utils.cuda_graph import (StepGraph, WorkspaceCache,
                                                  capture_stream)
+from notsofar_tpu_torch.utils.logging_def import get_logger
 from notsofar_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
@@ -147,14 +152,15 @@ WORKSPACES = WorkspaceCache()
 # eagerly or its graph's replay), step 0 (eager, the graphs' warm-up, or
 # its graph's replay), the later steps' replays, the counters they bump,
 # and the waits on finished.all() reads; and the windows the word-timing
-# pass aligned (find_word_timestamps_batch)
+# pass aligned (find_word_timestamps_batch), and those whose DTW ran in the
+# native core (dtw_path)
 DECODE_STEPS: Dict[str, float] = {"calls": 0, "hits": 0, "misses": 0,
                                   "evictions": 0, "workspace_bytes": 0,
                                   "eager": 0, "replayed": 0, "captures": 0,
                                   "capture_s": 0.0, "prefill_s": 0.0,
                                   "step0_s": 0.0, "launch_s": 0.0,
                                   "count_s": 0.0, "read_s": 0.0,
-                                  "align_windows": 0}
+                                  "align_windows": 0, "dtw_native": 0}
 
 
 def reset_decode_steps() -> None:
@@ -840,15 +846,72 @@ class GreedyDecoder:
 # word-level timestamps (teacher-forced cross-attention + DTW)
 # --------------------------------------------------------------------------
 
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
+_DTW_SO = os.path.join(_NATIVE_DIR, "build", "libdtw.so")
+_DTW_LIB = None
+_DTW_TRIED = False
+
+
+def _load_dtw_native():
+    """ctypes-load native/build/libdtw.so once, building it with make at
+    first use (as utils/scoring/levenshtein.py does libtclev.so); None ->
+    the numpy DP."""
+    global _DTW_LIB, _DTW_TRIED
+    if _DTW_TRIED:
+        return _DTW_LIB
+    _DTW_TRIED = True
+    # always invoke make: a no-op when fresh, a rebuild when dtw.cpp
+    # changed (a stale .so must never shadow source edits)
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR, "build/libdtw.so"],
+                       check=True, capture_output=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        if not os.path.exists(_DTW_SO):
+            get_logger("asr").warning(
+                f"native dtw build failed ({e}); using numpy DP")
+            return None
+    try:
+        lib = ctypes.CDLL(_DTW_SO)
+        lib.dtw_path.restype = ctypes.c_int64
+        lib.dtw_path.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+        _DTW_LIB = lib
+    except OSError as e:
+        get_logger("asr").warning(
+            f"native dtw load failed ({e}); using numpy DP")
+    return _DTW_LIB
+
+
 def dtw_path(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Monotonic DTW over cost [N, M] in float64; returns the alignment
     path (text indices, time indices).
 
-    The DP D[i, j] = cost + min(D[i-1, j-1], D[i-1, j], D[i, j-1]) runs
-    one anti-diagonal at a time (every cell of a diagonal depends only on
-    the two before it), so each of the N+M-1 diagonals is one vectorized
-    numpy step. Ties break as in the JAX package's reference DP:
-    diagonal <= up < left."""
+    Runs in the native core native/dtw.cpp whenever it loads, on the same
+    float64 upcast as the numpy DP, so both give the same path bit for
+    bit; _dtw_path_numpy is its twin and the fallback without a
+    compiler."""
+    N, M = cost.shape
+    lib = _load_dtw_native()
+    if lib is None:
+        return _dtw_path_numpy(cost)
+    c = np.ascontiguousarray(cost, np.float64)
+    ti = np.empty(N + M, np.int32)
+    tj = np.empty(N + M, np.int32)
+    n = lib.dtw_path(c.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                     N, M, ti.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                     tj.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    DECODE_STEPS["dtw_native"] += 1
+    return ti[:n].astype(np.int64), tj[:n].astype(np.int64)
+
+
+def _dtw_path_numpy(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """dtw_path as a numpy DP. D[i, j] = cost + min(D[i-1, j-1],
+    D[i-1, j], D[i, j-1]) runs one anti-diagonal at a time (every cell of
+    a diagonal depends only on the two before it), so each of the N+M-1
+    diagonals is one vectorized numpy step. Ties break as in the JAX
+    package's reference DP: diagonal <= up < left."""
     N, M = cost.shape
     c = np.asarray(cost, np.float64)
     D = np.full((N + 1, M + 1), np.inf)
@@ -887,8 +950,10 @@ def dtw_token_starts(neg_cost: np.ndarray, n_rows: int,
     tstart = np.full(T, float(n_cols))
     if n_rows > 0 and n_cols > 0:
         ti, tj = dtw_path(neg_cost[:n_rows, :n_cols])
-        for a, b in zip(ti[::-1], tj[::-1]):
-            tstart[a] = b
+        # the path's text index never decreases: a row's first frame is
+        # where its index first appears
+        first = np.flatnonzero(np.diff(ti, prepend=-1))
+        tstart[ti[first]] = tj[first]
     return tstart
 
 

@@ -7,6 +7,8 @@ init; inputs from numpy seeds. Sampling (temperature > 0) cannot match
 JAX's threefry bits, so the comparisons run at temperature 0 and the
 sampler is checked against its own per-row contract.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -308,6 +310,111 @@ def test_dtw_matches_the_jax_reference_dp(seed):
     for a, b in zip(ri, rj):
         first.setdefault(int(a), int(b))
     assert starts.tolist() == [float(first[i]) for i in range(17)]
+
+
+def _native_dtw():
+    """The native DTW core, loaded; skips only where no g++ can build it."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build native/dtw.cpp")
+    lib = tdec._load_dtw_native()
+    assert lib is not None
+    return lib
+
+
+def _dtw_cost(case):
+    """The cost of a named case: float32 at the cell's window shapes,
+    float64, costs quantised to quarters (many ties), degenerate shapes."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    shape = {"f32_150x1500": (150, 1500), "f32_159x1500": (159, 1500),
+             "f64_40x300": (40, 300), "ties_100x800": (100, 800),
+             "row_1x50": (1, 50), "col_50x1": (50, 1),
+             "tall_300x120": (300, 120)}[case]
+    cost = rng.randn(*shape)
+    if case == "ties_100x800":
+        return (np.round(cost * 4) / 4).astype(np.float32)
+    return cost if case.startswith("f64") else cost.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", [
+    "f32_150x1500", "f32_159x1500", "f64_40x300", "ties_100x800",
+    "row_1x50", "col_50x1", "tall_300x120"])
+def test_native_dtw_path_is_the_numpy_dp(case):
+    """The native core's path equals the numpy DP's bit for bit, and the
+    native run is counted in DECODE_STEPS['dtw_native']."""
+    _native_dtw()
+    cost = _dtw_cost(case)
+    before = tdec.DECODE_STEPS["dtw_native"]
+    ti, tj = tdec.dtw_path(cost)
+    assert tdec.DECODE_STEPS["dtw_native"] == before + 1
+    ri, rj = tdec._dtw_path_numpy(cost)
+    np.testing.assert_array_equal(ti, ri)
+    np.testing.assert_array_equal(tj, rj)
+    assert ti[0] == 0 and tj[0] == 0
+    assert ti[-1] == cost.shape[0] - 1 and tj[-1] == cost.shape[1] - 1
+
+
+@pytest.mark.parametrize("case,n_rows,n_cols", [
+    ("f64_40x300", 31, 250), ("ties_100x800", 80, 90),
+    ("tall_300x120", 200, 60)])
+def test_dtw_token_starts_through_both_cores(monkeypatch, case, n_rows,
+                                             n_cols):
+    """dtw_token_starts gives the same first frames through the native
+    core and the numpy DP: each visited row's first path frame, n_cols
+    for the rows past n_rows that the path never visits."""
+    _native_dtw()
+    cost = _dtw_cost(case)
+    native = tdec.dtw_token_starts(cost, n_rows, n_cols)
+    ri, rj = tdec._dtw_path_numpy(cost[:n_rows, :n_cols])
+    first = {}
+    for a, b in zip(ri, rj):
+        first.setdefault(int(a), float(b))
+    want = [first.get(i, float(n_cols)) for i in range(cost.shape[0])]
+    assert native.tolist() == want
+    # the numpy DP, as without a compiler
+    monkeypatch.setattr(tdec, "_DTW_LIB", None)
+    monkeypatch.setattr(tdec, "_DTW_TRIED", True)
+    assert tdec.dtw_token_starts(cost, n_rows, n_cols).tolist() == want
+
+
+def test_word_timestamps_count_native_dtw_windows(pair):  # noqa: F811
+    """Every window find_word_timestamps_batch aligns runs its DTW in the
+    native core: DECODE_STEPS['dtw_native'] equals 'align_windows'."""
+    _native_dtw()
+    _, _, tm = pair
+    _, tt = mini_tokenizers()
+    rng = np.random.RandomState(7)
+    xa = [torch.from_numpy(rng.randn(1, 1500, 128).astype(np.float32)
+                           * 0.05) for _ in range(3)]
+    toks = [tt.encode(" hello world"), tt.encode(" ok then"),
+            tt.encode(" three words here")]
+    tdec.reset_decode_steps()
+    out = tdec.find_word_timestamps_batch(tm, tt, xa, toks,
+                                          [3000, 2400, 1200])
+    assert all(out)
+    assert tdec.DECODE_STEPS["align_windows"] == 3
+    assert tdec.DECODE_STEPS["dtw_native"] == 3
+
+
+def test_dtw_falls_back_to_numpy_when_the_build_fails(monkeypatch, caplog,
+                                                      tmp_path):
+    """With make failing and no library on disk, the loader warns and
+    returns None, and dtw_path takes the numpy DP: the same path, and no
+    window counted as native."""
+    def no_make(*a, **k):
+        raise OSError("make: not found")
+    monkeypatch.setattr(tdec.subprocess, "run", no_make)
+    monkeypatch.setattr(tdec, "_DTW_SO", str(tmp_path / "libdtw.so"))
+    monkeypatch.setattr(tdec, "_DTW_LIB", None)
+    monkeypatch.setattr(tdec, "_DTW_TRIED", False)
+    assert tdec._load_dtw_native() is None
+    assert "using numpy DP" in caplog.text
+    cost = _dtw_cost("ties_100x800")
+    before = tdec.DECODE_STEPS["dtw_native"]
+    ti, tj = tdec.dtw_path(cost)
+    assert tdec.DECODE_STEPS["dtw_native"] == before
+    ri, rj = tdec._dtw_path_numpy(cost)
+    np.testing.assert_array_equal(ti, ri)
+    np.testing.assert_array_equal(tj, rj)
 
 
 @pytest.mark.parametrize("tokens", [

@@ -146,10 +146,15 @@ def test_align_windows_counts_the_windows_aligned(small):
                                           [3000, 2000, 3000])
     assert len(out) == 3
     assert tdec.DECODE_STEPS["align_windows"] == 3
+    # the windows whose DTW ran in the native core, where it loads
+    native = tdec._load_dtw_native() is not None
+    assert tdec.DECODE_STEPS["dtw_native"] == (3 if native else 0)
+    counted = ("align_windows", "dtw_native")
     assert {k: tdec.DECODE_STEPS[k] for k in before
-            if k != "align_windows"} == \
-        {k: v for k, v in before.items() if k != "align_windows"}
+            if k not in counted} == \
+        {k: v for k, v in before.items() if k not in counted}
     tdec.find_word_timestamps(model, tok, xas[0], texts[0], 3000)
     assert tdec.DECODE_STEPS["align_windows"] == 4
     tdec.reset_decode_steps()
     assert tdec.DECODE_STEPS["align_windows"] == 0
+    assert tdec.DECODE_STEPS["dtw_native"] == 0
