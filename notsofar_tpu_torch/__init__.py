@@ -7,26 +7,19 @@ file names the file it is held against. The port imports ``torch`` and
 never ``jax`` or ``notsofar_tpu``; modules it needs that have no framework
 code are copied, not imported.
 
-Ported so far (slice 1, ASR serving; slice 2, word-based diarization;
-slice 3, CSS separation; slice 4, the int8 decoder, orchestrator and
-scorer; slice 5, the kernel-decomposition tools):
-    utils        — logging, wav I/O and session/scp readers, stage timing,
-                   device selection, YAML configs, morphology, mic array
-    asr          — mel frontend, tokenizer, greedy/beam decoding, word
-                   timestamps, long-form transcription, asr_inference
-    diarization  — word windows, NMESC clustering (float64 host path and
-                   batched device path), diarization_inference
-    css          — the separation engine (STFT, Conformer masks, MVDR,
-                   PIT stitching, OLA, gating, iSTFT), css_inference,
-                   css_batch_prepass, the standalone separate_cli
-    models       — Whisper encoder/decoder, TitaNet speaker encoder,
-                   Conformer CSS (torch.nn) and their checkpoint bridges
-    ops          — STFT, features, MVDR, PIT, and the hand-written Hopper
-                   kernels (csrc/*.cu) behind their wrappers, each with a
-                   plain PyTorch version
-    tools        — the kernel-decomposition tools (bench_xattn_variants,
-                   bisect_attn_split), run with python -m
-    training     — the config dataclasses that loading a CSS model needs
+Every module of the JAX package has a counterpart here:
+    utils        — logging, I/O, stage timing and spans, configs, text
+                   normalization, the scorer, native (every native library)
+    asr          — mel, tokenizer, greedy/beam decoding in CUDA graphs,
+                   word timestamps, long-form transcription, asr_inference
+    diarization  — word- and time-based paths, NMESC clustering
+    css          — the separation engine, css_inference, separate_cli
+    models       — Whisper, TitaNet, MarbleNet, MSDD, Conformer CSS
+    ops          — STFT, features, MVDR, PIT, the Hopper kernels (csrc/)
+    native       — C++ host cores, each with a Python twin
+    inference_pipeline, training, parallel — the orchestrator, CSS
+                   training, torch.distributed
+    tools        — kernel timing tools, the real-weights validator
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

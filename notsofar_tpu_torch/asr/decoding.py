@@ -50,10 +50,7 @@ Model weights live in the ``WhisperModel`` (an ``nn.Module``), so the
 decoders take no ``variables`` argument.
 """
 import base64
-import ctypes
 import gzip
-import os
-import subprocess
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -69,7 +66,7 @@ from notsofar_tpu_torch.ops.kernels import (  # noqa: F401 (re-exported)
     median_filter)
 from notsofar_tpu_torch.utils.cuda_graph import (StepGraph, WorkspaceCache,
                                                  capture_stream)
-from notsofar_tpu_torch.utils.logging_def import get_logger
+from notsofar_tpu_torch.utils.native import load_native, ptr
 from notsofar_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
@@ -846,44 +843,6 @@ class GreedyDecoder:
 # word-level timestamps (teacher-forced cross-attention + DTW)
 # --------------------------------------------------------------------------
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "native")
-_DTW_SO = os.path.join(_NATIVE_DIR, "build", "libdtw.so")
-_DTW_LIB = None
-_DTW_TRIED = False
-
-
-def _load_dtw_native():
-    """ctypes-load native/build/libdtw.so once, building it with make at
-    first use (as utils/scoring/levenshtein.py does libtclev.so); None ->
-    the numpy DP."""
-    global _DTW_LIB, _DTW_TRIED
-    if _DTW_TRIED:
-        return _DTW_LIB
-    _DTW_TRIED = True
-    # always invoke make: a no-op when fresh, a rebuild when dtw.cpp
-    # changed (a stale .so must never shadow source edits)
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "build/libdtw.so"],
-                       check=True, capture_output=True)
-    except (OSError, subprocess.CalledProcessError) as e:
-        if not os.path.exists(_DTW_SO):
-            get_logger("asr").warning(
-                f"native dtw build failed ({e}); using numpy DP")
-            return None
-    try:
-        lib = ctypes.CDLL(_DTW_SO)
-        lib.dtw_path.restype = ctypes.c_int64
-        lib.dtw_path.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
-        _DTW_LIB = lib
-    except OSError as e:
-        get_logger("asr").warning(
-            f"native dtw load failed ({e}); using numpy DP")
-    return _DTW_LIB
-
-
 def dtw_path(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Monotonic DTW over cost [N, M] in float64; returns the alignment
     path (text indices, time indices).
@@ -893,15 +852,13 @@ def dtw_path(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     bit; _dtw_path_numpy is its twin and the fallback without a
     compiler."""
     N, M = cost.shape
-    lib = _load_dtw_native()
+    lib = load_native("dtw")
     if lib is None:
         return _dtw_path_numpy(cost)
     c = np.ascontiguousarray(cost, np.float64)
     ti = np.empty(N + M, np.int32)
     tj = np.empty(N + M, np.int32)
-    n = lib.dtw_path(c.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-                     N, M, ti.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                     tj.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    n = lib.dtw_path(ptr(c), N, M, ptr(ti), ptr(tj))
     DECODE_STEPS["dtw_native"] += 1
     return ti[:n].astype(np.int64), tj[:n].astype(np.int64)
 

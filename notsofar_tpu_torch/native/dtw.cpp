@@ -15,8 +15,7 @@
 // takes ~100 ms a [150, 1500] window, this kernel ~1.5 ms. Costs
 // accumulate in double.
 //
-// Build: make -C notsofar_tpu_torch/native build/libdtw.so (g++ -O3
-// -shared -fPIC), into native/build/ (done at first use by dtw_path).
+// Build: at first use, by utils/native.py::load_native("dtw").
 #include <cstdint>
 #include <limits>
 #include <vector>

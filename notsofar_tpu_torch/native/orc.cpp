@@ -28,8 +28,7 @@
 // instead of O(S^U); work is capped by max_ops (returns -1 => caller
 // falls back).
 //
-// Build: make -C notsofar_tpu_torch/native  (g++ -O3 -shared -fPIC), into
-// native/build/ (done at first use by utils/scoring/exact_orc.py)
+// Build: at first use, by utils/native.py::load_native("orc").
 
 #include <cstdint>
 #include <vector>

@@ -6,7 +6,7 @@
 // open -> seek -> read -> int16-to-float32 descale in one call with no
 // Python-level buffering, so the thread-pool loader scales past the GIL.
 //
-// Build: make -C notsofar_tpu_torch/native build/libsegread.so
+// Build: at first use, by utils/native.py::load_native("segread").
 
 #include <cstdint>
 #include <cstdio>

@@ -15,8 +15,7 @@
 // (substitution, insertion, deletion) breakdown of one optimal alignment
 // (ties broken: diagonal, then deletion, then insertion).
 //
-// Build: make -C notsofar_tpu_torch/native  (g++ -O3 -shared -fPIC), into
-// native/build/ (done at first use by utils/scoring/levenshtein.py)
+// Build: at first use, by utils/native.py::load_native("tclev").
 
 #include <cstdint>
 #include <vector>

@@ -4,26 +4,22 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with ctypes
 (no PyTorch headers, so a build takes seconds, not minutes). The first
 use of any kernel builds every missing library, one ``nvcc`` per source,
-all started together. Libraries go to ``csrc/build/`` (listed in
-.gitignore), named by a hash of their sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+all started together. Libraries go to ``csrc/build/``, named, built and
+loaded as ``utils/native.py`` does every native library of the port. A
+CUDA build failure raises: a CUDA tensor has no fallback.
 
 Nothing is built at import: the CPU tests import every module.
 """
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
+
+from notsofar_tpu_torch.utils import native
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("encoder_mha", "attn_step", "attn_step_split", "depthwise_conv1d",
-           "masked_scm", "xattn_int8", "xattn_stream", "xattn_onedot",
-           "attn_step_split_bias", "xattn_step", "decode_gemv",
-           "align_reduce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,6 +52,7 @@ _ARGTYPES = {
     "align_reduce": ("align_reduce", [_P, _P, _P, _I, _I, _I, _I,
                                       ctypes.c_longlong, _I, _P]),
 }
+KERNELS = tuple(_ARGTYPES)
 
 
 class GemvSeg(ctypes.Structure):
@@ -66,8 +63,6 @@ class GemvSeg(ctypes.Structure):
                 ("row_stride", ctypes.c_longlong), ("n", _I), ("b_f32", _I),
                 ("out_bf16", _I), ("logits", _I), ("gelu", _I),
                 ("post_rows", _I), ("mul", _F), ("post_s", _F)]
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -84,11 +79,9 @@ def nvcc_path() -> str:
 def lib_path(name: str, extra: Sequence[str] = ()) -> Path:
     """csrc/<name>.cu's library built with NVCC_FLAGS + extra, named by a
     hash of its sources and flags."""
-    h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
-        h.update(src.read_bytes())
-    h.update(" ".join([*NVCC_FLAGS, *extra]).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return native.lib_path(
+        BUILD_DIR, name, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))],
+        [*NVCC_FLAGS, *extra])
 
 
 def build_all(names: Sequence[str] = KERNELS,
@@ -97,42 +90,28 @@ def build_all(names: Sequence[str] = KERNELS,
     flags) is missing, one nvcc per source, all in parallel. Returns
     {name: nvcc output} for the ones built; raises with the compiler's
     output if any build fails."""
-    todo = [n for n in names if not lib_path(n, extra).exists()]
-    if not todo:
+    outs = {n: lib_path(n, extra) for n in names}
+    outs = {n: out for n, out in outs.items() if not out.exists()}
+    if not outs:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for n in todo:
-        out = lib_path(n, extra)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
-    logs, failed = {}, []
-    for n, (p, tmp, out) in procs.items():
-        logs[n] = p.communicate()[0]
-        if p.returncode == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(n)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra]
+    done = native.compile_all({out: (cmd, CSRC / f"{n}.cu")
+                               for n, out in outs.items()})
+    logs = {n: done[out][1] for n, out in outs.items()}
+    failed = [n for n, out in outs.items() if done[out][0] != 0]
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
 
 
+def _open(name: str) -> ctypes.CDLL:
+    build_all()
+    fn_name, argtypes = _ARGTYPES[name]
+    return native.open_library(lib_path(name),
+                               {fn_name: (ctypes.c_int, argtypes)})
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, building all missing kernels first."""
-    lib: Optional[ctypes.CDLL] = _LIBS.get(name)
-    if lib is None:
-        build_all()
-        lib = ctypes.CDLL(str(lib_path(name)))
-        fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    return native.load_once(name, _open)

@@ -16,8 +16,8 @@ Segments are read with a seek + short read (no full-utterance load), and
 SegmentSplitter reproduces the reference's per-epoch jittered cover
 (overlap in [min,max], force-align probability). Batches come out as
 numpy dicts; an optional thread pool reads a batch's segments in
-parallel. The native reader is the port's native/segread.cpp, built into
-native/build/libsegread.so.
+parallel. The native reader is the port's native/segread.cpp, built and
+loaded at first use by utils/native.py.
 """
 import glob
 import json
@@ -30,45 +30,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 from numpy import ndarray
 
+from notsofar_tpu_torch.utils.native import load_native, ptr
+
 ALL_COLUMNS = ["mixture", "gt_spk_activity_scores",
                "gt_spk_direct_early_echoes", "gt_spk_reverb", "gt_noise"]
 SCALED_COLUMNS = ["mixture", "gt_spk_direct_early_echoes", "gt_spk_reverb",
                   "gt_noise"]
-
-# optional native reader (open+seek+read+descale in one GIL-free call)
-_SEGREAD = None
-_SEGREAD_TRIED = False
-
-
-def _load_segread():
-    global _SEGREAD, _SEGREAD_TRIED
-    if _SEGREAD_TRIED:
-        return _SEGREAD
-    _SEGREAD_TRIED = True
-    import ctypes
-    import os
-    import subprocess
-    native_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "native")
-    so = os.path.join(native_dir, "build", "libsegread.so")
-    # always invoke make: no-op when fresh, rebuild when segread.cpp changed
-    # (a stale .so must never shadow source edits)
-    try:
-        subprocess.run(["make", "-C", native_dir, "build/libsegread.so"],
-                       check=True, capture_output=True)
-    except Exception:
-        if not os.path.exists(so):
-            return None
-    try:
-        lib = ctypes.CDLL(so)
-        lib.read_scaled_segment_i16.restype = ctypes.c_int
-        lib.read_scaled_segment_i16.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_double, ctypes.POINTER(ctypes.c_float)]
-        _SEGREAD = lib
-    except OSError:
-        _SEGREAD = None
-    return _SEGREAD
 
 
 class SegmentSplitter:
@@ -215,7 +182,8 @@ class SimulatedDataset:
         columns = meta["columns"]
         assert meta["index_value"] == uid
         d = {"utterance_id": uid, "t0": offset, "seg_len": seg_len}
-        lib = None if isinstance(source, tarfile.TarFile) else _load_segread()
+        lib = (None if isinstance(source, tarfile.TarFile)
+               else load_native("segread"))
         for column in self.needed_columns:
             spec = columns[column]
             if "values" in spec:
@@ -228,14 +196,12 @@ class SimulatedDataset:
             if (lib is not None and spec["dtype"] == "int16"
                     and scale_key in columns):
                 # native path: one GIL-free open/seek/read/descale call
-                import ctypes
                 out = np.empty(shape, np.float32)
                 rc = lib.read_scaled_segment_i16(
                     str(source / f"{uid}.{column}").encode(),
                     int(offset or 0), int(shape[0]),
                     int(spec["element_in_row"]),
-                    float(columns[scale_key]["values"]),
-                    out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+                    float(columns[scale_key]["values"]), ptr(out))
                 if rc == 0:
                     d[column] = out  # pre-scaled float32
                     continue

@@ -35,62 +35,24 @@ runs instead, with two pruning facts keeping it feasible:
 The two formulations are differentially tested against each other
 (tests/test_scoring.py::test_exact_orc_native_matches_enumeration).
 """
-import ctypes
 import itertools
-import os
-import subprocess
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from notsofar_tpu_torch.utils.native import load_native, ptr
 from notsofar_tpu_torch.utils.scoring.levenshtein import EditCounts
 from notsofar_tpu_torch.utils.scoring.seglst import SegLst
 from notsofar_tpu_torch.utils.scoring.tcpwer import (Vocab, WordSeq, _concat_seqs,
                                                _speaker_word_seqs, _tclev,
                                                _utterances)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "build", "liborc.so")
-_lib = None
-_lib_tried = False
-
-
-def _load_native():
-    """native/orc.cpp — the exact multidimensional tcORC DP; None ->
-    fall back to assignment enumeration (bounded by max_block_utts)."""
-    global _lib, _lib_tried
-    if _lib_tried:
-        return _lib
-    _lib_tried = True
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "build/liborc.so"],
-                       check=True, capture_output=True)
-    except Exception:
-        if not os.path.exists(_SO_PATH):
-            return None
-    try:
-        lib = ctypes.CDLL(_SO_PATH)
-        lib.orc_exact.restype = ctypes.c_int64
-        c_i32p = ctypes.POINTER(ctypes.c_int32)
-        c_f64p = ctypes.POINTER(ctypes.c_double)
-        c_i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.orc_exact.argtypes = [
-            c_i32p, c_f64p, c_f64p, c_i32p, ctypes.c_int64,
-            c_i32p, c_f64p, c_f64p, c_i64p, ctypes.c_int64,
-            ctypes.c_int64, c_i64p]
-        _lib = lib
-    except OSError:
-        _lib = None
-    return _lib
-
-
 def _orc_exact_native(utt_seqs: List[WordSeq], streams: List[WordSeq],
                       collar: float, max_ops: int = 2_000_000_000
                       ) -> Optional[EditCounts]:
-    """Exact block optimum via the native DP; None when the kernel is
-    unavailable or the state space exceeds max_ops."""
-    lib = _load_native()
+    """Exact block optimum via the native DP (native/orc.cpp); None when
+    the kernel is unavailable or the state space exceeds max_ops."""
+    lib = load_native("orc")
     if lib is None:
         return None
     ids = np.concatenate([u.ids for u in utt_seqs]).astype(np.int32)
@@ -107,19 +69,11 @@ def _orc_exact_native(utt_seqs: List[WordSeq], streams: List[WordSeq],
     offsets = np.zeros(len(streams) + 1, np.int64)
     np.cumsum([len(s) for s in streams], out=offsets[1:])
     out4 = np.zeros(4, np.int64)
-    c_i32p = ctypes.POINTER(ctypes.c_int32)
-    c_f64p = ctypes.POINTER(ctypes.c_double)
-    c_i64p = ctypes.POINTER(ctypes.c_int64)
+    c = np.ascontiguousarray
     res = lib.orc_exact(
-        np.ascontiguousarray(ids).ctypes.data_as(c_i32p),
-        np.ascontiguousarray(beg).ctypes.data_as(c_f64p),
-        np.ascontiguousarray(end).ctypes.data_as(c_f64p),
-        np.ascontiguousarray(utt).ctypes.data_as(c_i32p), len(ids),
-        np.ascontiguousarray(h_ids).ctypes.data_as(c_i32p),
-        np.ascontiguousarray(h_beg).ctypes.data_as(c_f64p),
-        np.ascontiguousarray(h_end).ctypes.data_as(c_f64p),
-        np.ascontiguousarray(offsets).ctypes.data_as(c_i64p), len(streams),
-        max_ops, out4.ctypes.data_as(c_i64p))
+        ptr(c(ids)), ptr(c(beg)), ptr(c(end)), ptr(c(utt)), len(ids),
+        ptr(c(h_ids)), ptr(c(h_beg)), ptr(c(h_end)), ptr(c(offsets)),
+        len(streams), max_ops, ptr(out4))
     if res < 0:
         return None
     return EditCounts(int(out4[0]), int(out4[1]), int(out4[2]),

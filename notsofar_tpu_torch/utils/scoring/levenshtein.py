@@ -1,70 +1,21 @@
 """Time-constrained Levenshtein distance (native C++ with numpy fallback).
 
 Copy of notsofar_tpu/utils/scoring/levenshtein.py. The scoring core for
-tcpWER / tcORC-WER. Loads notsofar_tpu_torch/native/build/libtclev.so via
-ctypes, building it with make on first use if g++ is available; otherwise
+tcpWER / tcORC-WER. Runs the port's native/tclev.cpp, built and loaded at
+first use by utils/native.py where a C++ compiler is available; otherwise
 falls back to a vectorized numpy DP (identical results; the breakdown tie
 order — diagonal, deletion, insertion — matches the C++ kernel).
 """
-import ctypes
-import os
-import subprocess
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from notsofar_tpu_torch.utils.logging_def import get_logger
-
-_LOG = get_logger("tclev")
-
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "build", "libtclev.so")
-
-_lib = None
-_lib_tried = False
-
-
-def _load_native():
-    global _lib, _lib_tried
-    if _lib_tried:
-        return _lib
-    _lib_tried = True
-    # always invoke make: the Makefile's source deps make it a no-op when
-    # fresh and a rebuild when tclev.cpp changed — a pre-existing stale .so
-    # must never shadow source edits
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
-    except Exception as e:  # g++/make unavailable -> try existing, else numpy
-        if not os.path.exists(_SO_PATH):
-            _LOG.warning(f"native tclev build failed ({e}); using numpy DP")
-            return None
-    try:
-        lib = ctypes.CDLL(_SO_PATH)
-        lib.tc_levenshtein.restype = ctypes.c_int64
-        lib.tc_levenshtein.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double),
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double),
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64)]
-        lib.levenshtein.restype = ctypes.c_int64
-        lib.levenshtein.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64)]
-        _lib = lib
-    except OSError as e:
-        _LOG.warning(f"native tclev load failed ({e}); using numpy DP")
-        _lib = None
-    return _lib
+from notsofar_tpu_torch.utils.native import load_native, ptr
 
 
 def core_name() -> str:
-    """Which core the scorer runs: 'native' (build/libtclev.so) or 'numpy'."""
-    return "native" if _load_native() is not None else "numpy"
+    """Which core the scorer runs: 'native' (native/tclev.cpp) or 'numpy'."""
+    return "native" if load_native("tclev") is not None else "numpy"
 
 
 @dataclass
@@ -73,10 +24,6 @@ class EditCounts:
     substitutions: int
     insertions: int
     deletions: int
-
-
-def _as_c(arr, ctype):
-    return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def tc_levenshtein(ref_ids: np.ndarray, ref_beg: np.ndarray,
@@ -95,16 +42,12 @@ def tc_levenshtein(ref_ids: np.ndarray, ref_beg: np.ndarray,
     hyp_beg = np.ascontiguousarray(hyp_beg, np.float64)
     hyp_end = np.ascontiguousarray(hyp_end, np.float64)
     n, m = len(ref_ids), len(hyp_ids)
-    lib = _load_native()
+    lib = load_native("tclev")
     if lib is not None:
         out = np.zeros(4, np.int64)
-        lib.tc_levenshtein(_as_c(ref_ids, ctypes.c_int32),
-                           _as_c(ref_beg, ctypes.c_double),
-                           _as_c(ref_end, ctypes.c_double), n,
-                           _as_c(hyp_ids, ctypes.c_int32),
-                           _as_c(hyp_beg, ctypes.c_double),
-                           _as_c(hyp_end, ctypes.c_double), m,
-                           _as_c(out, ctypes.c_int64))
+        lib.tc_levenshtein(ptr(ref_ids), ptr(ref_beg), ptr(ref_end), n,
+                           ptr(hyp_ids), ptr(hyp_beg), ptr(hyp_end), m,
+                           ptr(out))
         return EditCounts(int(out[0]), int(out[1]), int(out[2]), int(out[3]))
     return _tc_lev_numpy(ref_ids, ref_beg, ref_end, hyp_ids, hyp_beg, hyp_end)
 

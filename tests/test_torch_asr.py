@@ -25,6 +25,7 @@ from notsofar_tpu_torch.asr import decoding as tdec
 from notsofar_tpu_torch.asr import inference as tinf
 from notsofar_tpu_torch.asr import transcribe as ttr
 from notsofar_tpu_torch.models import whisper as tw
+from notsofar_tpu_torch.utils import native as tnative
 from tests.test_torch_whisper import (KDIMS_ARGS, int8_pair,  # noqa
                                       mini_tokenizers, pair, torch_threads)
 
@@ -316,7 +317,7 @@ def _native_dtw():
     """The native DTW core, loaded; skips only where no g++ can build it."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build native/dtw.cpp")
-    lib = tdec._load_dtw_native()
+    lib = tnative.load_native("dtw")
     assert lib is not None
     return lib
 
@@ -371,8 +372,7 @@ def test_dtw_token_starts_through_both_cores(monkeypatch, case, n_rows,
     want = [first.get(i, float(n_cols)) for i in range(cost.shape[0])]
     assert native.tolist() == want
     # the numpy DP, as without a compiler
-    monkeypatch.setattr(tdec, "_DTW_LIB", None)
-    monkeypatch.setattr(tdec, "_DTW_TRIED", True)
+    monkeypatch.setitem(tnative._LIBS, "dtw", None)
     assert tdec.dtw_token_starts(cost, n_rows, n_cols).tolist() == want
 
 
@@ -393,28 +393,6 @@ def test_word_timestamps_count_native_dtw_windows(pair):  # noqa: F811
     assert all(out)
     assert tdec.DECODE_STEPS["align_windows"] == 3
     assert tdec.DECODE_STEPS["dtw_native"] == 3
-
-
-def test_dtw_falls_back_to_numpy_when_the_build_fails(monkeypatch, caplog,
-                                                      tmp_path):
-    """With make failing and no library on disk, the loader warns and
-    returns None, and dtw_path takes the numpy DP: the same path, and no
-    window counted as native."""
-    def no_make(*a, **k):
-        raise OSError("make: not found")
-    monkeypatch.setattr(tdec.subprocess, "run", no_make)
-    monkeypatch.setattr(tdec, "_DTW_SO", str(tmp_path / "libdtw.so"))
-    monkeypatch.setattr(tdec, "_DTW_LIB", None)
-    monkeypatch.setattr(tdec, "_DTW_TRIED", False)
-    assert tdec._load_dtw_native() is None
-    assert "using numpy DP" in caplog.text
-    cost = _dtw_cost("ties_100x800")
-    before = tdec.DECODE_STEPS["dtw_native"]
-    ti, tj = tdec.dtw_path(cost)
-    assert tdec.DECODE_STEPS["dtw_native"] == before
-    ri, rj = tdec._dtw_path_numpy(cost)
-    np.testing.assert_array_equal(ti, ri)
-    np.testing.assert_array_equal(tj, rj)
 
 
 @pytest.mark.parametrize("tokens", [

@@ -17,6 +17,7 @@ from notsofar_tpu.utils import scoring as jsc
 from notsofar_tpu.utils.scoring import tcpwer as jtcp
 from notsofar_tpu.utils.text_norm import get_txt_norm as j_txt_norm
 from notsofar_tpu.utils.text_norm import numbers as jnum
+from notsofar_tpu_torch.utils import native
 from notsofar_tpu_torch.utils import scoring as tsc
 from notsofar_tpu_torch.utils.scoring import exact_orc as texact
 from notsofar_tpu_torch.utils.scoring import levenshtein as tlev
@@ -146,10 +147,10 @@ def test_native_cores_are_built_from_the_port_copy():
     the production tcORC on a seeded session."""
     assert tlev.core_name() == "native"
     build = REPO / "notsofar_tpu_torch" / "native" / "build"
-    assert Path(tlev._SO_PATH).parent == build
-    assert (build / "libtclev.so").exists()
-    assert texact._load_native() is not None
-    assert Path(texact._SO_PATH).parent == build
+    assert native.core_path("tclev").parent == build
+    assert native.core_path("tclev").exists()
+    assert native.load_native("orc") is not None
+    assert native.core_path("orc").parent == build
     rng = np.random.RandomState(7)
     ref, hyp = _random_session(rng, 8, 2, ["a", "b", "c"])
     _, tref = _both(list(ref))

@@ -12,6 +12,7 @@ from notsofar_tpu_torch.asr import decoding as tdec
 from notsofar_tpu_torch.asr import transcribe as ttr
 from notsofar_tpu_torch.asr.tokenizer import WhisperTokenizer
 from notsofar_tpu_torch.models import whisper as tw
+from notsofar_tpu_torch.utils import native as tnative
 from notsofar_tpu_torch.utils import profiling
 
 DIMS = (80, 1500, 128, 2, 1, 1864, 448, 128, 2, 2)
@@ -147,7 +148,7 @@ def test_align_windows_counts_the_windows_aligned(small):
     assert len(out) == 3
     assert tdec.DECODE_STEPS["align_windows"] == 3
     # the windows whose DTW ran in the native core, where it loads
-    native = tdec._load_dtw_native() is not None
+    native = tnative.load_native("dtw") is not None
     assert tdec.DECODE_STEPS["dtw_native"] == (3 if native else 0)
     counted = ("align_windows", "dtw_native")
     assert {k: tdec.DECODE_STEPS[k] for k in before

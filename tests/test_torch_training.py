@@ -49,6 +49,7 @@ from notsofar_tpu_torch.training import losses as tlosses
 from notsofar_tpu_torch.training import parity
 from notsofar_tpu_torch.training import schedulers as tsched
 from notsofar_tpu_torch.training import train as ttrain
+from notsofar_tpu_torch.utils import native
 from notsofar_tpu_torch.utils.conf import dataclass_to_dict
 from tests.test_training import write_sim_dataset
 from tests.test_torch_whisper import torch_threads  # noqa: F401
@@ -135,7 +136,7 @@ def test_segment_splitter_matches_jax():
 def test_dataset_and_sharded_loader_match_jax(sim_root, sc):
     """Items and batches (shuffled, two shards with a padded ragged tail,
     two epochs) array-equal to the JAX package's; the port's native
-    reader is its own build/libsegread.so."""
+    reader is its own native/segread.cpp, built into native/build/."""
     sp = (2000, 4000, 0.5, 8000)
     jset = jds.SimulatedDataset(str(sim_root), jds.SegmentSplitter(*sp),
                                 seed=3, single_channel=sc)
@@ -144,8 +145,10 @@ def test_dataset_and_sharded_loader_match_jax(sim_root, sc):
     assert len(jset) == len(tset) > 0
     for i in (0, len(tset) - 1):
         _same_items(jset[i], tset[i])
-    assert tds._load_segread() is not None
-    assert (REPO / "notsofar_tpu_torch/native/build/libsegread.so").exists()
+    assert native.load_native("segread") is not None
+    assert native.core_path("segread").parent == \
+        REPO / "notsofar_tpu_torch/native/build"
+    assert native.core_path("segread").exists()
     for shard in (0, 1):
         kw = dict(batch_size=3, shuffle=True, seed=5, drop_last=False,
                   num_threads=2, shard_index=shard, num_shards=2)
